@@ -1,0 +1,26 @@
+"""gf3x_torch — the PyTorch/CUDA port of gf3x, beside the JAX package it is
+held against. It runs the config-5 receive path (chirp sync, frame cut,
+used-band DFT, LS estimate, EQ/track/demap, LDPC) and the transmit path,
+with three hand-written CUDA kernels for sm_90a on the card and their plain
+PyTorch versions on the CPU. It never imports jax or gf3x.
+
+    from gf3x_torch import GF3_STANDARD, Modem
+    modem = Modem(GF3_STANDARD, max_delay=4352, device="cuda")
+    bits, diag = modem.demodulate(rx)            # rx: (B, T) float32
+"""
+
+import torch
+
+# Full float32 everywhere: the LDPC encode is a float matmul taken mod 2,
+# and the 280×280 complex denoise and ISI products need every bit.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .config import (CONFIG1_LOOPBACK, GF3_FAST, GF3_HICAP,  # noqa: E402
+                     GF3_ROBUST, GF3_STANDARD, GF3_TURBO, ModemConfig,
+                     layout, preset)
+from .models import DecodeDiag, DecodeResult, Modem  # noqa: E402
+
+__all__ = ["ModemConfig", "preset", "layout", "GF3_STANDARD", "GF3_FAST",
+           "GF3_HICAP", "GF3_TURBO", "GF3_ROBUST", "CONFIG1_LOOPBACK",
+           "Modem", "DecodeDiag", "DecodeResult"]

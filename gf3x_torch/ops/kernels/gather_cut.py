@@ -1,0 +1,80 @@
+"""Kernel 1: fused frame cut + CP strip (`csrc/cut_symbols.cu`, replacing
+gf3x/ops/pallas/gather_cut.py:cut_symbols_tpu), with its plain PyTorch
+version: the `gather_cut` window cut + reshape/slice of
+gf3x/ops/sync.py:398-402.
+
+`cut_symbols` runs the plain version for a CPU tensor and launches the
+kernel for a CUDA tensor (or raises); `cut_symbols.launches` counts the
+launches."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...utils.device import launch, ptr, stream_of
+
+__all__ = ["gather_cut", "cut_symbols", "cut_symbols_plain"]
+
+
+def gather_cut(rx: torch.Tensor, q: torch.Tensor, nb: int, block: int,
+               valid: int) -> torch.Tensor:
+    """Per-row block-aligned window: (B, T) → (B, nb·block) with row i =
+    rx[i, q[i]·block:][:nb·block], samples at or past `valid` read as 0."""
+    cols = (q.to(torch.int64)[:, None] * block
+            + torch.arange(nb * block, device=rx.device))
+    got = torch.gather(rx, 1, cols.clamp(0, max(valid - 1, 0)))
+    return torch.where(cols < valid, got, torch.zeros((), device=rx.device))
+
+
+def cut_symbols_plain(rx: torch.Tensor, q: torch.Tensor, *, valid: int,
+                      block: int, S: int, n_fft: int, body_off: int,
+                      sym_len: int, cp: int, sc_off: int):
+    """rx (B, T) f32, q (B,) int32 window block of each row → (syms
+    (B, S, n_fft), scw (B, n_fft) or None): symbol s of row i is
+    rx[i, q·block + body_off + s·sym_len + cp :][:n_fft] and scw the n_fft
+    window at q·block + sc_off (None when sc_off < 0)."""
+    need = max(body_off + S * sym_len, sc_off + n_fft if sc_off >= 0 else 0)
+    nb = -(-need // block)
+    win = gather_cut(rx, q, nb, block, valid)
+    body = win[:, body_off: body_off + S * sym_len]
+    syms = body.reshape(-1, S, sym_len)[..., cp: cp + n_fft]
+    scw = win[:, sc_off: sc_off + n_fft] if sc_off >= 0 else None
+    return syms, scw
+
+
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 7 \
+    + [ctypes.c_void_p]
+
+
+def cut_symbols(rx: torch.Tensor, q: torch.Tensor, *, valid: int,
+                block: int, S: int, n_fft: int, body_off: int, sym_len: int,
+                cp: int, sc_off: int):
+    """`cut_symbols_plain` for a CPU tensor; the CUDA kernel otherwise."""
+    kw = dict(valid=valid, block=block, S=S, n_fft=n_fft, body_off=body_off,
+              sym_len=sym_len, cp=cp, sc_off=sc_off)
+    if rx.device.type == "cpu":
+        return cut_symbols_plain(rx, q, **kw)
+    if rx.device.type != "cuda" or q.device != rx.device:
+        raise ValueError(f"cut_symbols: rx on {rx.device}, q on {q.device}; "
+                         "both must be on one CUDA device")
+    if (rx.dtype != torch.float32 or q.dtype != torch.int32 or rx.dim() != 2
+            or q.shape != rx.shape[:1] or not rx.is_contiguous()
+            or not q.is_contiguous()):
+        raise ValueError("cut_symbols: needs contiguous rx (B, T) float32 "
+                         "and q (B,) int32")
+    B, T = rx.shape
+    if not 0 <= valid <= T:
+        raise ValueError(f"cut_symbols: valid={valid} outside [0, {T}]")
+    syms = torch.empty(B, S, n_fft, device=rx.device)
+    scw = torch.empty(B, n_fft if sc_off >= 0 else 0, device=rx.device)
+    with torch.cuda.device(rx.device):
+        launch("gf3x_cut_symbols", _ARGS, ptr(rx), ptr(q), ptr(syms),
+               ptr(scw), B, T, valid, block, S, n_fft, body_off, sym_len, cp,
+               sc_off, stream_of(rx))
+    cut_symbols.launches += 1
+    return syms, (scw if sc_off >= 0 else None)
+
+
+cut_symbols.launches = 0

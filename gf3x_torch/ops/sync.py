@@ -1,0 +1,177 @@
+"""Frame synchronization on torch tensors (counterpart of the main-path
+subset of gf3x/ops/sync.py): the FFT chirp matched filter, bounded and
+decimated onset search with first-arrival refinement, the block-aligned
+frame cut, and the Schmidl–Cox metric of an already-cut window.
+
+The correlation stays an FFT (`torch.fft`, cuFFT on the card); the TPU's
+bf16 Toeplitz form is a TPU artefact. The cut follows `gather_cut`'s
+semantics (window block q = clip(start // block, 0, nf + 8 − nb), roll
+r = start − q·block, samples past the whole-block prefix read as zero), the
+values the JAX CPU path computes; the TPU kernel's per-group span staging
+has no counterpart because a GPU block reads its own window directly."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import ModemConfig
+from .kernels import gather_cut as _cut
+
+__all__ = ["sync_nfft", "bounded_sync_nfft", "bounded_mf_shape",
+           "matched_filter", "find_frame_start", "max_cut_start",
+           "cut_plan", "cut_symbols", "sc_metric_window"]
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << int(np.ceil(np.log2(max(2, n))))
+
+
+def sync_nfft(T: int, chirp_len: int) -> int:
+    """Static FFT length for linear (non-circular) correlation."""
+    return _next_pow2(T + chirp_len)
+
+
+def bounded_sync_nfft(T: int, search_len: int, chirp_len: int,
+                      decimate: int = 1) -> int:
+    """Correlation FFT length of a bounded (optionally decimated) search on
+    a length-T recording: only lags < search_len are read, so
+    next_pow2(max(len(seg), n_lags + len(chirp))) is wraparound-free."""
+    seg_len, n_lags = bounded_mf_shape(T, search_len, chirp_len, decimate)
+    c_len = -(-chirp_len // decimate)
+    return _next_pow2(max(seg_len, n_lags + c_len))
+
+
+def bounded_mf_shape(T: int, search_len: int, chirp_len: int,
+                     decimate: int = 2) -> tuple[int, int]:
+    """(seg_len, n_lags) of the bounded matched filter
+    `find_frame_start(search_len=..., decimate=...)` runs on (..., T)."""
+    S = min(search_len, T)
+    seg_len = -(-min(S + chirp_len, T) // decimate)
+    return seg_len, min(S // decimate, seg_len)
+
+
+def _chirp_spectrum(chirp, nfft: int, device) -> torch.Tensor:
+    """conj(rfft(chirp, nfft)) in float64, rounded to complex64."""
+    c = torch.as_tensor(chirp, dtype=torch.float64, device=device)
+    return torch.conj(torch.fft.rfft(c, nfft)).to(torch.complex64)
+
+
+def matched_filter(rx: torch.Tensor, chirp, nfft: int | None = None
+                   ) -> torch.Tensor:
+    """m[n] = Σ_i rx[n+i]·c[i] by FFT cross-correlation: (..., T) → (..., T).
+    The default length is linear at every lag; a smaller `nfft` (≥ T) is
+    exact only for lags n ≤ nfft − len(chirp)."""
+    T = rx.shape[-1]
+    if nfft is None:
+        nfft = sync_nfft(T, len(chirp))
+    R = torch.fft.rfft(rx, nfft, dim=-1)
+    M = torch.fft.irfft(R * _chirp_spectrum(chirp, nfft, rx.device), nfft,
+                        dim=-1)
+    return M[..., :T]
+
+
+def _first_arrival(mabs: torch.Tensor, peak: torch.Tensor,
+                   peak_val: torch.Tensor, back: int) -> torch.Tensor:
+    """Earliest tap within 6 dB of the peak in the `back`-wide window before
+    it (the strongest tap can be a reflection): one masked argmax, which
+    returns the first True."""
+    idx = torch.arange(mabs.shape[-1], device=mabs.device)
+    p = peak[..., None]
+    valid = ((mabs >= 0.5 * peak_val[..., None])
+             & (idx >= p - back) & (idx <= p))
+    return torch.argmax(valid.to(torch.int32), dim=-1).to(torch.int32)
+
+
+def find_frame_start(cfg: ModemConfig, rx: torch.Tensor, chirp,
+                     search_len: int | None = None, decimate: int = 1):
+    """Chirp sync: (..., T) recording → (start (...,) int32, metric (...,)
+    f32) — argmax |m|, first-arrival refinement, peak over mean |m|.
+
+    `search_len` bounds the onset to [0, search_len): the correlation runs
+    on the prefix rx[:search_len + len(chirp)] with a small FFT. `decimate`
+    (only with search_len) correlates every decimate-th sample; the timing
+    granularity becomes `decimate` samples, inside the CP backoff."""
+    chirp = torch.as_tensor(chirp, dtype=torch.float64)
+    T = rx.shape[-1]
+    back = cfg.cp
+    if search_len is not None:
+        seg = rx[..., : min(min(search_len, T) + len(chirp), T)]
+        F = bounded_sync_nfft(T, search_len, len(chirp), decimate)
+        _, n_lags = bounded_mf_shape(T, search_len, len(chirp), decimate)
+        seg, chirp = seg[..., ::decimate], chirp[::decimate]
+        back = cfg.cp // decimate
+        mabs = torch.abs(matched_filter(seg, chirp, nfft=F))[..., :n_lags]
+    else:
+        decimate = 1
+        mabs = torch.abs(matched_filter(rx, chirp))
+    peak_val, peak = torch.max(mabs, dim=-1)
+    start = _first_arrival(mabs, peak, peak_val, back)
+    metric = peak_val / (torch.mean(mabs, dim=-1) + 1e-12)
+    return (decimate * start).to(torch.int32), metric
+
+
+def max_cut_start(T: int, need: int, block: int = 128) -> int:
+    """Largest window start whose `need` samples the cut returns verbatim:
+    it reads whole blocks of the recording prefix, so the last partial
+    block reads as zeros."""
+    return max((T // block) * block - need, 0)
+
+
+def cut_plan(T: int, starts: torch.Tensor, *, S: int, n_fft: int,
+             sym_len: int, sc_off: int, body_off: int, block: int = 128):
+    """The cut's per-row geometry on a length-T recording: (q (B,) int32
+    window block, valid — samples of each row the cut may read, the rest
+    read as zero —, roll (B,) int32). q = clip(start // block, 0,
+    nf + 8 − nb) and roll = start − q·block clipped to [0, block), as
+    gf3x's `gather_cut` computes them."""
+    need = max(body_off + S * sym_len, sc_off + n_fft if sc_off >= 0 else 0)
+    nb = -(-(need + block) // block)
+    nb = -(-nb // 8) * 8
+    nf = T // block
+    s = starts.to(torch.int32).reshape(-1)
+    if nf + 8 - nb < 0:
+        # recording shorter than one window: cut at block 0, reading the
+        # whole recording zero-extended (degenerate input)
+        return torch.zeros_like(s), T, torch.clamp(s, 0, block - 1)
+    q = torch.clamp(torch.div(s, block, rounding_mode="floor"), 0,
+                    nf + 8 - nb)
+    return q, nf * block, torch.clamp(s - q * block, 0, block - 1)
+
+
+def cut_symbols(rx: torch.Tensor, starts: torch.Tensor, *, S: int,
+                n_fft: int, sym_len: int, cp: int, body_off: int,
+                sc_off: int, block: int = 128):
+    """Fused frame cut + CP strip: (syms (..., S, n_fft), scw (..., n_fft)
+    or None, roll (...,) int32). Symbol s of row i is
+    rx[i, q·block + body_off + s·sym_len + cp :][:n_fft] (`cut_plan`), scw
+    the n_fft window at q·block + sc_off (None when sc_off < 0). Runs
+    kernel 1 on the card (`ops.kernels.gather_cut.cut_symbols`)."""
+    *lead, T = rx.shape
+    starts = torch.broadcast_to(starts.to(rx.device), tuple(lead))
+    q, valid, r = cut_plan(T, starts, S=S, n_fft=n_fft, sym_len=sym_len,
+                           sc_off=sc_off, body_off=body_off, block=block)
+    syms, scw = _cut.cut_symbols(
+        rx.reshape(-1, T).contiguous(), q.contiguous(), valid=valid,
+        block=block, S=S, n_fft=n_fft, body_off=body_off, sym_len=sym_len,
+        cp=cp, sc_off=sc_off)
+    syms = syms.reshape(*lead, S, n_fft)
+    scw = scw.reshape(*lead, n_fft) if scw is not None else None
+    return syms, scw, r.reshape(tuple(lead))
+
+
+def sc_metric_window(cfg: ModemConfig, win: torch.Tensor) -> torch.Tensor:
+    """SC metric M = P²/R² of one n_fft window over its two halves, on
+    guarded sub-windows (half//4 samples skipped at each end) so ±half//4
+    samples of misplacement keep the half-periodicity: win (..., n_fft) →
+    (...,), ≈1 on the repeated-half SC symbol."""
+    half = cfg.n_fft // 2
+    guard = half // 4
+    L = half - 2 * guard
+    h1 = win[..., guard: guard + L]
+    h2 = win[..., guard + half: guard + half + L]
+    P = torch.sum(h1 * h2, dim=-1)
+    Rw = torch.sum(h2 * h2, dim=-1)
+    tot = torch.sum(h1 * h1, dim=-1) + Rw
+    Rw = torch.maximum(Rw, 0.05 * tot + 1e-24)
+    return (P * P) / (Rw * Rw)

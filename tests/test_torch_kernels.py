@@ -1,0 +1,196 @@
+"""The plain versions of gf3x_torch's three CUDA kernels, against the gf3x
+functions they replace, on the CPU (where every kernel wrapper runs its
+plain version); plus the wrappers' dispatch rule and the build recipe.
+
+The kernels themselves run only on the card: `chip_smoke.py` compares each
+with its plain version there."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from gf3x import GF3_STANDARD
+from gf3x import Modem as JModem
+from gf3x.fec.ldpc import LdpcCode as JCode
+from gf3x.models.frame import interleave_bits as j_interleave
+
+from gf3x_torch import Modem as TModem
+from gf3x_torch.fec.codes import N_BLOCK_COLS
+from gf3x_torch.fec.ldpc import LdpcCode as TCode
+from gf3x_torch.ops.kernels import fused_eq, gather_cut, ldpc_bp
+from gf3x_torch.utils import device
+
+
+@pytest.mark.parametrize("bps", [2, 4])
+def test_fused_eq_demap_plain_matches_xla_twin(bps):
+    """Kernel 2's plain version through the port's receive tail vs gf3x's
+    `_demod_prewindowed(use_pallas=False)` on noisy frames: hard decisions
+    exact, soft ≤ 1e-4·mean|LLR|, slope/cpe ≤ 1e-4 rad, evm and mean|LLR|
+    ≤ 1e-4 rel."""
+    cfg = GF3_STANDARD.replace(bits_per_symbol=bps, fec="none",
+                               n_data_symbols=6)
+    jm, tm = JModem(cfg), TModem(cfg)
+    rng = np.random.default_rng(bps)
+    info = rng.integers(0, 2, (3, cfg.payload_bits_per_frame), dtype=np.uint8)
+    wav = np.asarray(jm.modulate_frames(jnp.asarray(info)))
+    a = cfg.preamble_len - cfg.cp // 4
+    S = cfg.n_known_symbols + cfg.n_data_symbols
+    need = S * cfg.symbol_len
+    body = (wav[:, a: a + need]
+            + rng.normal(0, 8e-3, (3, need))).astype(np.float32)
+
+    llr_r, (_, _, sl_r, cp_r, evm_r, mab_r, *_) = jm._demod_prewindowed(
+        jnp.asarray(body), use_pallas=False)
+    syms = torch.as_tensor(body).reshape(3, S, cfg.symbol_len)[..., cfg.cp:]
+    llr_t, (_, _, sl_t, cp_t, evm_t, mab_t, *_) = tm._demod_syms(syms)
+    llr_r = np.asarray(llr_r)
+    llr_t = llr_t.numpy()
+    assert llr_t.shape == llr_r.shape == (3, cfg.raw_bits_per_frame)
+    assert np.array_equal(llr_t < 0, llr_r < 0)
+    assert np.max(np.abs(llr_t - llr_r)) <= 1e-4 * np.mean(np.abs(llr_r))
+    assert np.max(np.abs(sl_t.numpy() - np.asarray(sl_r))) <= 1e-4
+    assert np.max(np.abs(cp_t.numpy() - np.asarray(cp_r))) <= 1e-4
+    assert np.allclose(evm_t.numpy(), np.asarray(evm_r), rtol=1e-4)
+    assert np.allclose(mab_t.numpy(), np.asarray(mab_r), rtol=1e-4)
+    # and the LLRs decode: hard bits match the transmitted channel bits
+    coded = np.asarray(jm.fec_encode(jnp.asarray(info)))
+    assert np.mean((llr_t < 0) != coded) < 1e-3
+
+
+def _noisy_codewords(code, L, seed, sigma=0.8):
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2, size=(L, code.k), dtype=np.uint8)
+    c = code.encode(u)
+    y = (1.0 - 2.0 * c) + rng.normal(0, sigma, c.shape)
+    return u, (2 * y / sigma ** 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("z,rate", [(24, "1/2"), (24, "3/4"), (96, "1/2"),
+                                    (96, "3/4")])
+def test_minsum_plain_bit_identical_to_xla_twin(z, rate):
+    """Kernel 3's plain version vs `LdpcCode._minsum_xla` (and the
+    `decode_jax(use_pallas=False)` surface): info bits, unsat flags and the
+    totals' signs bit-identical; per-codeword passes ≤ the batch-wide count,
+    with the slowest codeword equal to it. The totals themselves agree to
+    ≤ 1e-5 of their largest magnitude, not bit for bit: XLA:CPU contracts
+    `α·p·m − c2v` into a fused multiply-add, while the port (and its CUDA
+    kernel, built with --fmad=false) rounds the product and the difference
+    separately."""
+    jc = JCode(z, rate)
+    iters = 12
+    u, llr = _noisy_codewords(jc, 12, z + len(rate),
+                              sigma=0.8 if rate == "1/2" else 0.5)
+    tot_r, it_r, uns_r = jc._minsum_xla(
+        jnp.asarray(llr).reshape(-1, N_BLOCK_COLS, z), iters, True)
+    tot_t, uns_t, pas_t = ldpc_bp.minsum_totals_plain(
+        torch.as_tensor(llr), z, rate, iters)
+    tot_r = np.asarray(tot_r).reshape(12, -1)
+    assert np.array_equal(tot_t.numpy() < 0, tot_r < 0)
+    assert np.max(np.abs(tot_t.numpy() - tot_r)) <= 1e-5 * np.max(np.abs(tot_r))
+    assert np.array_equal(uns_t.numpy(), np.asarray(uns_r))
+    assert int(pas_t.max()) == int(it_r) and int(pas_t.min()) >= 0
+
+    bits_r, _, uns_r2 = jc.decode_jax(jnp.asarray(llr), iters,
+                                      use_pallas=False, with_diag=True)
+    bits_t, pas2, uns_t2 = TCode(z, rate).decode(torch.as_tensor(llr), iters)
+    assert np.array_equal(bits_t.numpy(), np.asarray(bits_r))
+    assert np.array_equal(uns_t2.numpy(), np.asarray(uns_r2))
+    assert np.array_equal(pas2.numpy(), pas_t.numpy())
+    assert np.mean(bits_t.numpy() != u) < 0.01          # and it decodes
+
+
+def test_minsum_plain_matches_pallas_interpret():
+    """Against the TPU kernel itself (Pallas interpret mode, z = 24, one
+    128-lane block): totals' signs and unsat flags equal, passes within the
+    block's count."""
+    from gf3x.ops.pallas.ldpc_bp import minsum_totals_tpu
+
+    z, L = 24, 128
+    jc = JCode(z)
+    _, llr = _noisy_codewords(jc, L, 5, sigma=0.85)
+    lam_t = jnp.asarray(llr).reshape(L, N_BLOCK_COLS, z).transpose(1, 2, 0)
+    tot_p, diag = minsum_totals_tpu(lam_t, z, 8, interpret=True)
+    tot_p = np.asarray(tot_p).transpose(2, 0, 1).reshape(L, -1)
+    tot_t, uns_t, pas_t = ldpc_bp.minsum_totals_plain(
+        torch.as_tensor(llr), z, "1/2", 8)
+    assert np.array_equal(tot_t.numpy() < 0, tot_p < 0)
+    assert np.array_equal(uns_t.numpy(), np.asarray(diag)[0] > 0.5)
+    assert int(pas_t.max()) == int(np.asarray(diag)[1, 0])
+
+
+def test_encode_matches_gf3x():
+    """Systematic encode through the parity projector: exact, and the
+    projector is the same table."""
+    jc, tc = JCode(96), TCode(96)
+    assert np.array_equal(tc.P, jc.t.P)
+    u = np.random.default_rng(2).integers(0, 2, (5, jc.k), dtype=np.uint8)
+    assert np.array_equal(tc.encode(torch.as_tensor(u)).numpy(), jc.encode(u))
+
+
+def test_fec_gather_matches_coded_stream_llr():
+    """The FEC ingest's static gather (deinterleave + descramble) lands each
+    LLR where gf3x's `coded_stream_llr` puts it: exact."""
+    cfg = GF3_STANDARD
+    tm = TModem(cfg)
+    llr = np.random.default_rng(3).standard_normal(
+        (2, cfg.raw_bits_per_frame)).astype(np.float32)
+    ref = np.asarray(j_interleave(cfg, jnp.asarray(llr), inverse=True)) * \
+        (1.0 - 2.0 * tm.lay.scramble.astype(np.float32))
+    x = torch.as_tensor(llr)
+    got = x[:, tm.fec_index] * (1.0 - 2.0 * tm.scramble.float())
+    assert np.array_equal(got.numpy(), ref)
+
+
+def test_cut_symbols_wrapper_dispatch():
+    """A CPU tensor runs the plain version and launches nothing; a tensor on
+    another device is refused, never silently computed."""
+    rng = np.random.default_rng(4)
+    rx = torch.as_tensor(rng.standard_normal((2, 4000)).astype(np.float32))
+    q = torch.tensor([0, 3], dtype=torch.int32)
+    kw = dict(valid=3968, block=128, S=3, n_fft=512, body_off=640,
+              sym_len=640, cp=128, sc_off=96)
+    before = gather_cut.cut_symbols.launches
+    syms, scw = gather_cut.cut_symbols(rx, q, **kw)
+    ref_s, ref_w = gather_cut.cut_symbols_plain(rx, q, **kw)
+    assert torch.equal(syms, ref_s) and torch.equal(scw, ref_w)
+    assert torch.equal(syms[1, 0], rx[1, 3 * 128 + 640 + 128:][:512])
+    assert gather_cut.cut_symbols.launches == before
+    with pytest.raises(ValueError):
+        gather_cut.cut_symbols(rx.to("meta"), q.to("meta"), **kw)
+
+
+@pytest.mark.parametrize("which", ["fused_eq", "ldpc"])
+def test_other_wrappers_refuse_non_cpu_tensors(which):
+    """Kernels 2 and 3 likewise refuse a tensor that is neither on the CPU
+    nor on a CUDA device, and count no launch."""
+    if which == "fused_eq":
+        cfg = GF3_STANDARD
+        Y = torch.zeros(1, 24, cfg.n_used, dtype=torch.complex64,
+                        device="meta")
+        H = torch.zeros(1, cfg.n_used, dtype=torch.complex64, device="meta")
+        call = lambda: fused_eq.fused_eq_demap(  # noqa: E731
+            cfg, Y, H, torch.zeros(1, device="meta"))
+        fn = fused_eq.fused_eq_demap
+    else:
+        lam = torch.zeros(4, 24 * 96, device="meta")
+        call = lambda: ldpc_bp.minsum_totals(lam, 96, "1/2", 5)  # noqa: E731
+        fn = ldpc_bp.minsum_totals
+    before = fn.launches
+    with pytest.raises(ValueError):
+        call()
+    assert fn.launches == before
+
+
+def test_kernel_build_recipe():
+    """The library is keyed by its sources and flags, built for sm_90a with
+    multiply-add contraction off (the LDPC kernel's bit-exactness), and
+    loading it is deferred to the first launch."""
+    path = device.library_path()
+    assert path == device.library_path()
+    assert path.parent.parent.name == "_build"
+    assert "arch=compute_90a,code=sm_90a" in device.NVCC_FLAGS
+    assert "--fmad=false" in device.NVCC_FLAGS
+    names = {p.name for p in device.CSRC.iterdir()}
+    assert {"cut_symbols.cu", "fused_eq.cu", "ldpc_bp.cu"} <= names
+    assert device.kernel_lib.cache_info().currsize == 0

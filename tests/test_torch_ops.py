@@ -1,0 +1,272 @@
+"""gf3x_torch ops against their gf3x counterparts on the CPU.
+
+Each test feeds the same numpy inputs (made from a seed) to the gf3x
+function and to its port, and states its tolerance. "rel" is
+max|port − ref| / max|ref|."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from gf3x import GF3_STANDARD
+from gf3x.ops import chanest as jchan
+from gf3x.ops import constellation as jcon
+from gf3x.ops import ofdm as jofdm
+from gf3x.ops import sync as jsync
+from gf3x.ops.chirp import make_chirp
+from gf3x.models import frame as jframe
+
+from gf3x_torch.ops import chanest as tchan
+from gf3x_torch.ops import constellation as tcon
+from gf3x_torch.ops import ofdm as tofdm
+from gf3x_torch.ops import sync as tsync
+from gf3x_torch.ops.sfo import slope_clock_offset
+from gf3x_torch.models import frame as tframe
+
+CFG = GF3_STANDARD
+
+
+def rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def crandn(rng, *shape):
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+@pytest.mark.parametrize("bps", [2, 4, 6])
+def test_qam_map_and_demap_match(bps):
+    """Map: exact (same table lookups). Demap: ≤ 1e-5 rel (float32
+    min/subtract/divide, identical operation order)."""
+    rng = np.random.default_rng(bps)
+    bits = rng.integers(0, 2, (64, 7, bps), dtype=np.uint8)
+    ref = np.asarray(jcon.qam_map(jnp.asarray(bits), bps))
+    got = tcon.qam_map(torch.as_tensor(bits), bps).numpy()
+    assert np.array_equal(got, ref)
+
+    y = (ref + 0.2 * crandn(rng, *ref.shape)).astype(np.complex64)
+    nv = rng.uniform(0.01, 0.5, ref.shape).astype(np.float32)
+    ref_l = np.asarray(jcon.qam_demap_llr(jnp.asarray(y), jnp.asarray(nv), bps))
+    got_l = tcon.qam_demap_llr(torch.as_tensor(y), torch.as_tensor(nv),
+                               bps).numpy()
+    assert got_l.shape == ref_l.shape == (64, 7, bps)
+    assert rel(got_l, ref_l) <= 1e-5
+    assert np.array_equal(tcon.hard_bits(torch.as_tensor(got_l)).numpy(),
+                          np.asarray(jcon.hard_bits(jnp.asarray(ref_l))))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_interleave_bits_matches(inverse):
+    """The v3 channel-bit interleaver, both directions: exact."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, CFG.raw_bits_per_frame)).astype(np.float32)
+    ref = np.asarray(jframe.interleave_bits(CFG, jnp.asarray(x), inverse))
+    got = tframe.interleave_bits(CFG, torch.as_tensor(x), inverse).numpy()
+    assert np.array_equal(got, ref)
+    back = tframe.interleave_bits(CFG, torch.as_tensor(got), not inverse)
+    assert np.array_equal(back.numpy(), x)
+
+
+def test_frame_assembly_matches():
+    """Pilot interleave/split and the K+D frame bin matrix: exact."""
+    rng = np.random.default_rng(4)
+    bits = rng.integers(0, 2, (2, CFG.raw_bits_per_frame), dtype=np.uint8)
+    ref = np.asarray(jframe.frame_bin_matrix(
+        CFG, jframe.data_symbols_from_bits(CFG, jnp.asarray(bits))))
+    got = tframe.frame_bin_matrix(
+        CFG, tframe.data_symbols_from_bits(CFG, torch.as_tensor(bits))).numpy()
+    assert np.array_equal(got, ref)
+    pil, dat = tframe.split_pilots(CFG, torch.as_tensor(got))
+    rpil, rdat = jframe.split_pilots(CFG, jnp.asarray(ref))
+    assert np.array_equal(pil.numpy(), np.asarray(rpil))
+    assert np.array_equal(dat.numpy(), np.asarray(rdat))
+
+
+def test_ofdm_modulate_and_dft_match():
+    """irfft + CP and the used-band rfft: ≤ 1e-5 rel (two float32 FFT
+    libraries)."""
+    rng = np.random.default_rng(5)
+    S = CFG.n_known_symbols + CFG.n_data_symbols
+    X = crandn(rng, 2, S, CFG.n_used)
+    ref = np.asarray(jofdm.ofdm_modulate(CFG, jnp.asarray(X)))
+    got = tofdm.ofdm_modulate(CFG, torch.as_tensor(X)).numpy()
+    assert got.shape == ref.shape == (2, S * CFG.symbol_len)
+    assert rel(got, ref) <= 1e-5
+
+    sym = rng.standard_normal((2, S, CFG.n_fft)).astype(np.float32)
+    ref_y = np.asarray(jofdm.ofdm_dft(CFG, jnp.asarray(sym)))
+    got_y = tofdm.ofdm_dft(CFG, torch.as_tensor(sym)).numpy()
+    assert got_y.shape == ref_y.shape == (2, S, CFG.n_used)
+    assert rel(got_y, ref_y) <= 1e-5
+
+
+def _known_rx(rng, B=3):
+    """Known symbols through a 3-tap channel with a bulk delay + noise."""
+    from gf3x.config import layout
+
+    X = layout(CFG).known_syms
+    k = np.arange(CFG.bin_lo, CFG.bin_hi + 1)
+    H = np.zeros((B, CFG.n_used), np.complex128)
+    for b in range(B):
+        taps = rng.standard_normal(3) + 1j * rng.standard_normal(3)
+        delays = np.array([5, 9, 30]) + 7 * b
+        H[b] = (taps[:, None]
+                * np.exp(-2j * np.pi * np.outer(delays, k) / CFG.n_fft)).sum(0)
+    Y = H[:, None, :] * X + 0.05 * crandn(rng, B, *X.shape)
+    return Y.astype(np.complex64)
+
+
+def test_estimate_channel_with_isi_matches():
+    """LS estimate + tap denoise + ISI profile: ≤ 1e-4 rel (float32 complex
+    matmuls through 280×280 tables)."""
+    Y = _known_rx(np.random.default_rng(6))
+    H_r, nv_r, (iv_r, ir_r) = jchan.estimate_channel(CFG, jnp.asarray(Y),
+                                                     with_isi=True)
+    H_t, nv_t, (iv_t, ir_t) = tchan.estimate_channel(CFG, torch.as_tensor(Y),
+                                                     with_isi=True)
+    assert rel(H_t.numpy(), H_r) <= 1e-4
+    assert rel(nv_t.numpy(), nv_r) <= 1e-4
+    assert rel(iv_t.numpy(), iv_r) <= 1e-4
+    assert rel(ir_t.numpy(), ir_r) <= 1e-4
+
+
+def test_host_tables_equal():
+    """Denoise projector and ISI operator: the same float64 host code, so
+    bit-exact."""
+    assert np.array_equal(tchan.denoise_projection(CFG),
+                          jchan.denoise_projection(CFG))
+    for a, b in zip(tchan._isi_operator(CFG), jchan._isi_operator(CFG)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_pilot_phase_correct_matches():
+    """CSI-weighted slope/CPE fit and derotation on equalized symbols with a
+    planted phase ramp: slope and cpe ≤ 1e-4 rad abs, bins ≤ 1e-4 rel."""
+    from gf3x.config import layout
+
+    rng = np.random.default_rng(7)
+    D = CFG.n_data_symbols
+    lay = layout(CFG)
+    X = crandn(rng, 2, D, CFG.n_used) / np.sqrt(2)
+    X[..., lay.pilot_pos] = lay.pilot_vals
+    kk = np.arange(CFG.n_used)
+    a = rng.uniform(-0.02, 0.02, (2, D, 1))
+    b = rng.uniform(-1, 1, (2, D, 1))
+    eq = (X * np.exp(1j * (a * kk + b))
+          + 0.03 * crandn(rng, 2, D, CFG.n_used)).astype(np.complex64)
+    H = (1.0 + 0.3 * crandn(rng, 2, CFG.n_used)).astype(np.complex64)
+    e_r, s_r, c_r = jchan.pilot_phase_correct(CFG, jnp.asarray(eq),
+                                              jnp.asarray(H))
+    e_t, s_t, c_t = tchan.pilot_phase_correct(CFG, torch.as_tensor(eq),
+                                              torch.as_tensor(H))
+    assert np.max(np.abs(s_t.numpy() - np.asarray(s_r))) <= 1e-4
+    assert np.max(np.abs(c_t.numpy() - np.asarray(c_r))) <= 1e-4
+    assert rel(e_t.numpy(), e_r) <= 1e-4
+    assert np.allclose(s_t.numpy(), a[..., 0], atol=2e-3)   # and it tracks
+
+
+def _chirp_batch(rng, delays, T):
+    c = make_chirp(CFG).astype(np.float32)
+    rx = 0.05 * rng.standard_normal((len(delays), T)).astype(np.float32)
+    for i, d in enumerate(delays):
+        rx[i, d: d + len(c)] += c
+        rx[i, d + 40: d + 40 + len(c)] += 0.4 * c          # an echo
+    return rx
+
+
+@pytest.mark.parametrize("bounded", [True, False])
+def test_find_frame_start_matches(bounded):
+    """Chirp sync: bounded 2×-decimated and unbounded searches agree with
+    gf3x within the decimation step (2 samples) and land inside the CP
+    backoff (cp // 4) of the planted onset. Metric ≤ 1e-3 rel."""
+    rng = np.random.default_rng(8 + bounded)
+    delays = [0, 37, 1999, 3001]
+    T = CFG.chirp_len + 4400
+    rx = _chirp_batch(rng, delays, T)
+    kw = dict(search_len=4352, decimate=2) if bounded else {}
+    s_r, m_r = jsync.find_frame_start(CFG, jnp.asarray(rx), make_chirp(CFG),
+                                      **kw)
+    s_t, m_t = tsync.find_frame_start(CFG, torch.as_tensor(rx),
+                                      make_chirp(CFG), **kw)
+    assert s_t.dtype == torch.int32
+    assert np.max(np.abs(s_t.numpy() - np.asarray(s_r))) <= 2
+    assert np.max(np.abs(s_t.numpy() - np.asarray(delays))) <= CFG.cp // 4
+    assert rel(m_t.numpy(), m_r) <= 1e-3
+    assert tsync.bounded_sync_nfft(T, 4352, CFG.chirp_len, 2) == \
+        jsync.bounded_sync_nfft(T, 4352, CFG.chirp_len, 2)
+
+
+GEOM = dict(S=5, n_fft=512, sym_len=640, cp=128, body_off=640, sc_off=96,
+            block=128)
+
+
+def test_cut_symbols_matches_gf3x_cut():
+    """Frame cut on a ragged recording (T % block ≠ 0) at random starts
+    plus both clamp edges: symbols, SC window and roll exactly equal to
+    gf3x's `cut_symbols` (its CPU route: gather_cut + reshape/slice)."""
+    rng = np.random.default_rng(9)
+    T, B = 9000 + 77, 16
+    rx = rng.standard_normal((B, T)).astype(np.float32)
+    starts = rng.integers(0, T - 640 - 5 * 640 - 200, B).astype(np.int32)
+    starts[:2] = [0, T]                       # clamp edges (zero tail)
+    r_syms, r_scw, r_roll = jsync.cut_symbols(jnp.asarray(rx),
+                                              jnp.asarray(starts), **GEOM)
+    t_syms, t_scw, t_roll = tsync.cut_symbols(torch.as_tensor(rx),
+                                              torch.as_tensor(starts), **GEOM)
+    assert np.array_equal(t_syms.numpy(), np.asarray(r_syms))
+    assert np.array_equal(t_scw.numpy(), np.asarray(r_scw))
+    assert np.array_equal(t_roll.numpy(), np.asarray(r_roll))
+
+
+def test_cut_symbols_matches_pallas_interpret():
+    """The same cut against the TPU kernel itself (Pallas interpret mode,
+    whole-prefix staging): exactly equal."""
+    from gf3x.ops.pallas.gather_cut import cut_symbols_tpu
+
+    rng = np.random.default_rng(10)
+    T, B, block = 9000 + 77, 16, 128
+    rx = rng.standard_normal((B, T)).astype(np.float32)
+    starts = rng.integers(0, T - 640 - 5 * 640 - 200, B).astype(np.int32)
+    need = 640 + 5 * 640
+    nb = -(-(-(-(need + block) // block)) // 8) * 8
+    nf = T // block
+    q = np.clip(starts // block, 0, nf + 8 - nb).astype(np.int32)
+    g = {k: v for k, v in GEOM.items() if k != "block"}
+    p_syms, p_scw = cut_symbols_tpu(
+        jnp.asarray(rx), jnp.asarray(q), jnp.zeros(B // 8, jnp.int32), block,
+        g["S"], g["n_fft"], g["body_off"], g["sym_len"], g["cp"],
+        g["sc_off"], 8, nf, True)
+    t_syms, t_scw, _ = tsync.cut_symbols(torch.as_tensor(rx),
+                                         torch.as_tensor(starts), **GEOM)
+    assert np.array_equal(t_syms.numpy(), np.asarray(p_syms))
+    assert np.array_equal(t_scw.numpy(), np.asarray(p_scw))
+
+
+def test_cut_symbols_short_recording_matches():
+    """A recording shorter than one window (degenerate route): the whole
+    recording zero-extended from block 0, as gf3x cuts it."""
+    rng = np.random.default_rng(11)
+    rx = rng.standard_normal((3, 2000)).astype(np.float32)
+    starts = np.array([0, 50, 900], np.int32)
+    r = jsync.cut_symbols(jnp.asarray(rx), jnp.asarray(starts), **GEOM)
+    t = tsync.cut_symbols(torch.as_tensor(rx), torch.as_tensor(starts), **GEOM)
+    for a, b in zip(t, r):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+def test_sc_metric_and_clock_offset_match():
+    """SC window metric and the pilot-slope clock estimate: ≤ 1e-5 rel."""
+    rng = np.random.default_rng(12)
+    win = rng.standard_normal((4, CFG.n_fft)).astype(np.float32)
+    win[1, CFG.n_fft // 2:] = win[1, : CFG.n_fft // 2]      # repeated halves
+    ref = np.asarray(jsync.sc_metric_window(CFG, jnp.asarray(win)))
+    got = tsync.sc_metric_window(CFG, torch.as_tensor(win)).numpy()
+    assert rel(got, ref) <= 1e-5 and got[1] > 0.99
+    from gf3x.ops.sfo import slope_clock_offset as j_sco
+
+    slopes = rng.normal(0, 1e-3, (4, CFG.n_data_symbols)).astype(np.float32)
+    assert rel(slope_clock_offset(CFG, torch.as_tensor(slopes)).numpy(),
+               j_sco(CFG, jnp.asarray(slopes))) <= 1e-5
