@@ -1,12 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the gf3x_torch port on one CUDA card (an H100 for sm_90a).
 
-Drives the config-5 receive path — `Modem(GF3_STANDARD, max_delay=4096 +
-cp).demodulate` on bench.py's 1024-frame batch — once through the port's
-entry points, after building the three CUDA kernels from
-`gf3x_torch/csrc/` and holding each against its plain PyTorch version on
-the card at the shapes that path gives it. Any failed check raises, so the
-exit code is non-zero; there is no CPU route.
+Drives two receive paths once each through the port's entry points, after
+building the five CUDA kernels from `gf3x_torch/csrc/` and holding each
+against its plain PyTorch version on the card at the shapes its path gives
+it:
+
+- config 5: `Modem(GF3_STANDARD, max_delay=4096 + cp).demodulate` on
+  bench.py's 1024-frame batch — kernels 1 (cut), 2 (fused EQ/demap) and 3
+  (LDPC); kernel 2 is held at QPSK, 16-QAM (gf3-fast) and 64-QAM
+  (gf3-turbo);
+- bit-loaded: the same workload on `GF3_STANDARD.replace(bit_loading=...)`
+  with the reference's on-chip parity table — kernels 1, A (eq_track), B
+  (demap_bins) and 3; on gf3-turbo the split pair is also held against
+  kernel 2 and both are timed.
+
+Any failed check raises, so the exit code is non-zero; there is no CPU
+route.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -26,6 +36,8 @@ import torch
 B = 1024            # frames per batch (config 5)
 MARGIN = 4096       # random onset headroom per recording, as in bench.py
 TIMED_RUNS = 20     # median over this many synchronised runs
+# the bit-loaded path's table: tools/tpu_parity.py's on-chip parity table
+LOADING_SEED, LOADING_P = 5, [0.1, 0.4, 0.35, 0.15]
 
 
 def median_ms(fn, runs: int = TIMED_RUNS) -> float:
@@ -46,15 +58,122 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| relative to the mean magnitude of b."""
+    return float((a - b).abs().max() / b.abs().mean())
+
+
+def build_report(log: str) -> str:
+    """ptxas's registers / stack / spills per kernel, from the build log."""
+    out, name, stack = [], "?", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            for short in ("cut_symbols", "fused_eq_demap", "eq_track",
+                          "demap_bins", "minsum"):
+                if short in name:
+                    name = short
+        elif "stack frame" in ln:
+            stack = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append(f"{name}: {ln.split('Used ')[-1]}; {stack}")
+    return " | ".join(out)
+
+
+def path_inputs(modem, rx):
+    """The path's sync, cut plan and post-estimate tensors for one batch."""
+    from gf3x_torch.ops import sync
+    from gf3x_torch.ops.kernels import gather_cut
+
+    cfg = modem.cfg
+    start, _ = sync.find_frame_start(cfg, rx, modem.chirp,
+                                     search_len=modem.max_delay, decimate=2)
+    base, S, sc_off = modem._cut_geom(rx, start)
+    geo = dict(S=S, n_fft=cfg.n_fft, sym_len=cfg.symbol_len,
+               sc_off=sc_off, body_off=cfg.sc_len, block=modem._cut_block)
+    q, valid, roll = sync.cut_plan(rx.shape[-1], base, **geo)
+    kw = dict(geo, cp=cfg.cp, valid=valid)
+    syms, _ = gather_cut.cut_symbols(rx, q, **kw)
+    Y, H, nv, _, _ = modem._estimate(syms, roll)
+    return q, kw, syms, Y, H, nv
+
+
+def hold_fused(cfg, Y, H, nv, pv, label):
+    """Kernel 2 against its plain version: hard decisions equal, |ΔLLR| ≤
+    2e-4·mean|LLR|, slope/cpe ≤ 1e-4 rad, evm and mean|llr| ≤ 1e-4 rel.
+    Returns (kernel outputs, max |ΔLLR|, mean |LLR|)."""
+    from gf3x_torch.ops.kernels import fused_eq
+
+    out_k = fused_eq.fused_eq_demap(cfg, Y, H, nv, pv)
+    out_p = fused_eq.fused_eq_demap_plain(cfg, Y, H, nv, pv)
+    err, scale = hold_tail(out_k, out_p, f"fused_eq_demap {label}")
+    return out_k, err, scale
+
+
+def hold_tail(out_k, out_p, what):
+    """(llr, slope, cpe, evm, mabs) of two tails against each other, to
+    the bounds of `hold_fused`; returns (max |ΔLLR|, mean |LLR|)."""
+    llr_k, llr_p = out_k[0], out_p[0]
+    scale = float(llr_p.abs().mean())
+    err = float((llr_k - llr_p).abs().max())
+    check(torch.equal(llr_k < 0, llr_p < 0), f"{what}: hard decisions differ")
+    check(err <= 2e-4 * scale, f"{what}: LLR error {err} > 2e-4 x mean|LLR| "
+          f"{scale}")
+    for i, name in ((1, "slope"), (2, "cpe")):
+        d = float((out_k[i] - out_p[i]).abs().max())
+        check(d <= 1e-4, f"{what}: {name} differs by {d} rad")
+    for i, name in ((3, "evm"), (4, "mean|llr|")):
+        d = float(((out_k[i] - out_p[i]).abs() / out_p[i].abs()).max())
+        check(d <= 1e-4, f"{what}: {name} differs by {d} rel")
+    return err, scale
+
+
+def run_path(modem, rx, payload, delays, counters, label):
+    """Drive `modem.demodulate` once with every launch counter at 0 and
+    check it: every row CRC-ok with the planted payload, every codeword
+    satisfied, finite diagnostics, sync within cp/4, and the first 4 rows
+    decoded the same on the CPU (plain versions). Returns (launch counts,
+    bits, diag, sync error)."""
+    from gf3x_torch import Modem
+
+    cfg = modem.cfg
+    for fn in counters.values():
+        fn.launches = 0
+    bits, diag = modem.demodulate(rx)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    bits_np = bits.cpu().numpy()
+    check(bits_np.shape == (rx.shape[0], cfg.payload_bits_per_frame),
+          f"{label}: bits shape")
+    for i in range(rx.shape[0]):
+        res = modem._result(bits_np[i], None)
+        check(res.crc_ok and res.payload == payload,
+              f"{label}: row {i} did not decode to the planted payload")
+    for name in ("sync_metric", "sc_metric", "H", "noise_var", "pilot_slope",
+                 "common_phase", "evm", "mean_abs_llr", "clock_ppm",
+                 "isi_var", "isi_db"):
+        check(bool(torch.isfinite(getattr(diag, name)).all()),
+              f"{label}: diag.{name} is not finite")
+    check(int(diag.fec_unsat.sum()) == 0, f"{label}: codewords left "
+          "unsatisfied")
+    sync_err = int((diag.sync_start.cpu() - torch.as_tensor(delays)).abs()
+                   .max())
+    check(sync_err <= cfg.cp // 4, f"{label}: sync off by {sync_err} samples")
+    cpu = Modem(cfg, max_delay=MARGIN + cfg.cp)
+    bits_cpu, _ = cpu.demodulate(rx[:4].cpu())
+    check(torch.equal(bits_cpu, bits[:4].cpu()),
+          f"{label}: card and CPU decodes of the first rows differ")
+    return launches, bits, diag, sync_err
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; there is no CPU "
                            "route")
     import bench
     import gf3x_torch
-    from gf3x_torch import GF3_STANDARD, Modem
-    from gf3x_torch.ops import sync
-    from gf3x_torch.ops.kernels import fused_eq, gather_cut, ldpc_bp
+    from gf3x_torch import GF3_FAST, GF3_STANDARD, GF3_TURBO, Modem
+    from gf3x_torch.ops.kernels import fused_eq, gather_cut, ldpc_bp, split_eq
     from gf3x_torch.ops.ofdm import ofdm_dft
     from gf3x_torch.utils.device import kernel_lib, library_path
 
@@ -70,70 +189,50 @@ def main() -> None:
     t0 = time.perf_counter()
     kernel_lib()
     build_s = time.perf_counter() - t0
-    log = (library_path().parent / "build.log").read_text().splitlines()
-    usage = [ln.split("ptxas info    : ")[-1] for ln in log
-             if "registers" in ln or "spill" in ln]
+    log = (library_path().parent / "build.log").read_text()
     print(f"build: {build_s:.1f} s ({library_path().name}); "
-          + " | ".join(usage), flush=True)
+          + build_report(log), flush=True)
 
-    # ---- the main path's inputs: bench.py's batch, built by the port
+    def batch(cfg):
+        modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
+        rx_np, payload, delays = bench.build_batch(
+            modem, B, MARGIN, np.random.default_rng(0))
+        return modem, torch.as_tensor(rx_np, device=dev), payload, delays
+
+    # ---- config 5: the main path's inputs, bench.py's batch built by the port
     cfg = GF3_STANDARD
-    modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
-    rng = np.random.default_rng(0)
-    rx_np, payload, delays = bench.build_batch(modem, B, MARGIN, rng)
-    rx = torch.as_tensor(rx_np, device=dev)
-    T = rx.shape[-1]
+    modem, rx, payload, delays = batch(cfg)
 
     # ---- kernel 1 vs plain at the path's cut geometry
-    start, _ = sync.find_frame_start(cfg, rx, modem.chirp,
-                                     search_len=modem.max_delay, decimate=2)
-    base, S, sc_off = modem._cut_geom(rx, start)
-    geo = dict(S=S, n_fft=cfg.n_fft, sym_len=cfg.symbol_len,
-               sc_off=sc_off, body_off=cfg.sc_len, block=modem._cut_block)
-    q, valid, roll = sync.cut_plan(T, base, **geo)
-    kw = dict(geo, cp=cfg.cp, valid=valid)
+    q, kw, syms_k, Y, H, nv = path_inputs(modem, rx)
     syms_k, scw_k = gather_cut.cut_symbols(rx, q, **kw)
     syms_p, scw_p = gather_cut.cut_symbols_plain(rx, q, **kw)
     check(torch.equal(syms_k, syms_p) and torch.equal(scw_k, scw_p),
           "cut_symbols kernel differs from its plain version")
-    rows = [dict(name="cut_symbols", route="cuda",
-                 source="gf3x_torch/csrc/cut_symbols.cu",
-                 replaces="gf3x/ops/pallas/gather_cut.py:242",
-                 max_abs_err=0.0,
-                 ms=median_ms(lambda: gather_cut.cut_symbols(rx, q, **kw)),
-                 plain_ms=median_ms(
-                     lambda: gather_cut.cut_symbols_plain(rx, q, **kw)))]
-    print(f"cut_symbols: equal; {rows[-1]['ms']:.3f} ms vs plain "
-          f"{rows[-1]['plain_ms']:.3f} ms", flush=True)
+    rows = {"cut_symbols": dict(
+        name="cut_symbols", route="cuda",
+        source="gf3x_torch/csrc/cut_symbols.cu",
+        replaces="gf3x/ops/pallas/gather_cut.py:242", max_abs_err=0.0,
+        ms=median_ms(lambda: gather_cut.cut_symbols(rx, q, **kw)),
+        plain_ms=median_ms(lambda: gather_cut.cut_symbols_plain(rx, q,
+                                                                **kw)))}
+    print(f"cut_symbols: equal; {rows['cut_symbols']['ms']:.3f} ms vs plain "
+          f"{rows['cut_symbols']['plain_ms']:.3f} ms", flush=True)
 
     # ---- kernel 2 vs plain on the path's spectra and channel estimate
-    Y, H, nv, _, _ = modem._estimate(syms_k, roll)
-    out_k = fused_eq.fused_eq_demap(cfg, Y, H, nv, modem.pilot_vals)
-    out_p = fused_eq.fused_eq_demap_plain(cfg, Y, H, nv, modem.pilot_vals)
-    llr_k, llr_p = out_k[0], out_p[0]
-    scale = float(llr_p.abs().mean())
-    err = float((llr_k - llr_p).abs().max())
-    check(torch.equal(llr_k < 0, llr_p < 0),
-          "fused_eq_demap hard decisions differ from its plain version")
-    check(err <= 2e-4 * scale, f"fused_eq_demap LLR error {err} > "
-          f"2e-4 x mean|LLR| {scale}")
-    for i, name in ((1, "slope"), (2, "cpe")):
-        d = float((out_k[i] - out_p[i]).abs().max())
-        check(d <= 1e-4, f"fused_eq_demap {name} differs by {d} rad")
-    for i, name in ((3, "evm"), (4, "mean|llr|")):
-        d = float(((out_k[i] - out_p[i]).abs() / out_p[i].abs()).max())
-        check(d <= 1e-4, f"fused_eq_demap {name} differs by {d} rel")
-    rows.append(dict(
+    pv = modem.pilot_vals
+    (llr_k, *_), err, scale = hold_fused(cfg, Y, H, nv, pv, "QPSK")
+    rows["fused_eq_demap"] = dict(
         name="fused_eq_demap", route="cuda",
         source="gf3x_torch/csrc/fused_eq.cu",
         replaces="gf3x/ops/pallas/fused_eq.py:295", max_abs_err=err,
-        ms=median_ms(lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv,
-                                                     modem.pilot_vals)),
+        ms=median_ms(lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv, pv)),
         plain_ms=median_ms(lambda: fused_eq.fused_eq_demap_plain(
-            cfg, Y, H, nv, modem.pilot_vals))))
+            cfg, Y, H, nv, pv)))
     print(f"fused_eq_demap: hard decisions equal, max |dLLR| {err:.3g} "
-          f"(mean |LLR| {scale:.3g}); {rows[-1]['ms']:.3f} ms vs plain "
-          f"{rows[-1]['plain_ms']:.3f} ms", flush=True)
+          f"(mean |LLR| {scale:.3g}); {rows['fused_eq_demap']['ms']:.3f} ms "
+          f"vs plain {rows['fused_eq_demap']['plain_ms']:.3f} ms",
+          flush=True)
 
     # ---- kernel 3 vs plain on the path's codeword LLRs
     lam = modem._codeword_llrs(llr_k).contiguous()
@@ -145,14 +244,14 @@ def main() -> None:
           "bit-identical to its plain version")
     check(torch.equal(uns_k, uns_p) and torch.equal(pas_k, pas_p),
           "minsum_totals unsat/passes differ from its plain version")
-    rows.append(dict(
+    rows["minsum_totals"] = dict(
         name="minsum_totals", route="cuda",
         source="gf3x_torch/csrc/ldpc_bp.cu",
         replaces="gf3x/ops/pallas/ldpc_bp.py:158",
         max_abs_err=float((tot_k - tot_p).abs().max()),
         ms=median_ms(lambda: code.decode_totals(lam, cfg.ldpc_iters)),
         plain_ms=median_ms(lambda: ldpc_bp.minsum_totals_plain(
-            lam, code.z, code.rate, cfg.ldpc_iters))))
+            lam, code.z, code.rate, cfg.ldpc_iters)))
     # at the batch's 20 dB every codeword is valid before the first sweep,
     # so hold the message updates too: the same codewords as BPSK LLRs at
     # σ = 0.8, which take several sweeps and leave some unsatisfied
@@ -169,49 +268,27 @@ def main() -> None:
     noisy_plain_ms = median_ms(lambda: ldpc_bp.minsum_totals_plain(
         noisy, code.z, code.rate, cfg.ldpc_iters))
     print(f"minsum_totals: totals bit-identical over {lam.shape[0]} "
-          f"codewords; {rows[-1]['ms']:.3f} ms vs plain "
-          f"{rows[-1]['plain_ms']:.3f} ms (0 sweeps); noisy: mean passes "
-          f"{float(pas_k.float().mean()):.2f}, max {int(pas_k.max())}, "
-          f"unsat {int(uns_k.sum())}, {noisy_ms:.3f} ms vs plain "
-          f"{noisy_plain_ms:.3f} ms", flush=True)
+          f"codewords; {rows['minsum_totals']['ms']:.3f} ms vs plain "
+          f"{rows['minsum_totals']['plain_ms']:.3f} ms (0 sweeps); noisy: "
+          f"mean passes {float(pas_k.float().mean()):.2f}, max "
+          f"{int(pas_k.max())}, unsat {int(uns_k.sum())}, {noisy_ms:.3f} ms "
+          f"vs plain {noisy_plain_ms:.3f} ms", flush=True)
 
-    # ---- the main path, once, through the user's entry point
+    # ---- the config-5 main path, once, through the user's entry point
     counters = {"cut_symbols": gather_cut.cut_symbols,
                 "fused_eq_demap": fused_eq.fused_eq_demap,
+                "eq_track": split_eq.eq_track,
+                "demap_bins": split_eq.demap_bins,
                 "minsum_totals": ldpc_bp.minsum_totals}
-    for fn in counters.values():
-        fn.launches = 0
-    bits, diag = modem.demodulate(rx)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the path did not launch: {launches}")
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-    bits_np = bits.cpu().numpy()
-    check(bits_np.shape == (B, cfg.payload_bits_per_frame), "bits shape")
-    for i in range(B):
-        res = modem._result(bits_np[i], None)
-        check(res.crc_ok and res.payload == payload,
-              f"row {i} did not decode to the planted payload")
-    for name in ("sync_metric", "sc_metric", "H", "noise_var", "pilot_slope",
-                 "common_phase", "evm", "mean_abs_llr", "clock_ppm",
-                 "isi_var", "isi_db"):
-        check(bool(torch.isfinite(getattr(diag, name)).all()),
-              f"diag.{name} is not finite")
-    check(int(diag.fec_unsat.sum()) == 0, "codewords left unsatisfied")
-    sync_err = int((diag.sync_start.cpu() - torch.as_tensor(delays)).abs()
-                   .max())
-    check(sync_err <= cfg.cp // 4, f"sync off by {sync_err} samples")
-    # a small input against the same path on the CPU (plain versions)
-    cpu = Modem(cfg, max_delay=MARGIN + cfg.cp)
-    bits_cpu, _ = cpu.demodulate(rx[:4].cpu())
-    check(torch.equal(bits_cpu, bits[:4].cpu()),
-          "card and CPU decodes of the first rows differ")
+    launches5, _, _, sync_err = run_path(modem, rx, payload, delays,
+                                         counters, "config 5")
+    for name in ("cut_symbols", "fused_eq_demap", "minsum_totals"):
+        check(launches5[name] > 0, f"config 5: {name} did not launch: "
+              f"{launches5}")
     step_ms = median_ms(lambda: modem.demodulate(rx))
     sps = B * cfg.n_data_symbols / (step_ms / 1e3)
     print(f"demodulate: {B}/{B} rows CRC-ok with the planted payload, "
-          f"sync within {sync_err} samples, launches {launches}; "
+          f"sync within {sync_err} samples, launches {launches5}; "
           f"{step_ms:.3f} ms/step, {sps:.1f} data symbols/s", flush=True)
 
     # ---- demod DFT precision against a float64 NumPy DFT (gate −80 dB)
@@ -221,11 +298,129 @@ def main() -> None:
     db = 10 * np.log10(np.sum(np.abs(got - ref) ** 2) / np.sum(np.abs(ref) ** 2))
     check(db <= -80.0, f"demod DFT error {db:.1f} dB > -80 dB")
     print(f"dft precision: {db:.1f} dB (gate -80 dB)", flush=True)
+    del modem, rx, syms_k, syms_p, Y, H, nv, lam, noisy, noise
+
+    # ---- kernel 2 at 16-QAM (gf3-fast) and 64-QAM (gf3-turbo), and on
+    # gf3-turbo the split pair against it at the full batch
+    for cfg_u, label in ((GF3_FAST, "16-QAM"), (GF3_TURBO, "64-QAM")):
+        m_u, rx_u, _, _ = batch(cfg_u)
+        _, _, _, Y, H, nv = path_inputs(m_u, rx_u)
+        pv = m_u.pilot_vals
+        out_k, err, scale = hold_fused(cfg_u, Y, H, nv, pv, label)
+        print(f"fused_eq_demap {label}: hard decisions equal, max |dLLR| "
+              f"{err:.3g} (mean |LLR| {scale:.3g})", flush=True)
+        if cfg_u is not GF3_TURBO:
+            continue
+        split = m_u._split_eq_demap(Y, H, nv)
+        err, scale = hold_tail(split, out_k, "split vs fused at 64-QAM")
+        fused_ms = median_ms(lambda: m_u._fused_eq_demap(Y, H, nv))
+        split_ms = median_ms(lambda: m_u._split_eq_demap(Y, H, nv))
+        turbo = dict(fused_ms=fused_ms, split_ms=split_ms, max_abs_err=err)
+        print(f"gf3-turbo tail: split pair vs kernel 2, hard decisions "
+              f"equal, max |dLLR| {err:.3g} (mean |LLR| {scale:.3g}); split "
+              f"{split_ms:.3f} ms vs fused {fused_ms:.3f} ms", flush=True)
+        del m_u, rx_u, Y, H, nv, out_k, split
+
+    # ---- the bit-loaded path's inputs
+    table = tuple(int(x) for x in np.random.default_rng(LOADING_SEED).choice(
+        [0, 2, 4, 6], size=GF3_STANDARD.n_data_bins, p=LOADING_P))
+    cfg = GF3_STANDARD.replace(bit_loading=table)
+    modem, rx, payload, delays = batch(cfg)
+    check(modem._tail_route() == "split", "the loaded config must take the "
+          "split tail")
+    _, _, _, Y, H, nv = path_inputs(modem, rx)
+    pv = modem.pilot_vals
+
+    # ---- kernel A vs plain on the loaded batch's spectra
+    a_k = split_eq.eq_track(cfg, Y, H, nv, pv)
+    a_p = split_eq.eq_track_plain(cfg, Y, H, nv, pv)
+    d_slope = float((a_k[1] - a_p[1]).abs().max())
+    d_cpe = float((a_k[2] - a_p[2]).abs().max())
+    d_eq, d_nv = rel_err(a_k[0], a_p[0]), rel_err(a_k[3], a_p[3])
+    check(d_slope <= 1e-4 and d_cpe <= 1e-4, f"eq_track slope/cpe differ "
+          f"by {d_slope}/{d_cpe} rad")
+    check(d_eq <= 1e-4 and d_nv <= 1e-4, f"eq_track eq/nv_sym differ by "
+          f"{d_eq}/{d_nv} of their mean magnitude")
+    rows["eq_track"] = dict(
+        name="eq_track", route="cuda", source="gf3x_torch/csrc/split_eq.cu",
+        replaces="gf3x/ops/pallas/split_eq.py:140",
+        max_abs_err=float((a_k[0] - a_p[0]).abs().max()),
+        ms=median_ms(lambda: split_eq.eq_track(cfg, Y, H, nv, pv)),
+        plain_ms=median_ms(lambda: split_eq.eq_track_plain(cfg, Y, H, nv,
+                                                           pv)))
+    print(f"eq_track: slope/cpe within {max(d_slope, d_cpe):.3g} rad, eq "
+          f"{d_eq:.3g} and nv_sym {d_nv:.3g} of mean magnitude; "
+          f"{rows['eq_track']['ms']:.3f} ms vs plain "
+          f"{rows['eq_track']['plain_ms']:.3f} ms", flush=True)
+
+    # ---- kernel B vs plain on kernel A's output
+    eq, _, _, nv_sym = a_k
+    tables = (modem.demap_used, modem.demap_bits, modem.demap_off)
+    b_k = split_eq.demap_bins(cfg, eq, H, nv_sym, tables)
+    b_p = split_eq.demap_bins_plain(cfg, eq, H, nv_sym)
+    scale = float(b_p[0].abs().mean())
+    err = float((b_k[0] - b_p[0]).abs().max())
+    check(torch.equal(b_k[0] < 0, b_p[0] < 0), "demap_bins hard decisions "
+          "differ from its plain version")
+    check(err <= 2e-4 * scale, f"demap_bins LLR error {err} > 2e-4 x "
+          f"mean|LLR| {scale}")
+    for i, name in ((1, "evm"), (2, "mean|llr|")):
+        d = float(((b_k[i] - b_p[i]).abs() / b_p[i].abs()).max())
+        check(d <= 1e-4, f"demap_bins {name} differs by {d} rel")
+    rows["demap_bins"] = dict(
+        name="demap_bins", route="cuda", source="gf3x_torch/csrc/split_eq.cu",
+        replaces="gf3x/ops/pallas/split_eq.py:279", max_abs_err=err,
+        ms=median_ms(lambda: split_eq.demap_bins(cfg, eq, H, nv_sym, tables)),
+        plain_ms=median_ms(lambda: split_eq.demap_bins_plain(cfg, eq, H,
+                                                             nv_sym)))
+    print(f"demap_bins: hard decisions equal, max |dLLR| {err:.3g} (mean "
+          f"|LLR| {scale:.3g}); {rows['demap_bins']['ms']:.3f} ms vs plain "
+          f"{rows['demap_bins']['plain_ms']:.3f} ms", flush=True)
+
+    # ---- kernel 3 on the loaded path's LLRs, which carry raw bit errors
+    lam = modem._codeword_llrs(b_k[0]).contiguous()
+    code = modem._code
+    tot_k, uns_k, pas_k = code.decode_totals(lam, cfg.ldpc_iters)
+    tot_p, uns_p, pas_p = ldpc_bp.minsum_totals_plain(lam, code.z, code.rate,
+                                                      cfg.ldpc_iters)
+    check(torch.equal(tot_k, tot_p) and torch.equal(uns_k, uns_p)
+          and torch.equal(pas_k, pas_p), "minsum_totals differs from its "
+          "plain version on the loaded path's LLRs")
+    raw_err = float(((lam < 0) != (tot_k < 0)).float().mean())
+    print(f"minsum_totals, loaded LLRs: bit-identical over {lam.shape[0]} "
+          f"codewords; raw bit error rate {raw_err:.3g}, passes mean "
+          f"{float(pas_k.float().mean()):.3f}, max {int(pas_k.max())}",
+          flush=True)
+    del a_k, a_p, b_k, b_p, eq, lam, tot_k, tot_p
+
+    # ---- the bit-loaded main path, once, through the user's entry point
+    launchesL, _, diag, sync_err = run_path(modem, rx, payload, delays,
+                                            counters, "bit-loaded")
+    for name in ("cut_symbols", "eq_track", "demap_bins", "minsum_totals"):
+        check(launchesL[name] > 0, f"bit-loaded: {name} did not launch: "
+              f"{launchesL}")
+    check(launchesL["fused_eq_demap"] == 0, "bit-loaded: the fused kernel "
+          "launched")
+    stepL_ms = median_ms(lambda: modem.demodulate(rx))
+    spsL = B * cfg.n_data_symbols / (stepL_ms / 1e3)
+    print(f"demodulate, bit-loaded ({cfg.n_active_bins} active bins, "
+          f"{cfg.bits_per_ofdm_symbol} bits/symbol, {cfg.n_codewords} "
+          f"codewords): {B}/{B} rows CRC-ok with the planted payload, sync "
+          f"within {sync_err} samples, fec_iters mean "
+          f"{float(diag.fec_iters.float().mean()):.3f} max "
+          f"{int(diag.fec_iters.max())}, launches {launchesL}; "
+          f"{stepL_ms:.3f} ms/step, {spsL:.1f} data symbols/s", flush=True)
 
     check("jax" not in sys.modules and "gf3x" not in sys.modules,
           "jax or gf3x was imported")
-    print(json.dumps({"kernels": rows, "step_ms": step_ms,
-                      "data_symbols_per_s": sps, "build_s": build_s,
+    for name, row in rows.items():
+        row["launches"] = launches5[name] + launchesL[name]
+        row["launches_by_path"] = {"config5": launches5[name],
+                                   "bit_loaded": launchesL[name]}
+    print(json.dumps({"kernels": list(rows.values()), "step_ms": step_ms,
+                      "data_symbols_per_s": sps, "loaded_step_ms": stepL_ms,
+                      "loaded_data_symbols_per_s": spsL,
+                      "gf3_turbo_tail": turbo, "build_s": build_s,
                       "package": gf3x_torch.__name__}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

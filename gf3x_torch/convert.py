@@ -26,6 +26,13 @@ TABLES = {
     "ldpc_parity": "gf3x.fec.ldpc.LdpcCode.for_config(cfg).t.P",
     "fec_index": "gf3x.models.frame.interleave_bits(cfg, arange(raw_bits), "
                  "inverse=True)",
+    "demap_used": "gf3x.config.layout(cfg).data_pos",
+    "demap_bits": "gf3x.models.frame.loading_tables(cfg).groups: the bits "
+                  "of each data bin's group, 0 when nulled "
+                  "(cfg.bits_per_symbol everywhere when uniform)",
+    "demap_off": "gf3x.models.frame.loading_tables(cfg): each data bin's "
+                 "first bit in the group-sorted wire order of a symbol "
+                 "(j·bits_per_symbol when uniform)",
 }
 
 

@@ -4,17 +4,115 @@ gf3x/models/frame.py):
     chirp ∥ [Schmidl–Cox symbol] ∥ K known symbols ∥ D pilot-bearing data symbols
 
 Pilot and known-symbol values default to the config's layout tables; a
-`Modem` passes its own buffers instead. The bit-loaded variants are not
-ported yet (ROADMAP queue 1)."""
+`Modem` passes its own buffers instead. A bit-loaded config (SPEC.md §5b)
+maps and demaps its data bins per constellation group (`loading_tables`)."""
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from ..config import ModemConfig, layout
 
-__all__ = ["scatter_factors", "interleave_bits", "interleave_pilots",
-           "split_pilots", "data_symbols_from_bits", "frame_bin_matrix"]
+__all__ = ["LoadingTables", "loading_tables", "loaded_qam_map",
+           "loaded_demap_llr", "demap_bin_tables", "scatter_factors",
+           "interleave_bits", "interleave_pilots", "split_pilots",
+           "data_symbols_from_bits", "frame_bin_matrix"]
+
+
+@dataclass(frozen=True)
+class LoadingTables:
+    """Host tables of a per-bin bit-loading config (gf3x's LoadingTables).
+
+    Wire order is group-sorted: each OFDM symbol's coded bits fill the
+    loaded data bins in ascending constellation order (all QPSK bins, then
+    16-QAM, then 64-QAM), each group in ascending bin index, each bin's
+    I-axis bits then its Q-axis bits."""
+
+    groups: tuple          # ((bits, data-bin positions int32 ascending), ...)
+    inv_perm: np.ndarray   # (n_data_bins,) int32 into concat(group syms)+[0]
+    gain: float            # sqrt(n_data_bins / n_active): TX boost of the
+                           # active bins, so nulled bins' power is reused
+
+
+@functools.lru_cache(maxsize=None)
+def loading_tables(cfg: ModemConfig) -> LoadingTables:
+    bits = np.asarray(cfg.bit_loading, dtype=np.int32)
+    groups = tuple(
+        (m, np.nonzero(bits == m)[0].astype(np.int32))
+        for m in (2, 4, 6) if np.any(bits == m)
+    )
+    active = np.concatenate([pos for _, pos in groups])
+    inv = np.full(cfg.n_data_bins, len(active), dtype=np.int32)  # → zero slot
+    inv[active] = np.arange(len(active), dtype=np.int32)
+    return LoadingTables(
+        groups=groups, inv_perm=inv,
+        gain=float(np.sqrt(cfg.n_data_bins / len(active))),
+    )
+
+
+def loaded_qam_map(cfg: ModemConfig, coded: torch.Tensor) -> torch.Tensor:
+    """Group-sorted coded bits (..., D, R) → data-bin symbols
+    (..., D, n_data_bins) complex64: zeros on nulled bins, active bins
+    boosted by `gain`."""
+    from ..ops.constellation import qam_map
+
+    t = loading_tables(cfg)
+    *lead, D, _ = coded.shape
+    syms, off = [], 0
+    for m, pos in t.groups:
+        n = len(pos)
+        grp = coded[..., off: off + n * m].reshape(*lead, D, n, m)
+        syms.append(qam_map(grp, m))
+        off += n * m
+    cat = torch.cat(syms + [torch.zeros(*lead, D, 1, dtype=syms[0].dtype,
+                                        device=coded.device)], dim=-1)
+    idx = torch.as_tensor(t.inv_perm, dtype=torch.long, device=coded.device)
+    return cat[..., idx] * t.gain
+
+
+def loaded_demap_llr(cfg: ModemConfig, data: torch.Tensor,
+                     nv_eff: torch.Tensor):
+    """Equalized data bins (..., D, n_data_bins) + per-bin noise → group-
+    sorted LLRs (..., D, R) and EVM (...,) over the active bins: each group
+    demaps y/g with noise nv/g², nulled bins give nothing."""
+    from ..ops.constellation import hard_bits, qam_demap_llr, qam_map
+
+    t = loading_tables(cfg)
+    *lead, D, _ = data.shape
+    nv_all = torch.broadcast_to(nv_eff, data.shape)
+    llrs, err = [], 0.0
+    for m, pos in t.groups:
+        idx = torch.as_tensor(pos, dtype=torch.long, device=data.device)
+        y = data[..., idx] * np.float32(1.0 / t.gain)
+        nv = nv_all[..., idx] * np.float32(1.0 / t.gain ** 2)
+        l3 = qam_demap_llr(y, nv, m)                     # (..., D, n_g, m)
+        llrs.append(l3.reshape(*lead, D, len(pos) * m))
+        err = err + torch.sum(
+            torch.abs(y - qam_map(hard_bits(l3), m)) ** 2, dim=(-2, -1))
+    evm = err / np.float32(D * cfg.n_active_bins)
+    return torch.cat(llrs, dim=-1), evm
+
+
+def demap_bin_tables(cfg: ModemConfig):
+    """Per data bin j: (its used-bin index, its bits — 0 when nulled — and
+    the offset of its first bit within a symbol's R wire bits), int32 each;
+    the static tables of the demap kernel. A uniform config is one group."""
+    nd = cfg.n_data_bins
+    if cfg.bit_loading is None:
+        bits = np.full(nd, cfg.bits_per_symbol, np.int32)
+        off = np.arange(nd, dtype=np.int32) * cfg.bits_per_symbol
+    else:
+        bits = np.asarray(cfg.bit_loading, np.int32)
+        off = np.zeros(nd, np.int32)
+        base = 0
+        for m, pos in loading_tables(cfg).groups:
+            off[pos] = base + m * np.arange(len(pos), dtype=np.int32)
+            base += m * len(pos)
+    return layout(cfg).data_pos.astype(np.int32), bits, off
 
 
 def scatter_factors(R: int) -> tuple[int, int]:
@@ -85,13 +183,15 @@ def data_symbols_from_bits(cfg: ModemConfig, coded_bits: torch.Tensor,
                            pilot_vals: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """Channel bits (..., raw_bits_per_frame) → data-symbol bins
-    (..., D, n_used): Gray QAM on the data positions, pilots on theirs."""
+    (..., D, n_used): Gray QAM (per loading group when bit-loaded) on the
+    data positions, pilots on theirs."""
     from ..ops.constellation import qam_map
 
-    if cfg.bit_loading is not None:
-        raise NotImplementedError("bit-loaded configs are not ported yet "
-                                  "(ROADMAP queue 1, item 7)")
     *lead, _ = coded_bits.shape
+    if cfg.bit_loading is not None:
+        grp = coded_bits.reshape(*lead, cfg.n_data_symbols,
+                                 cfg.bits_per_ofdm_symbol)
+        return interleave_pilots(cfg, loaded_qam_map(cfg, grp), pilot_vals)
     grp = coded_bits.reshape(*lead, cfg.n_data_symbols, cfg.n_data_bins,
                              cfg.bits_per_symbol)
     return interleave_pilots(cfg, qam_map(grp, cfg.bits_per_symbol),

@@ -8,16 +8,19 @@ Receive path of one (B, T) float32 batch:
     → cut_symbols            kernel 1 (frame cut + CP strip)
     → ofdm_dft + deroll      cuFFT, one phase ramp for the block-grid roll
     → estimate_channel       LS + tap denoise + ISI profile on K symbols
-    → fused_eq_demap         kernel 2 (EQ, pilot tracking, demap)
+    → the EQ/demap tail, by config (`_tail_route`):
+        uniform:     fused_eq_demap       kernel 2 (EQ, pilot tracking, demap)
+        bit-loaded:  eq_track → demap_bins  kernels A and B (the split tail)
     → one static gather      deinterleave + descramble into codewords
     → LDPC min-sum           kernel 3
     → info bits + DecodeDiag
 
 The module holds no learned weights. Its buffers are the static tables the
 config defines — chirp, known symbols, pilots, SC symbol, scrambler, the
-denoise projector, the ISI operator, the LDPC parity projector and the FEC
-gather index — built here exactly as gf3x builds them and replaceable
-through `gf3x_torch.convert.load_reference_tables`.
+denoise projector, the ISI operator, the LDPC parity projector, the FEC
+gather index and the demap kernel's per-data-bin tables — built here
+exactly as gf3x builds them and replaceable through
+`gf3x_torch.convert.load_reference_tables`.
 """
 
 from __future__ import annotations
@@ -34,13 +37,15 @@ from ..ops.chanest import _isi_operator, denoise_projection, estimate_channel
 from ..ops.chirp import make_chirp
 from ..ops.constellation import hard_bits
 from ..ops.kernels.fused_eq import fused_eq_demap
+from ..ops.kernels.split_eq import demap_bins, eq_track
 from ..ops.ofdm import ofdm_dft, ofdm_modulate
 from ..ops.sfo import slope_clock_offset
 from ..ops.sync import (cut_symbols, find_frame_start, max_cut_start,
                         sc_metric_window)
 from ..utils.bits import (bits_to_bytes, bytes_to_bits, pack_header,
                           parse_frame_header)
-from .frame import data_symbols_from_bits, frame_bin_matrix, interleave_bits
+from .frame import (data_symbols_from_bits, demap_bin_tables,
+                    frame_bin_matrix, interleave_bits)
 
 __all__ = ["Modem", "DecodeDiag", "DecodeResult"]
 
@@ -113,6 +118,8 @@ class Modem(torch.nn.Module):
             "fec_index": np.asarray(interleave_bits(
                 cfg, np.arange(cfg.raw_bits_per_frame), inverse=True)),
         }
+        (tables["demap_used"], tables["demap_bits"],
+         tables["demap_off"]) = demap_bin_tables(cfg)
         if cfg.est_taps:
             tables["denoise"] = denoise_projection(cfg)
         if _isi_operator(cfg) is not None:
@@ -262,13 +269,39 @@ class Modem(torch.nn.Module):
             M=getattr(self, "isi_M", None), q=getattr(self, "isi_q", None))
         return Y, H, noise_var, isi_var, isi_ratio
 
+    def _tail_route(self) -> str:
+        """The EQ/demap tail of this config (gf3x's `_tail_route`), static:
+        'split' (kernels A and B) for a bit-loaded config, 'fused' (kernel
+        2, which takes every uniform order up to 64-QAM) otherwise."""
+        return "split" if self.cfg.bit_loading is not None else "fused"
+
+    def _fused_eq_demap(self, Y: torch.Tensor, H: torch.Tensor,
+                        noise_var: torch.Tensor):
+        """Post-estimate tail on kernel 2: Y (B, K+D, U), H (B, U),
+        noise_var (B,) → (llr (B, raw_bits), slope, cpe, evm, mean|llr|)."""
+        return fused_eq_demap(self.cfg, Y, H, noise_var, self.pilot_vals)
+
+    def _split_eq_demap(self, Y: torch.Tensor, H: torch.Tensor,
+                        noise_var: torch.Tensor):
+        """The same tail on the split pair, for any config (uniform too):
+        kernel A equalizes, tracks and derotates, kernel B demaps each data
+        bin at its order with the modem's per-bin tables. Same return
+        contract as `_fused_eq_demap`."""
+        eq, slope, cpe, nv_sym = eq_track(self.cfg, Y, H, noise_var,
+                                          self.pilot_vals)
+        llr, evm, mabs = demap_bins(
+            self.cfg, eq, H, nv_sym,
+            (self.demap_used, self.demap_bits, self.demap_off))
+        return llr, slope, cpe, evm, mabs
+
     def _demod_syms(self, syms: torch.Tensor, roll=None):
         """CP-stripped symbols (B, K+D, n_fft) → (llr (B, raw_bits),
         (H, noise_var, slope, cpe, evm, mean|llr|, isi_var, isi_ratio)):
-        `_estimate`, then kernel 2."""
+        `_estimate`, then the config's EQ/demap tail."""
         Y, H, noise_var, isi_var, isi_ratio = self._estimate(syms, roll)
-        llr, slope, cpe, evm, mabs = fused_eq_demap(self.cfg, Y, H, noise_var,
-                                                    self.pilot_vals)
+        tail = (self._split_eq_demap if self._tail_route() == "split"
+                else self._fused_eq_demap)
+        llr, slope, cpe, evm, mabs = tail(Y, H, noise_var)
         return llr, (H, noise_var, slope, cpe, evm, mabs, isi_var, isi_ratio)
 
     def _codeword_llrs(self, llr: torch.Tensor) -> torch.Tensor:
@@ -383,3 +416,14 @@ class Modem(torch.nn.Module):
             bits, diag = self.demodulate_at(x, start)
         host = DecodeDiag(*(t.cpu().numpy() for t in diag))
         return self._result(bits.cpu().numpy(), host)
+
+    def decode_batch(self, rx: np.ndarray) -> list[DecodeResult]:
+        """(B, T) recordings → one DecodeResult per row, from one
+        `demodulate` call (chirp sync, bounded by `max_delay` when set)."""
+        x = torch.as_tensor(np.asarray(rx, dtype=np.float32),
+                            device=self.device)
+        bits, diag = self.demodulate(x)
+        bits = bits.cpu().numpy()
+        host = [t.cpu().numpy() for t in diag]
+        return [self._result(bits[i], DecodeDiag(*(f[i] for f in host)))
+                for i in range(bits.shape[0])]

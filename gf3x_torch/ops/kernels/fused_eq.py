@@ -24,9 +24,9 @@ import torch
 
 from ...config import ModemConfig, layout
 from ...utils.device import launch, ptr, stream_of
-from ..chanest import equalize, pilot_phase_correct
-from ..constellation import (hard_bits, pam_label_levels, qam_demap_llr,
-                             qam_map, qam_norm)
+from ..constellation import pam_label_levels, qam_norm
+from .split_eq import (check_track_inputs, demap_bins_plain, eq_track_plain,
+                       track_constants)
 
 __all__ = ["fused_eq_demap", "fused_eq_demap_plain"]
 
@@ -35,30 +35,11 @@ def fused_eq_demap_plain(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
                          noise_var: torch.Tensor,
                          pilot_vals: torch.Tensor | None = None):
     """Y (B, K+D, U) complex64 spectra (derolled), H (B, U) complex64,
-    noise_var (B,) → (llr, slope, cpe, evm, mabs) as in the module doc."""
-    from ...models.frame import split_pilots
-
-    if pilot_vals is None:
-        pilot_vals = torch.as_tensor(layout(cfg).pilot_vals)
-    pilot_vals = pilot_vals.to(Y.device)
-    B = Y.shape[0]
-    eq = equalize(H, Y[:, cfg.n_known_symbols:])
-    eq, slope, cpe = pilot_phase_correct(cfg, eq, H, pilot_vals)
-    pil, data = split_pilots(cfg, eq)                         # (B, D, nd)
-    csi = torch.abs(H) ** 2
-    # per-symbol noise floor from the CSI-weighted pilot residuals: a burst
-    # symbol demaps as erasures instead of confident errors
-    w, _ = split_pilots(cfg, csi)
-    perr = torch.abs(pil - pilot_vals) ** 2
-    sig = torch.sum(w[:, None, :] * perr, dim=-1) / cfg.n_pilots
-    nv_sym = torch.maximum(noise_var[:, None], sig)           # (B, D)
-    _, inv_csi = split_pilots(cfg, 1.0 / torch.clamp(csi, min=1e-12))
-    nv_eff = nv_sym[..., None] * inv_csi[:, None, :]          # (B, D, nd)
-    llr3 = qam_demap_llr(data, nv_eff, cfg.bits_per_symbol)
-    Xd = qam_map(hard_bits(llr3), cfg.bits_per_symbol)
-    evm = torch.mean(torch.abs(data - Xd) ** 2, dim=(-2, -1))
-    llr = llr3.reshape(B, cfg.raw_bits_per_frame)
-    return llr, slope, cpe, evm, torch.mean(torch.abs(llr), dim=-1)
+    noise_var (B,) → (llr, slope, cpe, evm, mabs) as in the module doc: the
+    split tail's two plain versions back to back, so the math exists once."""
+    eq, slope, cpe, nv_sym = eq_track_plain(cfg, Y, H, noise_var, pilot_vals)
+    llr, evm, mabs = demap_bins_plain(cfg, eq, H, nv_sym)
+    return llr, slope, cpe, evm, mabs
 
 
 _ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 6
@@ -66,38 +47,21 @@ _ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 6
             ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 
-def _ladder(cfg: ModemConfig):
-    """pilot_phase_correct's static constants: mean pilot spacing and the
-    (lag, baseline) of each refinement stage."""
-    kp = layout(cfg).pilot_pos.astype(np.float64)
-    P = cfg.n_pilots
-    stages = [(Q, float(np.float32(np.mean(kp[Q:] - kp[:-Q]))))
-              for Q in sorted({max(2, P // 8), P // 2}) if 1 <= Q < P]
-    return float(np.float32(np.mean(np.diff(kp)))), stages
-
-
 def fused_eq_demap(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
                    noise_var: torch.Tensor,
                    pilot_vals: torch.Tensor | None = None):
     """`fused_eq_demap_plain` for CPU tensors; the CUDA kernel otherwise
-    (strided pilots, at least two of them, up to 64-QAM)."""
+    (strided pilots, at least two of them, QPSK to 64-QAM). A bit-loaded
+    config takes the split tail (`split_eq`) on either device."""
+    if cfg.bit_loading is not None:
+        raise ValueError("fused_eq_demap: a bit-loaded config takes the "
+                         "split tail (split_eq.eq_track + demap_bins)")
     if Y.device.type == "cpu":
         return fused_eq_demap_plain(cfg, Y, H, noise_var, pilot_vals)
+    check_track_inputs("fused_eq_demap", cfg, Y, H, noise_var)
     dev = Y.device
-    if dev.type != "cuda" or H.device != dev or noise_var.device != dev:
-        raise ValueError("fused_eq_demap: Y, H and noise_var must be on one "
-                         "CUDA device")
-    if not (cfg.strided_pilots and cfg.n_pilots >= 2
-            and cfg.bit_loading is None and cfg.n_used <= 1024):
-        raise ValueError("fused_eq_demap: the kernel needs strided pilots "
-                         "(at least two), uniform loading and n_used ≤ 1024")
     B, S, U = Y.shape
     K, D = cfg.n_known_symbols, cfg.n_data_symbols
-    if (S != K + D or U != cfg.n_used or Y.dtype != torch.complex64
-            or H.shape != (B, U) or H.dtype != torch.complex64
-            or noise_var.shape != (B,)):
-        raise ValueError("fused_eq_demap: needs Y (B, K+D, n_used) and H "
-                         "(B, n_used) complex64, noise_var (B,)")
     if pilot_vals is None:
         pilot_vals = torch.as_tensor(layout(cfg).pilot_vals, device=dev)
     y = torch.view_as_real(Y.contiguous())
@@ -109,12 +73,11 @@ def fused_eq_demap(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
     m = cfg.bits_per_symbol // 2
     levels = (ctypes.c_float * 8)(
         *(pam_label_levels(m) * qam_norm(cfg.bits_per_symbol)).tolist())
-    mean_dk, stages = _ladder(cfg)
-    (q0, b0), (q1, b1) = (stages + [(0, 1.0), (0, 1.0)])[:2]
+    mean_dk, n_ladder, q0, b0, q1, b1 = track_constants(cfg)
     with torch.cuda.device(dev):
         launch("gf3x_fused_eq_demap", _ARGS, ptr(y), ptr(h), ptr(nv), ptr(pv),
                ptr(llr), ptr(slope), ptr(cpe), ptr(evm_p), ptr(abs_p), B, S,
-               K, U, cfg.n_pilots, cfg.pilot_spacing, m, levels, len(stages),
+               K, U, cfg.n_pilots, cfg.pilot_spacing, m, levels, n_ladder,
                q0, b0, q1, b1, mean_dk, stream_of(Y))
     fused_eq_demap.launches += 1
     evm = evm_p.sum(dim=1) / np.float32(D * cfg.n_data_bins)

@@ -1,0 +1,211 @@
+"""The split EQ/demap tail (`csrc/split_eq.cu`), each kernel with its plain
+PyTorch version:
+
+- kernel A, `eq_track` (replacing gf3x/ops/pallas/split_eq.py:eq_track_tpu):
+  one-tap EQ, pilot slope/CPE tracking, derotation and the per-symbol
+  noise floor → eq (B, D, U) complex64, slope, cpe, nv_sym (B, D) f32;
+- kernel B, `demap_bins` (replacing :demap_bins_tpu): max-log demap of
+  every data bin at its loaded order → llr (B, D·R) f32, scrambled and in
+  wire order (group-sorted when bit-loaded), evm (B,) over the active bins
+  and mean |llr| (B,).
+
+The plain versions are the XLA twin's math (Modem._eq_tail,
+loaded_demap_llr / qam_demap_llr); `fused_eq_demap_plain` is the two run
+back to back. Each wrapper runs its plain version for CPU tensors and
+launches its kernel for CUDA tensors (or raises), and counts launches in
+`.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ...config import ModemConfig, layout
+from ...utils.device import launch, ptr, stream_of
+from ..chanest import equalize, pilot_phase_correct
+from ..constellation import (hard_bits, pam_label_levels, qam_demap_llr,
+                             qam_map, qam_norm)
+
+__all__ = ["eq_track", "eq_track_plain", "demap_bins", "demap_bins_plain",
+           "track_constants"]
+
+
+def eq_track_plain(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
+                   noise_var: torch.Tensor,
+                   pilot_vals: torch.Tensor | None = None):
+    """Y (B, K+D, U) complex64 spectra (derolled), H (B, U) complex64,
+    noise_var (B,) → (eq (B, D, U) derotated equalized bins, slope, cpe,
+    nv_sym (B, D))."""
+    from ...models.frame import split_pilots
+
+    if pilot_vals is None:
+        pilot_vals = torch.as_tensor(layout(cfg).pilot_vals)
+    pilot_vals = pilot_vals.to(Y.device)
+    eq = equalize(H, Y[:, cfg.n_known_symbols:])
+    eq, slope, cpe = pilot_phase_correct(cfg, eq, H, pilot_vals)
+    pil, _ = split_pilots(cfg, eq)
+    # per-symbol noise floor from the CSI-weighted pilot residuals: a burst
+    # symbol demaps as erasures instead of confident errors
+    w, _ = split_pilots(cfg, torch.abs(H) ** 2)
+    perr = torch.abs(pil - pilot_vals) ** 2
+    sig = torch.sum(w[:, None, :] * perr, dim=-1) / cfg.n_pilots
+    return eq, slope, cpe, torch.maximum(noise_var[:, None], sig)
+
+
+def demap_bins_plain(cfg: ModemConfig, eq: torch.Tensor, H: torch.Tensor,
+                     nv_sym: torch.Tensor):
+    """eq (B, D, U) from kernel A, H (B, U), nv_sym (B, D) → (llr (B, D·R),
+    evm (B,), mean |llr| (B,)): `loaded_demap_llr` when bit-loaded,
+    `qam_demap_llr` otherwise, on nv_eff = nv_sym · 1/max(|H|², 1e-12)."""
+    from ...models.frame import loaded_demap_llr, split_pilots
+
+    _, data = split_pilots(cfg, eq)                           # (B, D, nd)
+    _, inv_csi = split_pilots(cfg, 1.0 / torch.clamp(torch.abs(H) ** 2,
+                                                     min=1e-12))
+    nv_eff = nv_sym[..., None] * inv_csi[:, None, :]
+    if cfg.bit_loading is not None:
+        llr, evm = loaded_demap_llr(cfg, data, nv_eff)
+    else:
+        llr3 = qam_demap_llr(data, nv_eff, cfg.bits_per_symbol)
+        Xd = qam_map(hard_bits(llr3), cfg.bits_per_symbol)
+        evm = torch.mean(torch.abs(data - Xd) ** 2, dim=(-2, -1))
+        llr = llr3
+    llr = llr.reshape(eq.shape[0], cfg.raw_bits_per_frame)
+    return llr, evm, torch.mean(torch.abs(llr), dim=-1)
+
+
+def track_constants(cfg: ModemConfig):
+    """pilot_phase_correct's static constants as the kernels take them:
+    (mean pilot spacing, n_ladder, q0, base0, q1, base1) — the (lag,
+    baseline) of each of at most two refinement stages."""
+    kp = layout(cfg).pilot_pos.astype(np.float64)
+    P = cfg.n_pilots
+    stages = [(Q, float(np.float32(np.mean(kp[Q:] - kp[:-Q]))))
+              for Q in sorted({max(2, P // 8), P // 2}) if 1 <= Q < P]
+    (q0, b0), (q1, b1) = (stages + [(0, 1.0), (0, 1.0)])[:2]
+    return (float(np.float32(np.mean(np.diff(kp)))), len(stages),
+            q0, b0, q1, b1)
+
+
+def check_track_inputs(name: str, cfg: ModemConfig, Y, H, noise_var):
+    """The shape, type and device checks of the kernels that take
+    Y (B, K+D, U), H (B, U) complex64 and noise_var (B,) on one CUDA
+    device."""
+    dev = Y.device
+    if dev.type != "cuda" or H.device != dev or noise_var.device != dev:
+        raise ValueError(f"{name}: Y, H and noise_var must be on one CUDA "
+                         "device")
+    if not (cfg.strided_pilots and cfg.n_pilots >= 2
+            and cfg.n_used <= 1024):
+        raise ValueError(f"{name}: the kernel needs strided pilots (at "
+                         "least two) and n_used ≤ 1024")
+    B, S, U = Y.shape
+    if (S != cfg.n_known_symbols + cfg.n_data_symbols or U != cfg.n_used
+            or Y.dtype != torch.complex64 or H.shape != (B, U)
+            or H.dtype != torch.complex64 or noise_var.shape != (B,)):
+        raise ValueError(f"{name}: needs Y (B, K+D, n_used) and H "
+                         "(B, n_used) complex64, noise_var (B,)")
+
+
+_TRACK_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+               + [ctypes.c_int] * 7
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_float, ctypes.c_void_p])
+
+
+def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
+             noise_var: torch.Tensor, pilot_vals: torch.Tensor | None = None):
+    """`eq_track_plain` for CPU tensors; kernel A otherwise."""
+    if Y.device.type == "cpu":
+        return eq_track_plain(cfg, Y, H, noise_var, pilot_vals)
+    check_track_inputs("eq_track", cfg, Y, H, noise_var)
+    dev = Y.device
+    B, S, U = Y.shape
+    D = cfg.n_data_symbols
+    if pilot_vals is None:
+        pilot_vals = torch.as_tensor(layout(cfg).pilot_vals, device=dev)
+    y = torch.view_as_real(Y.contiguous())
+    h = torch.view_as_real(H.contiguous())
+    nv = noise_var.to(torch.float32).contiguous()
+    pv = torch.view_as_real(pilot_vals.to(dev, torch.complex64).contiguous())
+    eq = torch.empty(B, D, U, dtype=torch.complex64, device=dev)
+    slope, cpe, nv_sym = torch.empty(3, B, D, device=dev)
+    mean_dk, n_ladder, q0, b0, q1, b1 = track_constants(cfg)
+    with torch.cuda.device(dev):
+        launch("gf3x_eq_track", _TRACK_ARGS, ptr(y), ptr(h), ptr(nv),
+               ptr(pv), ptr(torch.view_as_real(eq)), ptr(slope), ptr(cpe),
+               ptr(nv_sym), B, S, cfg.n_known_symbols, U, cfg.n_pilots,
+               cfg.pilot_spacing, n_ladder, q0, b0, q1, b1, mean_dk,
+               stream_of(Y))
+    eq_track.launches += 1
+    return eq, slope, cpe, nv_sym
+
+
+eq_track.launches = 0
+
+
+def _levels_by_order():
+    """The PAM levels of QPSK, 16- and 64-QAM back to back (2 + 4 + 8
+    floats, order m at offset 2^m − 2), the values `qam_demap_llr` uses."""
+    lv = np.concatenate([pam_label_levels(m) * qam_norm(2 * m)
+                         for m in (1, 2, 3)]).astype(np.float32)
+    return (ctypes.c_float * lv.size)(*lv.tolist())
+
+
+_DEMAP_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+               + [ctypes.c_int] * 4
+               + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                  ctypes.c_void_p])
+
+
+def demap_bins(cfg: ModemConfig, eq: torch.Tensor, H: torch.Tensor,
+               nv_sym: torch.Tensor, tables):
+    """`demap_bins_plain` for CPU tensors; kernel B otherwise. `tables` is
+    (used-bin index, bits, wire offset) per data bin, int32 —
+    `models.frame.demap_bin_tables(cfg)`, which a Modem keeps as buffers.
+    The plain version derives the same layout from the config itself, so
+    the two agree only if the tables are right."""
+    if eq.device.type == "cpu":
+        return demap_bins_plain(cfg, eq, H, nv_sym)
+    dev = eq.device
+    if dev.type != "cuda" or H.device != dev or nv_sym.device != dev:
+        raise ValueError("demap_bins: eq, H and nv_sym must be on one CUDA "
+                         "device")
+    B, D, U = eq.shape
+    nd = cfg.n_data_bins
+    if (D != cfg.n_data_symbols or U != cfg.n_used
+            or eq.dtype != torch.complex64 or H.shape != (B, U)
+            or H.dtype != torch.complex64 or nv_sym.shape != (B, D)
+            or nd > 1024):
+        raise ValueError("demap_bins: needs eq (B, D, n_used) and H "
+                         "(B, n_used) complex64, nv_sym (B, D), "
+                         "n_data_bins ≤ 1024")
+    used, bits, off = (t.to(dev, torch.int32).contiguous() for t in tables)
+    if not used.shape == bits.shape == off.shape == (nd,):
+        raise ValueError("demap_bins: each table needs n_data_bins entries")
+    gain = 1.0
+    if cfg.bit_loading is not None:
+        from ...models.frame import loading_tables
+        gain = loading_tables(cfg).gain
+    e = torch.view_as_real(eq.contiguous())
+    h = torch.view_as_real(H.contiguous())
+    nv = nv_sym.to(torch.float32).contiguous()
+    R = cfg.bits_per_ofdm_symbol
+    llr = torch.empty(B, D * R, device=dev)
+    evm_p, abs_p = torch.empty(2, B, D, device=dev)
+    with torch.cuda.device(dev):
+        launch("gf3x_demap_bins", _DEMAP_ARGS, ptr(e), ptr(h), ptr(nv),
+               ptr(used), ptr(bits), ptr(off), ptr(llr), ptr(evm_p),
+               ptr(abs_p), B, D, U, nd, R, float(np.float32(1.0 / gain)),
+               float(np.float32(1.0 / gain ** 2)), _levels_by_order(),
+               stream_of(eq))
+    demap_bins.launches += 1
+    evm = evm_p.sum(dim=1) / np.float32(D * cfg.n_active_bins)
+    mabs = abs_p.sum(dim=1) / np.float32(cfg.raw_bits_per_frame)
+    return llr, evm, mabs
+
+
+demap_bins.launches = 0

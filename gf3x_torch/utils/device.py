@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernel library.
 
-Every `gf3x_torch/csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into
-ONE shared library with a plain C interface, loaded with `ctypes`. The
-library lands in `gf3x_torch/_build/<hash of sources and flags>/` (ignored
-by git) and is built at its first use, so a fresh checkout on a machine
-with the CUDA toolkit builds it by itself; nothing is built or loaded when
-the package is imported.
+Every `gf3x_torch/csrc/*.cu` source is compiled by `nvcc` for `sm_90a`
+(one `nvcc` per source, all started together) and linked into ONE shared
+library with a plain C interface, loaded with `ctypes`. The library lands
+in `gf3x_torch/_build/<hash of sources and flags>/` (ignored by git) and
+is built at its first use, so a fresh checkout on a machine with the CUDA
+toolkit builds it by itself; nothing is built or loaded when the package
+is imported.
 
 `--fmad=false` is part of the build: the LDPC kernel must reproduce the
 plain version's float32 roundings bit for bit, and nvcc otherwise contracts
@@ -35,8 +36,7 @@ _BUILD = CSRC.parent / "_build"
 _LIB_NAME = "libgf3x_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 
 def _sources() -> list[Path]:
@@ -62,19 +62,29 @@ def _nvcc() -> str:
 
 
 def _build(out: Path) -> None:
-    """Compile every source into `out`; the compiler's report (registers,
-    shared memory, spills per kernel) is kept beside it as build.log."""
+    """Compile every source into `out`, one nvcc process per source running
+    side by side, then link; the compilers' reports (registers, shared
+    memory, spills per kernel) are kept beside it as build.log."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)      # atomic: a concurrent builder sees all or none
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        srcs = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [os.path.join(tmpdir, p.stem + ".o") for p in srcs]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", str(src),
+                                   "-o", obj], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        tmp = os.path.join(tmpdir, _LIB_NAME)
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        (out.parent / "build.log").write_text("".join(logs))
+        failed = [(src.name, p.returncode) for src, p in zip(srcs, procs)
+                  if p.returncode != 0]
+        if failed or link.returncode != 0:
+            raise RuntimeError(f"nvcc failed {failed or link.returncode}:\n"
+                               + "".join(logs))
+        os.replace(tmp, out)  # atomic: a concurrent builder sees all or none
 
 
 @functools.lru_cache(maxsize=None)

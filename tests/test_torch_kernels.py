@@ -18,11 +18,11 @@ from gf3x.models.frame import interleave_bits as j_interleave
 from gf3x_torch import Modem as TModem
 from gf3x_torch.fec.codes import N_BLOCK_COLS
 from gf3x_torch.fec.ldpc import LdpcCode as TCode
-from gf3x_torch.ops.kernels import fused_eq, gather_cut, ldpc_bp
+from gf3x_torch.ops.kernels import fused_eq, gather_cut, ldpc_bp, split_eq
 from gf3x_torch.utils import device
 
 
-@pytest.mark.parametrize("bps", [2, 4])
+@pytest.mark.parametrize("bps", [2, 4, 6])
 def test_fused_eq_demap_plain_matches_xla_twin(bps):
     """Kernel 2's plain version through the port's receive tail vs gf3x's
     `_demod_prewindowed(use_pallas=False)` on noisy frames: hard decisions
@@ -67,7 +67,7 @@ def _noisy_codewords(code, L, seed, sigma=0.8):
 
 
 @pytest.mark.parametrize("z,rate", [(24, "1/2"), (24, "3/4"), (96, "1/2"),
-                                    (96, "3/4")])
+                                    (96, "3/4"), (24, "2/3"), (96, "5/6")])
 def test_minsum_plain_bit_identical_to_xla_twin(z, rate):
     """Kernel 3's plain version vs `LdpcCode._minsum_xla` (and the
     `decode_jax(use_pallas=False)` surface): info bits, unsat flags and the
@@ -160,18 +160,28 @@ def test_cut_symbols_wrapper_dispatch():
         gather_cut.cut_symbols(rx.to("meta"), q.to("meta"), **kw)
 
 
-@pytest.mark.parametrize("which", ["fused_eq", "ldpc"])
+@pytest.mark.parametrize("which", ["fused_eq", "ldpc", "eq_track",
+                                   "demap_bins"])
 def test_other_wrappers_refuse_non_cpu_tensors(which):
-    """Kernels 2 and 3 likewise refuse a tensor that is neither on the CPU
-    nor on a CUDA device, and count no launch."""
+    """Kernels 2 and 3, and the split tail's kernels A and B, likewise
+    refuse a tensor that is neither on the CPU nor on a CUDA device, and
+    count no launch."""
+    cfg = GF3_STANDARD
+    Y = torch.zeros(1, 24, cfg.n_used, dtype=torch.complex64, device="meta")
+    H = torch.zeros(1, cfg.n_used, dtype=torch.complex64, device="meta")
+    nv = torch.zeros(1, device="meta")
     if which == "fused_eq":
-        cfg = GF3_STANDARD
-        Y = torch.zeros(1, 24, cfg.n_used, dtype=torch.complex64,
-                        device="meta")
-        H = torch.zeros(1, cfg.n_used, dtype=torch.complex64, device="meta")
-        call = lambda: fused_eq.fused_eq_demap(  # noqa: E731
-            cfg, Y, H, torch.zeros(1, device="meta"))
+        call = lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv)  # noqa: E731
         fn = fused_eq.fused_eq_demap
+    elif which == "eq_track":
+        call = lambda: split_eq.eq_track(cfg, Y, H, nv)  # noqa: E731
+        fn = split_eq.eq_track
+    elif which == "demap_bins":
+        tables = [torch.zeros(cfg.n_data_bins, dtype=torch.int32,
+                              device="meta")] * 3
+        call = lambda: split_eq.demap_bins(  # noqa: E731
+            cfg, Y[:, 4:], H, torch.zeros(1, 20, device="meta"), tables)
+        fn = split_eq.demap_bins
     else:
         lam = torch.zeros(4, 24 * 96, device="meta")
         call = lambda: ldpc_bp.minsum_totals(lam, 96, "1/2", 5)  # noqa: E731
@@ -192,5 +202,6 @@ def test_kernel_build_recipe():
     assert "arch=compute_90a,code=sm_90a" in device.NVCC_FLAGS
     assert "--fmad=false" in device.NVCC_FLAGS
     names = {p.name for p in device.CSRC.iterdir()}
-    assert {"cut_symbols.cu", "fused_eq.cu", "ldpc_bp.cu"} <= names
+    assert {"cut_symbols.cu", "fused_eq.cu", "ldpc_bp.cu", "split_eq.cu",
+            "eq_demap.cuh"} <= names
     assert device.kernel_lib.cache_info().currsize == 0

@@ -22,7 +22,7 @@ from gf3x import Modem as JModem
 from gf3x.config import layout
 from gf3x.fec.ldpc import LdpcCode
 from gf3x.io import read_wav
-from gf3x.models.frame import interleave_bits
+from gf3x.models.frame import interleave_bits, loading_tables
 from gf3x.ops.chanest import _isi_operator, denoise_projection
 from gf3x.ops.chirp import make_chirp
 
@@ -48,6 +48,16 @@ def gf3x_tables(cfg):
     """gf3x's static tables as NumPy arrays, under the port's names."""
     lay = layout(cfg)
     M, q, _ = _isi_operator(cfg)
+    nd = cfg.n_data_bins
+    if cfg.bit_loading is None:
+        groups = ((cfg.bits_per_symbol, np.arange(nd)),)
+    else:
+        groups = loading_tables(cfg).groups
+    bits, off, base = np.zeros(nd, np.int32), np.zeros(nd, np.int32), 0
+    for m, pos in groups:
+        bits[pos] = m
+        off[pos] = base + m * np.arange(len(pos))
+        base += m * len(pos)
     return {
         "chirp": make_chirp(cfg),
         "known_syms": lay.known_syms,
@@ -60,6 +70,9 @@ def gf3x_tables(cfg):
         "ldpc_parity": LdpcCode.for_config(cfg).t.P,
         "fec_index": np.asarray(interleave_bits(
             cfg, np.arange(cfg.raw_bits_per_frame), inverse=True)),
+        "demap_used": lay.data_pos.astype(np.int32),
+        "demap_bits": bits,
+        "demap_off": off,
     }
 
 
@@ -185,7 +198,8 @@ def test_import_leaves_jax_out():
     with the card has no jax)."""
     code = ("import sys, gf3x_torch, gf3x_torch.convert, "
             "gf3x_torch.utils.device, gf3x_torch.ops.kernels.gather_cut, "
-            "gf3x_torch.ops.kernels.fused_eq, gf3x_torch.ops.kernels.ldpc_bp;"
+            "gf3x_torch.ops.kernels.fused_eq, gf3x_torch.ops.kernels.ldpc_bp, "
+            "gf3x_torch.ops.kernels.split_eq, gf3x_torch.ops.adapt;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gf3x')];"
             "assert not bad, bad")
