@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
 """Smoke run of the gf3x_torch port on one CUDA card (an H100 for sm_90a).
 
-Drives two receive paths once each through the port's entry points, after
-building the five CUDA kernels from `gf3x_torch/csrc/` and holding each
-against its plain PyTorch version on the card at the shapes its path gives
-it:
+Builds the seven CUDA kernels from `gf3x_torch/csrc/`, holds each against
+its plain PyTorch version on the card at the shapes its path gives it, and
+drives the receive paths once each through the port's entry points:
 
 - config 5: `Modem(GF3_STANDARD, max_delay=4096 + cp).demodulate` on
   bench.py's 1024-frame batch — kernels 1 (cut), 2 (fused EQ/demap) and 3
   (LDPC); kernel 2 is held at QPSK, 16-QAM (gf3-fast) and 64-QAM
   (gf3-turbo);
-- bit-loaded: the same workload on `GF3_STANDARD.replace(bit_loading=...)`
-  with the reference's on-chip parity table — kernels 1, A (eq_track), B
-  (demap_bins) and 3; on gf3-turbo the split pair is also held against
-  kernel 2 and both are timed.
+- the fused cut+DFT route: the same batch through
+  `Modem(..., use_cut_dft=True).demodulate` — kernel 8 (cut + DFT +
+  deroll) in place of kernel 1, then 2 and 3; both routes' steps are
+  timed in turns;
+- the clock-offset loop: `demodulate_sfo` on the same batch (kernels 1, 2
+  and 3; the δ-warped DFT held at −80 dB against float64);
+- bit-loaded: the config-5 workload on `GF3_STANDARD.replace(
+  bit_loading=...)` with the reference's on-chip parity table — kernels 1,
+  A (eq_track), B (demap_bins) and 3; on gf3-turbo the split pair is also
+  held against kernel 2 and both are timed;
+- the six frozen captures of tests/fixtures/ through `decode_stream` to
+  their manifest sha256, and one of them through `decode` with sync='sc',
+  sfo='on' and dd='on': one recording, so the cut is kernel 7 (the
+  window cut gf3x takes for a batch that is not whole 8-row groups), held
+  at that shape and at an odd batch of config 5's rows.
 
 Any failed check raises, so the exit code is non-zero; there is no CPU
 route.
@@ -25,10 +35,12 @@ kernel's measurements, the card's name and power limit as nvidia-smi
 reports them, and `{"ok": true, "device": {...}}`.
 """
 
+import hashlib
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -38,6 +50,7 @@ MARGIN = 4096       # random onset headroom per recording, as in bench.py
 TIMED_RUNS = 20     # median over this many synchronised runs
 # the bit-loaded path's table: tools/tpu_parity.py's on-chip parity table
 LOADING_SEED, LOADING_P = 5, [0.1, 0.4, 0.35, 0.15]
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 
 
 def median_ms(fn, runs: int = TIMED_RUNS) -> float:
@@ -69,8 +82,9 @@ def build_report(log: str) -> str:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            for short in ("cut_symbols", "fused_eq_demap", "eq_track",
-                          "demap_bins", "minsum"):
+            for short in ("cut_symbols", "gather_cut", "cut_dft",
+                          "fused_eq_demap",
+                          "eq_track", "demap_bins", "minsum"):
                 if short in name:
                     name = short
         elif "stack frame" in ln:
@@ -81,7 +95,8 @@ def build_report(log: str) -> str:
 
 
 def path_inputs(modem, rx):
-    """The path's sync, cut plan and post-estimate tensors for one batch."""
+    """The path's sync, cut plan (q, roll, kernel 1's keywords) and
+    post-estimate tensors for one batch."""
     from gf3x_torch.ops import sync
     from gf3x_torch.ops.kernels import gather_cut
 
@@ -95,7 +110,7 @@ def path_inputs(modem, rx):
     kw = dict(geo, cp=cfg.cp, valid=valid)
     syms, _ = gather_cut.cut_symbols(rx, q, **kw)
     Y, H, nv, _, _ = modem._estimate(syms, roll)
-    return q, kw, syms, Y, H, nv
+    return q, roll, kw, syms, Y, H, nv
 
 
 def hold_fused(cfg, Y, H, nv, pv, label):
@@ -128,20 +143,39 @@ def hold_tail(out_k, out_p, what):
     return err, scale
 
 
-def run_path(modem, rx, payload, delays, counters, label):
-    """Drive `modem.demodulate` once with every launch counter at 0 and
-    check it: every row CRC-ok with the planted payload, every codeword
-    satisfied, finite diagnostics, sync within cp/4, and the first 4 rows
-    decoded the same on the CPU (plain versions). Returns (launch counts,
-    bits, diag, sync error)."""
+def launch_counts(counters, fn):
+    """Run fn() with every launch counter at 0; (its result, the counts)."""
+    for k in counters.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in counters.items()}
+
+
+def in_turns(fns: dict, blocks: int = 8, runs: int = 10):
+    """Step time of each fn timed in turns within this call (a, b, then
+    b, a, ...): blocks of `runs` synchronised calls; returns ({name:
+    median of its block medians}, {name: block medians})."""
+    names = list(fns)
+    meds = {n: [] for n in names}
+    for b in range(blocks):
+        for n in (names if b % 2 == 0 else names[::-1]):
+            meds[n].append(median_ms(fns[n], runs))
+    return {n: float(np.median(v)) for n, v in meds.items()}, meds
+
+
+def run_path(modem, rx, payload, delays, counters, label, entry=None):
+    """Drive one entry point (default `modem.demodulate`) once with every
+    launch counter at 0 and check it: every row CRC-ok with the planted
+    payload, every codeword satisfied, finite diagnostics, sync within
+    cp/4, and the first 4 rows decoded the same on the CPU (plain
+    versions). Returns (launch counts, bits, diag, sync error)."""
     from gf3x_torch import Modem
 
     cfg = modem.cfg
-    for fn in counters.values():
-        fn.launches = 0
-    bits, diag = modem.demodulate(rx)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    entry = entry or "demodulate"
+    (bits, diag), launches = launch_counts(
+        counters, lambda: getattr(modem, entry)(rx))
     bits_np = bits.cpu().numpy()
     check(bits_np.shape == (rx.shape[0], cfg.payload_bits_per_frame),
           f"{label}: bits shape")
@@ -159,11 +193,116 @@ def run_path(modem, rx, payload, delays, counters, label):
     sync_err = int((diag.sync_start.cpu() - torch.as_tensor(delays)).abs()
                    .max())
     check(sync_err <= cfg.cp // 4, f"{label}: sync off by {sync_err} samples")
-    cpu = Modem(cfg, max_delay=MARGIN + cfg.cp)
-    bits_cpu, _ = cpu.demodulate(rx[:4].cpu())
+    cpu = Modem(cfg, max_delay=MARGIN + cfg.cp,
+                use_cut_dft=modem.use_cut_dft)
+    bits_cpu, _ = getattr(cpu, entry)(rx[:4].cpu())
     check(torch.equal(bits_cpu, bits[:4].cpu()),
           f"{label}: card and CPU decodes of the first rows differ")
     return launches, bits, diag, sync_err
+
+
+def run_captures(dev, counters):
+    """The six frozen captures of tests/fixtures/ through the port's
+    `decode_stream` on the card, each to its manifest sha256. Returns (the
+    launch counts summed over the captures, seconds per capture)."""
+    from gf3x_torch import Modem
+    from gf3x_torch.io import read_wav
+    from gf3x_torch.models.stream import decode_stream
+    from gf3x_torch.utils.captures import capture_config
+
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    total = {name: 0 for name in counters}
+    secs = {}
+    for cap in manifest["captures"]:
+        rx, _ = read_wav(FIXTURES / cap["wav"])
+        modem = Modem(capture_config(cap), device=dev)
+        t0 = time.perf_counter()
+        res, launches = launch_counts(counters,
+                                      lambda: decode_stream(modem, rx))
+        secs[cap["wav"]] = time.perf_counter() - t0
+        check(res.complete and res.starts.size == cap["n_frames"]
+              and res.filename == cap["filename"]
+              and hashlib.sha256(res.payload).hexdigest()
+              == cap["payload_sha256"],
+              f"capture {cap['wav']}: not decoded to its manifest sha256")
+        for name in total:
+            total[name] += launches[name]
+        print(f"capture {cap['wav']}: {cap['n_frames']} frame(s), sha256 "
+              f"ok, clock_ppm "
+              f"{[round(float(f.diag.clock_ppm), 1) for f in res.frames]}, "
+              f"launches {launches}; {secs[cap['wav']]:.2f} s", flush=True)
+    for name in ("fused_eq_demap", "eq_track", "demap_bins", "minsum_totals"):
+        check(total[name] > 0, f"captures: {name} did not launch")
+    return total, secs
+
+
+def hold_gather_cut(rx, q, nb, block, valid):
+    """Kernel 7 against its plain version on one input: the windows equal.
+    Returns (max |difference|, kernel ms, plain ms)."""
+    from gf3x_torch.ops.kernels import gather_cut
+
+    win_k = gather_cut.gather_cut(rx, q, nb, block, valid)
+    win_p = gather_cut.gather_cut_plain(rx, q, nb, block, valid)
+    check(torch.equal(win_k, win_p), f"gather_cut kernel differs from its "
+          f"plain version at {tuple(rx.shape)}")
+    return (float((win_k - win_p).abs().max()),
+            median_ms(lambda: gather_cut.gather_cut(rx, q, nb, block, valid)),
+            median_ms(lambda: gather_cut.gather_cut_plain(rx, q, nb, block,
+                                                          valid)))
+
+
+def run_routes(dev, counters):
+    """`decode` of gf3_single_room.wav with sync='sc', sfo='on' and
+    dd='on' on the card: each CRC-ok with the capture's payload, kernels
+    7, 2 and 3 launched on each route and kernel 1 not (one recording cuts
+    with kernel 7, as gf3x's `cut_symbols` does). Kernel 7 is held first at
+    the cut this recording gives it. Returns (the launch counts summed over
+    the three, kernel 7's (max |difference|, ms, plain ms) and kernel 1's
+    ms on the same cut)."""
+    from gf3x_torch import GF3_STANDARD, Modem
+    from gf3x_torch.io import read_wav
+    from gf3x_torch.ops import sync
+    from gf3x_torch.ops.kernels import gather_cut
+
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    cap = next(c for c in manifest["captures"]
+               if c["wav"] == "gf3_single_room.wav")
+    rx, _ = read_wav(FIXTURES / cap["wav"])
+    modem = Modem(GF3_STANDARD, device=dev)
+    cfg, block = modem.cfg, modem._cut_block
+    x = torch.as_tensor(np.asarray(rx, dtype=np.float32), device=dev)
+    base, S, sc_off = modem._cut_geom(x, modem._sync(x)[0])
+    geo = dict(S=S, n_fft=cfg.n_fft, sym_len=cfg.symbol_len, sc_off=sc_off,
+               body_off=cfg.sc_len)
+    q, valid, _ = sync.cut_plan(x.shape[-1], base, block=block, **geo)
+    nb = gather_cut.window_blocks(block, S, cfg.n_fft, cfg.sc_len,
+                                  cfg.symbol_len, sc_off)
+    x2, q = x.reshape(1, -1), q.contiguous()
+    held = hold_gather_cut(x2, q, nb, block, valid)
+    # what the B % 8 route costs against kernel 1 on the same cut
+    k1_ms = median_ms(lambda: gather_cut.cut_symbols(
+        x2, q, valid=valid, block=block, cp=cfg.cp, **geo))
+    print(f"gather_cut at decode's cut of {cap['wav']} (1 x {x.shape[-1]} "
+          f"-> 1 x {nb * block}): equal; {held[1]:.3f} ms vs plain "
+          f"{held[2]:.3f} ms; kernel 1 on the same cut {k1_ms:.3f} ms",
+          flush=True)
+    total = {name: 0 for name in counters}
+    for kw in (dict(sync="sc"), dict(sfo="on"), dict(dd="on")):
+        res, launches = launch_counts(counters,
+                                      lambda: modem.decode(rx, **kw))
+        check(res.crc_ok and hashlib.sha256(res.payload).hexdigest()
+              == cap["payload_sha256"], f"decode {kw}: not CRC-ok")
+        for name in ("gather_cut", "fused_eq_demap", "minsum_totals"):
+            check(launches[name] > 0, f"decode {kw}: {name} did not launch")
+        check(launches["cut_symbols"] == 0, f"decode {kw}: kernel 1 "
+              "launched on one recording")
+        for name in total:
+            total[name] += launches[name]
+        print(f"decode {kw} of {cap['wav']}: CRC-ok, sync_start "
+              f"{int(res.diag.sync_start)}, clock_ppm "
+              f"{float(res.diag.clock_ppm):.2f}, launches {launches}",
+              flush=True)
+    return total, (*held, k1_ms)
 
 
 def main() -> None:
@@ -173,7 +312,8 @@ def main() -> None:
     import bench
     import gf3x_torch
     from gf3x_torch import GF3_FAST, GF3_STANDARD, GF3_TURBO, Modem
-    from gf3x_torch.ops.kernels import fused_eq, gather_cut, ldpc_bp, split_eq
+    from gf3x_torch.ops.kernels import (cut_dft, fused_eq, gather_cut,
+                                        ldpc_bp, split_eq)
     from gf3x_torch.ops.ofdm import ofdm_dft
     from gf3x_torch.utils.device import kernel_lib, library_path
 
@@ -204,7 +344,7 @@ def main() -> None:
     modem, rx, payload, delays = batch(cfg)
 
     # ---- kernel 1 vs plain at the path's cut geometry
-    q, kw, syms_k, Y, H, nv = path_inputs(modem, rx)
+    q, roll, kw, syms_k, Y, H, nv = path_inputs(modem, rx)
     syms_k, scw_k = gather_cut.cut_symbols(rx, q, **kw)
     syms_p, scw_p = gather_cut.cut_symbols_plain(rx, q, **kw)
     check(torch.equal(syms_k, syms_p) and torch.equal(scw_k, scw_p),
@@ -218,6 +358,17 @@ def main() -> None:
                                                                 **kw)))}
     print(f"cut_symbols: equal; {rows['cut_symbols']['ms']:.3f} ms vs plain "
           f"{rows['cut_symbols']['plain_ms']:.3f} ms", flush=True)
+
+    # ---- kernel 7 vs plain on an odd batch, config 5's first B − 1 rows:
+    # the window cut a batch of partial 8-row groups takes
+    nb7 = gather_cut.window_blocks(kw["block"], kw["S"], kw["n_fft"],
+                                   kw["body_off"], kw["sym_len"],
+                                   kw["sc_off"])
+    odd7 = hold_gather_cut(rx[: B - 1].contiguous(), q[: B - 1].contiguous(),
+                           nb7, kw["block"], kw["valid"])
+    print(f"gather_cut at {B - 1} rows ({B - 1} x {rx.shape[-1]} -> "
+          f"{B - 1} x {nb7 * kw['block']}): equal; {odd7[1]:.3f} ms vs plain "
+          f"{odd7[2]:.3f} ms", flush=True)
 
     # ---- kernel 2 vs plain on the path's spectra and channel estimate
     pv = modem.pilot_vals
@@ -276,15 +427,19 @@ def main() -> None:
 
     # ---- the config-5 main path, once, through the user's entry point
     counters = {"cut_symbols": gather_cut.cut_symbols,
+                "gather_cut": gather_cut.gather_cut,
                 "fused_eq_demap": fused_eq.fused_eq_demap,
                 "eq_track": split_eq.eq_track,
                 "demap_bins": split_eq.demap_bins,
-                "minsum_totals": ldpc_bp.minsum_totals}
-    launches5, _, _, sync_err = run_path(modem, rx, payload, delays,
-                                         counters, "config 5")
+                "minsum_totals": ldpc_bp.minsum_totals,
+                "cut_dft": cut_dft.cut_dft}
+    launches5, bits5, _, sync_err = run_path(modem, rx, payload, delays,
+                                             counters, "config 5")
     for name in ("cut_symbols", "fused_eq_demap", "minsum_totals"):
         check(launches5[name] > 0, f"config 5: {name} did not launch: "
               f"{launches5}")
+    check(launches5["gather_cut"] == 0, "config 5: kernel 7 launched on "
+          "whole 8-row groups")
     step_ms = median_ms(lambda: modem.demodulate(rx))
     sps = B * cfg.n_data_symbols / (step_ms / 1e3)
     print(f"demodulate: {B}/{B} rows CRC-ok with the planted payload, "
@@ -298,13 +453,94 @@ def main() -> None:
     db = 10 * np.log10(np.sum(np.abs(got - ref) ** 2) / np.sum(np.abs(ref) ** 2))
     check(db <= -80.0, f"demod DFT error {db:.1f} dB > -80 dB")
     print(f"dft precision: {db:.1f} dB (gate -80 dB)", flush=True)
-    del modem, rx, syms_k, syms_p, Y, H, nv, lam, noisy, noise
+
+    # ---- kernel 8 vs plain at the path's cut geometry: spectra within
+    # 1e-5 of their mean magnitude, the SC window equal to kernel 1's, and
+    # the −80 dB gate against a float64 NumPy DFT of the same windows
+    kw8 = {k: kw[k] for k in ("valid", "block", "S", "body_off", "sc_off")}
+    Y8, scw8 = cut_dft.cut_dft(cfg, rx, q, roll, **kw8)
+    Y8p, _ = cut_dft.cut_dft_plain(cfg, rx, q, roll, **kw8)
+    err8 = float((Y8 - Y8p).abs().max())
+    scale8 = float(Y8p.abs().mean())
+    check(err8 <= 1e-5 * scale8, f"cut_dft spectra differ from the plain "
+          f"version by {err8} > 1e-5 x mean|Y| {scale8}")
+    check(torch.equal(scw8, scw_k), "cut_dft SC window differs from kernel "
+          "1's")
+    kk = np.arange(cfg.bin_lo, cfg.bin_hi + 1)
+    ref8 = ref * np.exp(2j * np.pi * kk * roll.cpu().numpy()[:, None, None]
+                        / cfg.n_fft)
+    got8 = Y8.cpu().numpy().astype(np.complex128)
+    db8 = 10 * np.log10(np.sum(np.abs(got8 - ref8) ** 2)
+                        / np.sum(np.abs(ref8) ** 2))
+    check(db8 <= -80.0, f"cut_dft error {db8:.1f} dB > -80 dB")
+    rows["cut_dft"] = dict(
+        name="cut_dft", route="cuda", source="gf3x_torch/csrc/cut_dft.cu",
+        replaces="gf3x/ops/pallas/cut_dft.py:182", max_abs_err=err8,
+        mean_abs=scale8, max_err_over_mean_abs=err8 / scale8,
+        ms=median_ms(lambda: cut_dft.cut_dft(cfg, rx, q, roll, **kw8)),
+        plain_ms=median_ms(lambda: cut_dft.cut_dft_plain(cfg, rx, q, roll,
+                                                         **kw8)))
+    print(f"cut_dft: max |dY| {err8:.3g} (mean |Y| {scale8:.3g}), SC window "
+          f"equal to kernel 1's, {db8:.1f} dB vs float64 (gate -80 dB); "
+          f"{rows['cut_dft']['ms']:.3f} ms vs plain "
+          f"{rows['cut_dft']['plain_ms']:.3f} ms", flush=True)
+    del Y8, Y8p, scw8, got8, ref8, ref, got
+
+    # ---- the fused cut+DFT route, once, then both routes' steps in turns
+    modem8 = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev,
+                   use_cut_dft=True)
+    launches8, bits8, _, sync_err = run_path(modem8, rx, payload, delays,
+                                             counters, "cut+DFT route")
+    check(launches8["cut_dft"] > 0 and launches8["cut_symbols"] == 0,
+          f"cut+DFT route: cut_dft must launch and cut_symbols not: "
+          f"{launches8}")
+    for name in ("fused_eq_demap", "minsum_totals"):
+        check(launches8[name] > 0, f"cut+DFT route: {name} did not launch")
+    check(torch.equal(bits8, bits5), "cut+DFT route: bits differ from the "
+          "two-stage route's")
+    turns, blocks = in_turns({"two_stage": lambda: modem.demodulate(rx),
+                              "cut_dft": lambda: modem8.demodulate(rx)})
+    print(f"demodulate, cut+DFT route: {B}/{B} rows CRC-ok, bits equal to "
+          f"the two-stage route's, launches {launches8}; in turns (8 blocks "
+          f"of 10 steps): cut+DFT {turns['cut_dft']:.3f} ms/step, two-stage "
+          f"{turns['two_stage']:.3f} ms/step; block medians "
+          f"{ {k: [round(x, 3) for x in v] for k, v in blocks.items()} }",
+          flush=True)
+    del modem8, bits8
+
+    # ---- the clock-offset loop on the same batch: δ̂ near 0 (the batch
+    # has no clock offset), the δ̂-warped DFT at −80 dB against float64
+    launchesS, _, diagS, sync_err = run_path(
+        modem, rx, payload, delays, counters, "demodulate_sfo",
+        entry="demodulate_sfo")
+    for name in ("cut_symbols", "fused_eq_demap", "minsum_totals"):
+        check(launchesS[name] > 0, f"demodulate_sfo: {name} did not launch")
+    check(launchesS["cut_dft"] == 0, "demodulate_sfo: cut_dft launched")
+    syms_s, sc_s, roll_s = modem._cut_frame(rx, modem._sync(rx)[0])
+    delta = modem._two_pass_delta(syms_s, sc_s, roll_s)
+    check(abs(float(delta)) * 1e6 < 20.0, f"demodulate_sfo: |delta| "
+          f"{float(delta) * 1e6:.2f} ppm on a batch without clock offset")
+    x64 = syms_s[:64].cpu().numpy().astype(np.float64)
+    th = (2 * np.pi / cfg.n_fft * np.arange(cfg.n_fft)[:, None] * kk
+          * (1.0 + float(delta)))
+    refS = (x64 @ np.exp(-1j * th)) / cfg.ofdm_scale
+    gotS = ofdm_dft(cfg, syms_s[:64], delta).cpu().numpy()
+    dbS = 10 * np.log10(np.sum(np.abs(gotS - refS) ** 2)
+                        / np.sum(np.abs(refS) ** 2))
+    check(dbS <= -80.0, f"warped DFT error {dbS:.1f} dB > -80 dB")
+    sfo_ms = median_ms(lambda: modem.demodulate_sfo(rx))
+    print(f"demodulate_sfo: {B}/{B} rows CRC-ok, delta "
+          f"{float(delta) * 1e6:.3f} ppm, clock_ppm |max| "
+          f"{float(diagS.clock_ppm.abs().max()):.2f}, warped DFT "
+          f"{dbS:.1f} dB vs float64 (gate -80 dB), launches {launchesS}; "
+          f"{sfo_ms:.3f} ms/step", flush=True)
+    del modem, rx, syms_k, syms_p, Y, H, nv, lam, noisy, noise, syms_s
 
     # ---- kernel 2 at 16-QAM (gf3-fast) and 64-QAM (gf3-turbo), and on
     # gf3-turbo the split pair against it at the full batch
     for cfg_u, label in ((GF3_FAST, "16-QAM"), (GF3_TURBO, "64-QAM")):
         m_u, rx_u, _, _ = batch(cfg_u)
-        _, _, _, Y, H, nv = path_inputs(m_u, rx_u)
+        _, _, _, _, Y, H, nv = path_inputs(m_u, rx_u)
         pv = m_u.pilot_vals
         out_k, err, scale = hold_fused(cfg_u, Y, H, nv, pv, label)
         print(f"fused_eq_demap {label}: hard decisions equal, max |dLLR| "
@@ -328,7 +564,7 @@ def main() -> None:
     modem, rx, payload, delays = batch(cfg)
     check(modem._tail_route() == "split", "the loaded config must take the "
           "split tail")
-    _, _, _, Y, H, nv = path_inputs(modem, rx)
+    _, _, _, _, Y, H, nv = path_inputs(modem, rx)
     pv = modem.pilot_vals
 
     # ---- kernel A vs plain on the loaded batch's spectra
@@ -410,18 +646,35 @@ def main() -> None:
           f"{float(diag.fec_iters.float().mean()):.3f} max "
           f"{int(diag.fec_iters.max())}, launches {launchesL}; "
           f"{stepL_ms:.3f} ms/step, {spsL:.1f} data symbols/s", flush=True)
+    del modem, rx
+
+    # ---- the six frozen captures through decode_stream, then one of them
+    # through decode's other routes
+    launchesC, cap_s = run_captures(dev, counters)
+    launchesR, held7 = run_routes(dev, counters)
+    rows["gather_cut"] = dict(
+        name="gather_cut", route="cuda",
+        source="gf3x_torch/csrc/gather_cut.cu",
+        replaces="gf3x/ops/pallas/gather_cut.py:157",
+        max_abs_err=max(held7[0], odd7[0]), ms=held7[1], plain_ms=held7[2],
+        kernel1_same_cut_ms=held7[3], odd_batch_ms=odd7[1],
+        odd_batch_plain_ms=odd7[2])
 
     check("jax" not in sys.modules and "gf3x" not in sys.modules,
           "jax or gf3x was imported")
+    by_path = {"config5": launches5, "cut_dft_route": launches8,
+               "sfo": launchesS, "bit_loaded": launchesL,
+               "captures": launchesC, "routes": launchesR}
     for name, row in rows.items():
-        row["launches"] = launches5[name] + launchesL[name]
-        row["launches_by_path"] = {"config5": launches5[name],
-                                   "bit_loaded": launchesL[name]}
+        row["launches"] = sum(c[name] for c in by_path.values())
+        row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
     print(json.dumps({"kernels": list(rows.values()), "step_ms": step_ms,
                       "data_symbols_per_s": sps, "loaded_step_ms": stepL_ms,
                       "loaded_data_symbols_per_s": spsL,
-                      "gf3_turbo_tail": turbo, "build_s": build_s,
-                      "package": gf3x_torch.__name__}), flush=True)
+                      "in_turns_ms": turns, "sfo_step_ms": sfo_ms,
+                      "captures_s": cap_s, "gf3_turbo_tail": turbo,
+                      "build_s": build_s, "package": gf3x_torch.__name__}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,16 @@
 """gf3x_torch — the PyTorch/CUDA port of gf3x, beside the JAX package it is
-held against. It runs the chirp-synced receive path (sync, frame cut,
-used-band DFT, LS estimate, EQ/track/demap — fused for uniform configs,
-split for bit-loaded ones — and LDPC), the transmit path and link
-adaptation, with five hand-written CUDA kernels for sm_90a on the card and
-their plain PyTorch versions on the CPU. It never imports jax or gf3x.
+held against. It runs every decode route of gf3x's Modem (chirp or
+Schmidl–Cox sync, frame cut — alone or fused with the used-band DFT —, LS
+estimate, EQ/track/demap — fused for uniform configs, split for bit-loaded
+ones —, LDPC, the clock-offset loop and the decision-directed retry), the
+multi-frame stream decoder, the transmit path and link adaptation, with
+seven hand-written CUDA kernels for sm_90a on the card and their plain PyTorch
+versions on the CPU. It never imports jax or gf3x.
 
     from gf3x_torch import GF3_STANDARD, Modem
     modem = Modem(GF3_STANDARD, max_delay=4352, device="cuda")
     bits, diag = modem.demodulate(rx)            # rx: (B, T) float32
+    res = Modem(GF3_STANDARD).decode(recording)  # one WAV's samples
 """
 
 import torch

@@ -1,0 +1,40 @@
+# Copied from gf3x/io/audio.py (NumPy and SciPy only; live play/record not
+# ported), so that gf3x_torch never imports jax.
+"""WAV file I/O at 44.1 kHz: float32 waveforms in [-1, 1] cross this module
+as 16-bit PCM."""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+from scipy.io import wavfile
+
+__all__ = ["write_wav", "read_wav"]
+
+
+def write_wav(path: str | Path, waveform: np.ndarray, fs: int = 44100) -> None:
+    """float waveform in [-1, 1] → 16-bit PCM WAV (clipped, not wrapped)."""
+    x = np.clip(np.asarray(waveform, dtype=np.float64), -1.0, 1.0)
+    wavfile.write(str(path), fs, (x * 32767.0).astype(np.int16))
+
+
+def read_wav(path: str | Path, expect_fs: int | None = 44100) -> tuple[np.ndarray, int]:
+    """WAV → (float32 waveform in [-1, 1], fs). Stereo is averaged to mono;
+    int16/int32/uint8/float inputs normalized."""
+    fs, data = wavfile.read(str(path))
+    if expect_fs is not None and fs != expect_fs:
+        raise ValueError(f"{path}: sample rate {fs} != expected {expect_fs}")
+    # normalize BEFORE the stereo mixdown — mean() promotes to float and
+    # would make every PCM dtype miss its branch
+    if data.dtype == np.int16:
+        x = data.astype(np.float32) / 32768.0
+    elif data.dtype == np.int32:
+        x = data.astype(np.float32) / 2147483648.0
+    elif data.dtype == np.uint8:
+        x = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        x = data.astype(np.float32)
+    if x.ndim == 2:
+        x = x.mean(axis=1)
+    return x, fs

@@ -1,16 +1,26 @@
-"""The modem as a torch module: batched `encode(bytes) → waveform` and the
-chirp-synced receive path `demodulate` (counterpart of
-gf3x/models/modem.py, plain route only).
+"""The modem as a torch module: batched `encode(bytes) → waveform` and every
+decode route of gf3x/models/modem.py — chirp or Schmidl–Cox sync, the
+clock-offset loop, the decision-directed retry, prewindowed frames — and
+`decode` with gf3x's retry policy.
 
 Receive path of one (B, T) float32 batch:
 
-    find_frame_start (bounded, 2× decimated when `max_delay` is set)
-    → cut_symbols            kernel 1 (frame cut + CP strip)
-    → ofdm_dft + deroll      cuFFT, one phase ramp for the block-grid roll
+    find_frame_start (bounded, 2× decimated when `max_delay` is set),
+        or find_frame_start_sc (`demodulate_sc`)
+    → cut_symbols            kernel 1 (frame cut + CP strip); a batch that
+                             is not whole 8-row groups (`decode` of one
+                             recording) takes kernel 7's window cut, as
+                             in gf3x
+    → ofdm_dft + deroll      cuFFT, one phase ramp for the block-grid roll;
+                             the δ-warped matmul DFT in the clock-offset loop
+      (with `use_cut_dft`, on the plain route: cut_dft_spectra, kernel 8 —
+       cut, DFT and deroll in one launch)
     → estimate_channel       LS + tap denoise + ISI profile on K symbols
     → the EQ/demap tail, by config (`_tail_route`):
         uniform:     fused_eq_demap       kernel 2 (EQ, pilot tracking, demap)
         bit-loaded:  eq_track → demap_bins  kernels A and B (the split tail)
+      (the DD retry runs the tail twice, the second time on Ĥ re-estimated
+       from the first pass's decisions)
     → one static gather      deinterleave + descramble into codewords
     → LDPC min-sum           kernel 3
     → info bits + DecodeDiag
@@ -35,22 +45,29 @@ from ..config import ModemConfig, layout
 from ..fec.ldpc import LdpcCode
 from ..ops.chanest import _isi_operator, denoise_projection, estimate_channel
 from ..ops.chirp import make_chirp
-from ..ops.constellation import hard_bits
+from ..ops.constellation import hard_bits, qam_map
 from ..ops.kernels.fused_eq import fused_eq_demap
 from ..ops.kernels.split_eq import demap_bins, eq_track
-from ..ops.ofdm import ofdm_dft, ofdm_modulate
-from ..ops.sfo import slope_clock_offset
-from ..ops.sync import (cut_symbols, find_frame_start, max_cut_start,
-                        sc_metric_window)
+from ..ops.ofdm import deroll, ofdm_dft, ofdm_modulate
+from ..ops.sfo import (auto_retry_needed, prefer_retry, sc_clock_offset,
+                       slope_clock_offset)
+from ..ops.sync import (cut_dft_spectra, cut_symbols, find_frame_start,
+                        find_frame_start_sc, max_cut_start, sc_metric_window)
 from ..utils.bits import (bits_to_bytes, bytes_to_bits, pack_header,
                           parse_frame_header)
 from .frame import (data_symbols_from_bits, demap_bin_tables,
-                    frame_bin_matrix, interleave_bits)
+                    frame_bin_matrix, interleave_bits, interleave_pilots,
+                    loaded_qam_map)
 
 __all__ = ["Modem", "DecodeDiag", "DecodeResult"]
 
-_NOT_PORTED = ("is not ported to gf3x_torch yet (ROADMAP queue 1, item 7: "
-               "other decode routes)")
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """Median of all elements, the mean of the two middle values for an
+    even count (jnp.median; torch.median returns the lower one)."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.numel()
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
 class DecodeDiag(NamedTuple):
@@ -97,12 +114,16 @@ class Modem(torch.nn.Module):
     """
 
     def __init__(self, cfg: ModemConfig, max_delay: Optional[int] = None,
-                 device=None):
+                 device=None, use_cut_dft: bool = False):
         """`max_delay` (samples) bounds the frame onset the sync searches
-        for (the streaming receiver's case); None searches the recording."""
+        for (the streaming receiver's case); None searches the recording.
+        `use_cut_dft` routes the plain decode (no clock-offset loop, no DD)
+        through kernel 8, the fused cut + DFT + deroll; off by default, as
+        in gf3x, and a setting of this instance only."""
         super().__init__()
         self.cfg = cfg.validate()
         self.max_delay = max_delay
+        self.use_cut_dft = use_cut_dft
         # decimate the bounded sync correlation when the chirp band fits the
         # decimated Nyquist (timing granularity 2, inside the backoff)
         self._sync_decimate = 2 if cfg.chirp_f1 * 4 <= cfg.fs * 0.95 else 1
@@ -236,16 +257,22 @@ class Modem(torch.nn.Module):
                            body_off=cfg.sc_len, sc_off=sc_off,
                            block=self._cut_block)
 
-    def _deroll(self, Y: torch.Tensor, roll: torch.Tensor) -> torch.Tensor:
-        """Undo an early window cut of `roll` samples:
-        Y[k]·e^{+2πik·roll/N} (the CP makes the shift circular).
-        Y: (..., S, n_used); roll: (...,) int."""
+    def _cut_dft_frame(self, rx: torch.Tensor, start: torch.Tensor):
+        """Fused cut + used-band DFT + deroll (kernel 8), the same cut as
+        `_cut_frame`: sync position → (Y (..., S, n_used) derolled spectra,
+        SC window or None)."""
         cfg = self.cfg
-        k = torch.arange(cfg.bin_lo, cfg.bin_hi + 1, dtype=torch.float32,
-                         device=Y.device)
-        ang = (np.float32(2.0 * np.pi / cfg.n_fft)
-               * roll.to(torch.float32)[..., None, None] * k)
-        return Y * torch.complex(torch.cos(ang), torch.sin(ang))
+        base, S, sc_off = self._cut_geom(rx, start)
+        return cut_dft_spectra(cfg, rx, base, S=S, body_off=cfg.sc_len,
+                               sc_off=sc_off, block=self._cut_block)
+
+    def _sym_matrix(self, body: torch.Tensor) -> torch.Tensor:
+        """CP-aligned OFDM body (..., S·symbol_len) → CP-stripped symbols
+        (..., S, n_fft)."""
+        cfg = self.cfg
+        *lead, T = body.shape
+        S = T // cfg.symbol_len
+        return body.reshape(*lead, S, cfg.symbol_len)[..., cfg.cp:]
 
     @staticmethod
     def _hist16_of(x: torch.Tensor) -> torch.Tensor:
@@ -255,19 +282,25 @@ class Modem(torch.nn.Module):
         e = ((x.abs().view(torch.int32) >> 23) & 0xFF) - 125
         return torch.clamp(e, 0, 15)
 
-    def _estimate(self, syms: torch.Tensor, roll=None):
-        """CP-stripped symbols (B, K+D, n_fft) → (Y (B, K+D, n_used) derolled
-        spectra, H, noise_var, isi_var, isi_ratio): DFT, deroll, LS
-        estimate on the K known symbols."""
-        cfg = self.cfg
-        Y = ofdm_dft(cfg, syms)
-        if roll is not None:
-            Y = self._deroll(Y, roll)
+    def _spectra(self, syms: torch.Tensor, delta=None, roll=None):
+        """CP-stripped symbols (B, K+D, n_fft) → derolled used-band spectra
+        (B, K+D, n_used); δ-warped when `delta` is given."""
+        return deroll(self.cfg, ofdm_dft(self.cfg, syms, delta), roll)
+
+    def _chanest(self, Y: torch.Tensor, delta=None):
+        """Spectra (B, K+D, U) → (H, noise_var, isi_var, isi_ratio): the LS
+        estimate, denoise and ISI profile on the K known symbols."""
         H, noise_var, (isi_var, isi_ratio) = estimate_channel(
-            cfg, Y[:, : cfg.n_known_symbols], with_isi=True,
+            self.cfg, Y[:, : self.cfg.n_known_symbols], delta, with_isi=True,
             known_syms=self.known_syms, P=getattr(self, "denoise", None),
             M=getattr(self, "isi_M", None), q=getattr(self, "isi_q", None))
-        return Y, H, noise_var, isi_var, isi_ratio
+        return H, noise_var, isi_var, isi_ratio
+
+    def _estimate(self, syms: torch.Tensor, roll=None, delta=None):
+        """CP-stripped symbols (B, K+D, n_fft) → (Y (B, K+D, n_used)
+        derolled spectra, H, noise_var, isi_var, isi_ratio)."""
+        Y = self._spectra(syms, delta, roll)
+        return (Y, *self._chanest(Y, delta))
 
     def _tail_route(self) -> str:
         """The EQ/demap tail of this config (gf3x's `_tail_route`), static:
@@ -294,15 +327,86 @@ class Modem(torch.nn.Module):
             (self.demap_used, self.demap_bits, self.demap_off))
         return llr, slope, cpe, evm, mabs
 
-    def _demod_syms(self, syms: torch.Tensor, roll=None):
-        """CP-stripped symbols (B, K+D, n_fft) → (llr (B, raw_bits),
-        (H, noise_var, slope, cpe, evm, mean|llr|, isi_var, isi_ratio)):
-        `_estimate`, then the config's EQ/demap tail."""
-        Y, H, noise_var, isi_var, isi_ratio = self._estimate(syms, roll)
-        tail = (self._split_eq_demap if self._tail_route() == "split"
-                else self._fused_eq_demap)
-        llr, slope, cpe, evm, mabs = tail(Y, H, noise_var)
+    def _tail(self, Y: torch.Tensor, H: torch.Tensor,
+              noise_var: torch.Tensor):
+        """The config's EQ/demap tail (`_tail_route`)."""
+        if self._tail_route() == "split":
+            return self._split_eq_demap(Y, H, noise_var)
+        return self._fused_eq_demap(Y, H, noise_var)
+
+    def _demod_spectra(self, Y: torch.Tensor, delta=None):
+        """Derolled spectra (B, K+D, n_used) → (llr (B, raw_bits), (H,
+        noise_var, slope, cpe, evm, mean|llr|, isi_var, isi_ratio)): the
+        channel estimate, then the config's EQ/demap tail."""
+        H, noise_var, isi_var, isi_ratio = self._chanest(Y, delta)
+        llr, slope, cpe, evm, mabs = self._tail(Y, H, noise_var)
         return llr, (H, noise_var, slope, cpe, evm, mabs, isi_var, isi_ratio)
+
+    def _demod_syms(self, syms: torch.Tensor, delta=None, roll=None):
+        """CP-stripped symbols (B, K+D, n_fft) → `_demod_spectra`'s
+        contract; `delta` warps the DFT, `roll` derotates a block-grid
+        cut."""
+        return self._demod_spectra(self._spectra(syms, delta, roll), delta)
+
+    def _demod_prewindowed(self, body: torch.Tensor, delta=None, roll=None):
+        """A CP-aligned OFDM body (B, (K+D)·symbol_len) through
+        `_demod_syms`."""
+        return self._demod_syms(self._sym_matrix(body), delta, roll)
+
+    def _decided_bins(self, llr: torch.Tensor) -> torch.Tensor:
+        """The tail's scrambled wire-order LLRs (B, raw_bits) → the decided
+        TX bins of the data symbols (B, D, n_used), pilots exact: gf3x's
+        `_xla_demap` hard decisions (Xd) with the pilots interleaved."""
+        cfg = self.cfg
+        B, D = llr.shape[0], cfg.n_data_symbols
+        if cfg.bit_loading is not None:
+            bits = hard_bits(llr.reshape(B, D, cfg.bits_per_ofdm_symbol))
+            Xd = loaded_qam_map(cfg, bits)
+        else:
+            bits = hard_bits(llr.reshape(B, D, cfg.n_data_bins,
+                                         cfg.bits_per_symbol))
+            Xd = qam_map(bits, cfg.bits_per_symbol)
+        return interleave_pilots(cfg, Xd, self.pilot_vals)
+
+    def _demod_syms_dd(self, syms: torch.Tensor, delta=None, roll=None):
+        """Two-pass decision-directed demod, the CRC-failure retry: Ĥ is
+        re-estimated from all D data symbols' first-pass decisions (pilots
+        exact) after derotating each by its measured phase, blended with
+        the known-symbol estimate by observation count (K·Ĥ + D·Ĥ_dd)/(K+D),
+        and the tail runs again. Both passes run the config's tail kernel,
+        whose values equal gf3x's XLA tail. Same contract as
+        `_demod_syms`."""
+        cfg = self.cfg
+        K, D = cfg.n_known_symbols, cfg.n_data_symbols
+        Y = self._spectra(syms, delta, roll)
+        H, noise_var, isi_var, isi_ratio = self._chanest(Y, delta)
+        llr, slope, cpe, _, _ = self._tail(Y, H, noise_var)
+        Xhat = self._decided_bins(llr)
+        kk = torch.arange(cfg.n_used, dtype=torch.float32, device=Y.device)
+        ph = slope[..., None] * kk + cpe[..., None]             # (B, D, U)
+        Yd = Y[:, K:] * torch.exp(-1j * ph)
+        H_dd = (torch.sum(Yd * torch.conj(Xhat), dim=-2)
+                / torch.clamp(torch.sum(torch.abs(Xhat) ** 2, dim=-2),
+                              min=1e-12))
+        H2 = (K * H + D * H_dd) / (K + D)
+        llr, slope, cpe, evm, mabs = self._tail(Y, H2, noise_var)
+        return llr, (H2, noise_var, slope, cpe, evm, mabs, isi_var,
+                     isi_ratio)
+
+    def _two_pass_delta(self, syms: torch.Tensor,
+                        sc_win: Optional[torch.Tensor], roll=None):
+        """The clock-offset loop, coarse → fine: the SC estimate δ₀ seeds a
+        δ₀-warped demod, whose pilot slopes give δ̂ (they measure the whole
+        drift, not the residual). Rows combine by median, so one
+        burst-destroyed frame cannot drag the shared estimate: one scalar
+        δ̂, one TX/RX clock pair per call."""
+        cfg = self.cfg
+        if sc_win is not None:
+            d0 = _median(sc_clock_offset(cfg, sc_win))
+        else:
+            d0 = torch.zeros((), device=syms.device)
+        _, (_, _, slope_a, *_) = self._demod_syms(syms, delta=d0, roll=roll)
+        return _median(slope_clock_offset(cfg, slope_a))
 
     def _codeword_llrs(self, llr: torch.Tensor) -> torch.Tensor:
         """Scrambled wire-order LLRs (B, raw_bits) → descrambled LLRs in
@@ -335,21 +439,19 @@ class Modem(torch.nn.Module):
         unsat = unsat.reshape(B, ncw).sum(dim=1, dtype=torch.int32)
         return bits, iters, unsat, hist
 
-    def _demod_synced(self, rx: torch.Tensor, start: torch.Tensor,
-                      metric: torch.Tensor):
-        """Shared tail once the frame start is known: cut → demap → FEC →
-        DecodeDiag. rx (..., T), start (...,) or scalar."""
+    def _finish(self, out, lead: tuple, start: torch.Tensor,
+                metric: torch.Tensor, sc_win: Optional[torch.Tensor]):
+        """A demod's (llr, pieces) on the flat batch → (bits (...,
+        payload_bits), DecodeDiag) in the caller's lead shape: FEC, then
+        the diagnostics."""
         cfg = self.cfg
-        lead = rx.shape[:-1]
-        syms, sc_win, roll = self._cut_frame(rx, start)
-        B = syms[..., 0, 0].numel()
-        llr, (H, nv, slope, cpe, evm, mabs, isi_var, isi_ratio) = \
-            self._demod_syms(syms.reshape(B, *syms.shape[-2:]),
-                             roll.reshape(B))
+        llr, (H, nv, slope, cpe, evm, mabs, isi_var, isi_ratio) = out
         bits, fec_iters, fec_unsat, hist = self._payload_bits(llr)
         sc = (sc_metric_window(cfg, sc_win) if sc_win is not None
-              else torch.zeros(lead, device=rx.device))
+              else torch.zeros(lead, device=llr.device))
         shape = lambda t, *tail: t.reshape(tuple(lead) + tail)  # noqa: E731
+        # pilot slopes measure the whole timing drift on warped and plain
+        # passes alike, so clock_ppm needs no δ added
         diag = DecodeDiag(
             sync_start=torch.broadcast_to(start, lead).to(torch.int32),
             sync_metric=torch.broadcast_to(metric, lead).to(torch.float32),
@@ -366,23 +468,102 @@ class Modem(torch.nn.Module):
         )
         return shape(bits, bits.shape[-1]), diag
 
+    def _demod_synced(self, rx: torch.Tensor, start: torch.Tensor,
+                      metric: torch.Tensor, sfo_correct: bool = False,
+                      dd: bool = False):
+        """Shared tail once the frame start is known: cut → demap → FEC →
+        DecodeDiag. rx (..., T), start (...,) or scalar. `sfo_correct`
+        inserts the clock-offset loop, `dd` takes the decision-directed
+        demod; the plain route takes kernel 8 when `use_cut_dft` is set
+        (the other two re-demodulate the symbol matrix, so they keep the
+        two-stage cut)."""
+        cfg = self.cfg
+        lead = tuple(rx.shape[:-1])
+        B = int(np.prod(lead))
+        S = cfg.n_known_symbols + cfg.n_data_symbols
+        if self.use_cut_dft and not sfo_correct and not dd:
+            Y, sc_win = self._cut_dft_frame(rx, start)
+            out = self._demod_spectra(Y.reshape(B, S, cfg.n_used))
+        else:
+            syms, sc_win, roll = self._cut_frame(rx, start)
+            syms, roll = syms.reshape(B, S, cfg.n_fft), roll.reshape(B)
+            delta = (self._two_pass_delta(syms, sc_win, roll)
+                     if sfo_correct else None)
+            demod = self._demod_syms_dd if dd else self._demod_syms
+            out = demod(syms, delta=delta, roll=roll)
+        return self._finish(out, lead, start, metric, sc_win)
+
+    def _sync(self, rx: torch.Tensor):
+        """Chirp sync of (..., T): bounded and 2× decimated with
+        `max_delay`."""
+        return find_frame_start(
+            self.cfg, rx, self.chirp, search_len=self.max_delay,
+            decimate=self._sync_decimate if self.max_delay else 1)
+
     @torch.no_grad()
     def demodulate(self, rx: torch.Tensor):
         """Full receive path: sync → cut → DFT → LS estimate → EQ/track/
         demap → FEC. rx (..., T) float32 → (bits (..., payload_bits) uint8,
         DecodeDiag). With `max_delay` the sync correlates only the
         recording prefix, 2× decimated."""
-        start, metric = find_frame_start(
-            self.cfg, rx, self.chirp, search_len=self.max_delay,
-            decimate=self._sync_decimate if self.max_delay else 1)
-        return self._demod_synced(rx, start, metric)
+        return self._demod_synced(rx, *self._sync(rx))
 
     @torch.no_grad()
-    def demodulate_at(self, rx: torch.Tensor, start: torch.Tensor):
+    def demodulate_at(self, rx: torch.Tensor, start, sfo_correct: bool = False,
+                      dd: bool = False):
         """Decode with a known chirp onset `start` (loopback paths)."""
         start = torch.as_tensor(start, dtype=torch.int32, device=rx.device)
         inf = torch.full((), float("inf"), device=rx.device)
-        return self._demod_synced(rx, start, inf)
+        return self._demod_synced(rx, start, inf, sfo_correct=sfo_correct,
+                                  dd=dd)
+
+    @torch.no_grad()
+    def demodulate_dd(self, rx: torch.Tensor):
+        """The receive path through the decision-directed two-pass demod,
+        the CRC-failure retry `decode(dd='auto')` takes."""
+        return self._demod_synced(rx, *self._sync(rx), dd=True)
+
+    @torch.no_grad()
+    def demodulate_sfo(self, rx: torch.Tensor):
+        """Clock-offset-robust receive: chirp sync, then the SC coarse δ̂ →
+        warped-DFT demod → pilot-slope δ̂ → final warped demod. One δ̂ for
+        the whole batch (one TX/RX clock pair)."""
+        return self._demod_synced(rx, *self._sync(rx), sfo_correct=True)
+
+    @torch.no_grad()
+    def demodulate_sc(self, rx: torch.Tensor, sfo_correct: bool = False,
+                      dd: bool = False):
+        """The receive path synced by the Schmidl–Cox plateau instead of the
+        chirp (the fallback when the chirp is clipped or collided);
+        diag.sc_metric is the plateau's peak."""
+        start, sc_peak = find_frame_start_sc(self.cfg, rx)
+        nan = torch.full((), float("nan"), device=rx.device)
+        bits, diag = self._demod_synced(rx, start, nan,
+                                        sfo_correct=sfo_correct, dd=dd)
+        return bits, diag._replace(sc_metric=sc_peak.to(torch.float32))
+
+    @torch.no_grad()
+    def demodulate_prewindowed(self, windows: torch.Tensor,
+                               sfo_correct: bool = False):
+        """Decode frames already cut at their chirp onset: windows
+        (..., frame_len) → (bits, DecodeDiag). The body is a static slice
+        (the streaming receiver cuts windows on the host), so no cut kernel
+        runs; `sfo_correct` inserts the clock-offset loop."""
+        cfg = self.cfg
+        lead = tuple(windows.shape[:-1])
+        B = int(np.prod(lead))
+        need = (cfg.n_known_symbols + cfg.n_data_symbols) * cfg.symbol_len
+        a = cfg.preamble_len - cfg.cp // 4   # a + need = frame_len − backoff
+        syms = self._sym_matrix(windows[..., a: a + need].reshape(B, need))
+        sc_win = None
+        if cfg.use_schmidl_cox:
+            o = cfg.chirp_len + cfg.cp       # SC body within the window
+            sc_win = windows[..., o: o + cfg.n_fft]
+        delta = self._two_pass_delta(syms, sc_win) if sfo_correct else None
+        zeros = torch.zeros(lead, dtype=torch.int32, device=windows.device)
+        inf = torch.full((), float("inf"), device=windows.device)
+        return self._finish(self._demod_syms(syms, delta=delta), lead, zeros,
+                            inf, sc_win)
 
     # --------------------------------------------------------- host wrappers
     def _result(self, bits: np.ndarray, diag) -> DecodeResult:
@@ -396,34 +577,77 @@ class Modem(torch.nn.Module):
                             crc_ok=h.crc_ok, bits=bits, diag=diag,
                             seq=h.seq, total=h.total)
 
-    def decode(self, rx: np.ndarray, start: Optional[int] = None,
-               sync: str = "chirp", sfo: str = "off",
-               dd: str = "off") -> DecodeResult:
-        """waveform → DecodeResult on the plain chirp route (`start`
-        overrides the sync). The Schmidl–Cox sync, the clock-offset loop and
-        the decision-directed retry are not ported yet."""
-        if sync != "chirp":
-            raise NotImplementedError(f"sync={sync!r} {_NOT_PORTED}")
-        if sfo != "off":
-            raise NotImplementedError(f"sfo={sfo!r} {_NOT_PORTED}")
-        if dd != "off":
-            raise NotImplementedError(f"dd={dd!r} {_NOT_PORTED}")
-        x = torch.as_tensor(np.asarray(rx, dtype=np.float32),
-                            device=self.device)
-        if start is None:
-            bits, diag = self.demodulate(x)
-        else:
-            bits, diag = self.demodulate_at(x, start)
+    def _host_result(self, bits: torch.Tensor, diag) -> DecodeResult:
+        """One frame's device (bits, DecodeDiag) → DecodeResult with the
+        diagnostics as NumPy arrays."""
         host = DecodeDiag(*(t.cpu().numpy() for t in diag))
         return self._result(bits.cpu().numpy(), host)
+
+    def decode(self, rx: np.ndarray, start: Optional[int] = None,
+               sync: str = "chirp", sfo: str = "auto",
+               dd: str = "auto") -> DecodeResult:
+        """waveform → DecodeResult, with gf3x's routes and retry policy.
+        `start` overrides the sync (loopback); sync='sc' times the frame by
+        the Schmidl–Cox plateau instead of the chirp.
+
+        sfo: 'off' | 'auto' | 'on' — the clock-offset loop
+        (`demodulate_sfo`). 'auto' retries through it when the plain decode
+        fails CRC or reports |clock_ppm| beyond `SLOPE_PPM_RANGE`.
+
+        dd: 'off' | 'auto' | 'on' — the decision-directed demod
+        (`_demod_syms_dd`). 'auto' retries it once when everything else
+        failed CRC and the channel shows a measurable tail (max isi_db
+        > −25 dB); 'on' decodes through it directly, without the
+        clock-offset loop (gf3x's limit, kept for parity)."""
+        if sync not in ("chirp", "sc"):
+            raise ValueError(f"unknown sync method {sync!r}; use 'chirp' or "
+                             "'sc'")
+        x = torch.as_tensor(np.asarray(rx, dtype=np.float32),
+                            device=self.device)
+        if dd == "on":
+            if start is not None:
+                out = self.demodulate_at(x, start, dd=True)
+            elif sync == "sc":
+                out = self.demodulate_sc(x, dd=True)
+            else:
+                out = self.demodulate_dd(x)
+            return self._host_result(*out)
+        correct = sfo == "on"
+        if start is not None:
+            out = self.demodulate_at(x, start, sfo_correct=correct)
+        elif sync == "sc":
+            out = self.demodulate_sc(x, sfo_correct=correct)
+        elif correct:
+            out = self.demodulate_sfo(x)
+        else:
+            out = self.demodulate(x)
+        res = self._host_result(*out)
+        if (sfo == "auto" and self.cfg.use_schmidl_cox
+                and auto_retry_needed(res.crc_ok, res.diag.clock_ppm)):
+            retry = self.decode(rx, start=start, sync=sync, sfo="on",
+                                dd="off")
+            if prefer_retry(res.crc_ok, retry.crc_ok):
+                return retry
+        if (dd == "auto" and not res.crc_ok
+                and float(np.max(res.diag.isi_db)) > -25.0):
+            retry = self.decode(rx, start=start, sync=sync, sfo="off",
+                                dd="on")
+            if retry.crc_ok:
+                return retry
+        return res
+
+    def _host_results(self, bits: torch.Tensor,
+                      diag) -> list[DecodeResult]:
+        """A batch's device (bits (B, ·), DecodeDiag) → one DecodeResult
+        per row, with one host copy per field."""
+        bits = bits.cpu().numpy()
+        host = [t.cpu().numpy() for t in diag]
+        return [self._result(bits[i], DecodeDiag(*(f[i] for f in host)))
+                for i in range(bits.shape[0])]
 
     def decode_batch(self, rx: np.ndarray) -> list[DecodeResult]:
         """(B, T) recordings → one DecodeResult per row, from one
         `demodulate` call (chirp sync, bounded by `max_delay` when set)."""
         x = torch.as_tensor(np.asarray(rx, dtype=np.float32),
                             device=self.device)
-        bits, diag = self.demodulate(x)
-        bits = bits.cpu().numpy()
-        host = [t.cpu().numpy() for t in diag]
-        return [self._result(bits[i], DecodeDiag(*(f[i] for f in host)))
-                for i in range(bits.shape[0])]
+        return self._host_results(*self.demodulate(x))

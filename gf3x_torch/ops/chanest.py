@@ -4,8 +4,7 @@ profile, one-tap EQ and CSI-weighted pilot phase tracking.
 
 The host tables (denoise projector P, ISI operator M and its noise gain q)
 are built in float64 NumPy exactly as gf3x builds them; a `Modem` keeps
-them as buffers and passes them in. The δ (clock-offset) derotation of the
-known symbols is not ported yet (ROADMAP queue 1, item 7)."""
+them as buffers and passes them in."""
 
 from __future__ import annotations
 
@@ -92,6 +91,7 @@ def isi_profile(cfg: ModemConfig, H_raw: torch.Tensor,
 
 
 def estimate_channel(cfg: ModemConfig, known_rx: torch.Tensor,
+                     delta: torch.Tensor | None = None,
                      with_isi: bool = False, *,
                      known_syms: torch.Tensor | None = None,
                      P: torch.Tensor | None = None,
@@ -101,10 +101,23 @@ def estimate_channel(cfg: ModemConfig, known_rx: torch.Tensor,
     variance. known_rx: (..., K, n_used) complex64 → (Ĥ (..., n_used),
     noise_var (...,)), plus (isi_var, isi_ratio) from the RAW Ĥ when
     `with_isi`. With est_taps > 0, Ĥ is projected onto ≤ est_taps taps
-    after moving its bulk delay to tap est_taps//4."""
+    after moving its bulk delay to tap est_taps//4.
+
+    `delta` (scalar clock offset) first derotates known symbol r by the
+    window drift it accumulates, e^{−2πik·δ·r·symbol_len/N}, so that the
+    average does not smear top-bin phases at |δ| ≳ 500 ppm."""
     dev = known_rx.device
     X = (torch.as_tensor(layout(cfg).known_syms) if known_syms is None
          else known_syms).to(dev)
+    if delta is not None:
+        k = torch.arange(cfg.bin_lo, cfg.bin_hi + 1, dtype=torch.float32,
+                         device=dev)[None, :]
+        r = torch.arange(cfg.n_known_symbols, dtype=torch.float32,
+                         device=dev)[:, None]
+        d = torch.as_tensor(delta, dtype=torch.float32, device=dev)
+        ang = (np.float32(-2.0 * np.pi / cfg.n_fft) * k
+               * (d * np.float32(cfg.symbol_len)) * r)
+        known_rx = known_rx * torch.complex(torch.cos(ang), torch.sin(ang))
     H = torch.mean(known_rx / X, dim=-2)
     resid = known_rx - H[..., None, :] * X
     noise_var = torch.mean(torch.abs(resid) ** 2, dim=(-2, -1))

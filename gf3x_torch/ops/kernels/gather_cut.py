@@ -1,10 +1,17 @@
-"""Kernel 1: fused frame cut + CP strip (`csrc/cut_symbols.cu`, replacing
-gf3x/ops/pallas/gather_cut.py:cut_symbols_tpu), with its plain PyTorch
-version: the `gather_cut` window cut + reshape/slice of
-gf3x/ops/sync.py:398-402.
+"""The frame cut's two kernels, each with its plain PyTorch version:
 
-`cut_symbols` runs the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor (or raises); `cut_symbols.launches` counts the
+- kernel 1, `cut_symbols`: fused frame cut + CP strip
+  (`csrc/cut_symbols.cu`, replacing
+  gf3x/ops/pallas/gather_cut.py:cut_symbols_tpu); plain version: the
+  window cut + reshape/slice of gf3x/ops/sync.py:398-402;
+- kernel 7, `gather_cut`: the block-aligned window cut alone
+  (`csrc/gather_cut.cu`, replacing gf3x/ops/pallas/gather_cut.py:
+  gather_cut_tpu), which gf3x's `cut_symbols` falls back to for a batch
+  that is not a whole number of 8-row groups; plain version: one
+  `torch.gather`.
+
+Each wrapper runs its plain version for a CPU tensor and launches its
+kernel for a CUDA tensor (or raises); `<wrapper>.launches` counts the
 launches."""
 
 from __future__ import annotations
@@ -15,17 +22,68 @@ import torch
 
 from ...utils.device import launch, ptr, stream_of
 
-__all__ = ["gather_cut", "cut_symbols", "cut_symbols_plain"]
+__all__ = ["gather_cut", "gather_cut_plain", "window_blocks",
+           "window_symbols", "cut_symbols", "cut_symbols_plain"]
 
 
-def gather_cut(rx: torch.Tensor, q: torch.Tensor, nb: int, block: int,
-               valid: int) -> torch.Tensor:
+def gather_cut_plain(rx: torch.Tensor, q: torch.Tensor, nb: int, block: int,
+                     valid: int) -> torch.Tensor:
     """Per-row block-aligned window: (B, T) → (B, nb·block) with row i =
     rx[i, q[i]·block:][:nb·block], samples at or past `valid` read as 0."""
     cols = (q.to(torch.int64)[:, None] * block
             + torch.arange(nb * block, device=rx.device))
     got = torch.gather(rx, 1, cols.clamp(0, max(valid - 1, 0)))
     return torch.where(cols < valid, got, torch.zeros((), device=rx.device))
+
+
+_GATHER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 \
+    + [ctypes.c_int, ctypes.c_void_p]
+
+
+def gather_cut(rx: torch.Tensor, q: torch.Tensor, nb: int, block: int,
+               valid: int) -> torch.Tensor:
+    """`gather_cut_plain` for a CPU tensor; the CUDA kernel otherwise."""
+    if rx.device.type == "cpu":
+        return gather_cut_plain(rx, q, nb, block, valid)
+    if rx.device.type != "cuda" or q.device != rx.device:
+        raise ValueError(f"gather_cut: rx on {rx.device}, q on {q.device}; "
+                         "both must be on one CUDA device")
+    if (rx.dtype != torch.float32 or q.dtype != torch.int32 or rx.dim() != 2
+            or q.shape != rx.shape[:1] or not rx.is_contiguous()
+            or not q.is_contiguous()):
+        raise ValueError("gather_cut: needs contiguous rx (B, T) float32 "
+                         "and q (B,) int32")
+    B, T = rx.shape
+    if not 0 <= valid <= T:
+        raise ValueError(f"gather_cut: valid={valid} outside [0, {T}]")
+    L = nb * block
+    win = torch.empty(B, L, device=rx.device)
+    with torch.cuda.device(rx.device):
+        launch("gf3x_gather_cut", _GATHER_ARGS, ptr(rx), ptr(q), ptr(win), B,
+               T, valid, L, block, stream_of(rx))
+    gather_cut.launches += 1
+    return win
+
+
+gather_cut.launches = 0
+
+
+def window_symbols(win: torch.Tensor, *, S: int, n_fft: int, body_off: int,
+                   sym_len: int, cp: int, sc_off: int):
+    """Cut windows (B, ≥ need) → (syms (B, S, n_fft) view, scw (B, n_fft)
+    view or None): symbol s at body_off + s·sym_len + cp, scw at sc_off."""
+    body = win[:, body_off: body_off + S * sym_len]
+    syms = body.reshape(-1, S, sym_len)[..., cp: cp + n_fft]
+    scw = win[:, sc_off: sc_off + n_fft] if sc_off >= 0 else None
+    return syms, scw
+
+
+def window_blocks(block: int, S: int, n_fft: int, body_off: int,
+                  sym_len: int, sc_off: int) -> int:
+    """Blocks of the window the cut needs: the S symbols and the SC
+    window."""
+    need = max(body_off + S * sym_len, sc_off + n_fft if sc_off >= 0 else 0)
+    return -(-need // block)
 
 
 def cut_symbols_plain(rx: torch.Tensor, q: torch.Tensor, *, valid: int,
@@ -35,13 +93,10 @@ def cut_symbols_plain(rx: torch.Tensor, q: torch.Tensor, *, valid: int,
     (B, S, n_fft), scw (B, n_fft) or None): symbol s of row i is
     rx[i, q·block + body_off + s·sym_len + cp :][:n_fft] and scw the n_fft
     window at q·block + sc_off (None when sc_off < 0)."""
-    need = max(body_off + S * sym_len, sc_off + n_fft if sc_off >= 0 else 0)
-    nb = -(-need // block)
-    win = gather_cut(rx, q, nb, block, valid)
-    body = win[:, body_off: body_off + S * sym_len]
-    syms = body.reshape(-1, S, sym_len)[..., cp: cp + n_fft]
-    scw = win[:, sc_off: sc_off + n_fft] if sc_off >= 0 else None
-    return syms, scw
+    nb = window_blocks(block, S, n_fft, body_off, sym_len, sc_off)
+    return window_symbols(gather_cut_plain(rx, q, nb, block, valid), S=S,
+                          n_fft=n_fft, body_off=body_off, sym_len=sym_len,
+                          cp=cp, sc_off=sc_off)
 
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 7 \

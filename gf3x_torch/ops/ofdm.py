@@ -1,7 +1,7 @@
-"""OFDM layer: batched real-FFT modulation with cyclic prefix, and the
-used-band DFT of CP-stripped symbols (counterpart of gf3x/ops/ofdm.py's
-CPU route: `torch.fft`, which is cuFFT on the card). The δ-warped DFT of
-the clock-offset loop is not ported yet (ROADMAP queue 1, item 7)."""
+"""OFDM layer: batched real-FFT modulation with cyclic prefix, the used-band
+DFT of CP-stripped symbols and its δ-warped form for the clock-offset loop
+(counterpart of gf3x/ops/ofdm.py's CPU route: `torch.fft`, which is cuFFT on
+the card), and the deroll ramp of a block-grid cut."""
 
 from __future__ import annotations
 
@@ -10,7 +10,23 @@ import torch
 
 from ..config import ModemConfig
 
-__all__ = ["ofdm_modulate", "ofdm_dft"]
+__all__ = ["ofdm_modulate", "ofdm_demodulate", "ofdm_dft", "deroll",
+           "matmul_f32"]
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in full float32 precision: TF32 is switched off for the call,
+    whatever the process-wide setting (a TF32 product fails the −80 dB
+    demod DFT gate). The switch is PyTorch's process-global flag, so a
+    thread that runs a matmul meanwhile also runs it without TF32, and two
+    threads in here at once may leave the flag off."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_tf32
+    mm.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        mm.allow_tf32 = prev
 
 
 def ofdm_modulate(cfg: ModemConfig, sym_bins: torch.Tensor) -> torch.Tensor:
@@ -25,8 +41,56 @@ def ofdm_modulate(cfg: ModemConfig, sym_bins: torch.Tensor) -> torch.Tensor:
     return with_cp.reshape(*lead, S * cfg.symbol_len)
 
 
-def ofdm_dft(cfg: ModemConfig, sym: torch.Tensor) -> torch.Tensor:
+def ofdm_demodulate(cfg: ModemConfig, samples: torch.Tensor,
+                    delta: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., S·(N+CP)) float32 samples → (..., S, n_used) complex64 bins:
+    CP strip by reshape and slice, then `ofdm_dft` (δ-warped when given)."""
+    *lead, T = samples.shape
+    S = T // cfg.symbol_len
+    sym = samples.reshape(*lead, S, cfg.symbol_len)[..., cfg.cp:]
+    return ofdm_dft(cfg, sym, delta)
+
+
+def ofdm_dft(cfg: ModemConfig, sym: torch.Tensor,
+             delta: torch.Tensor | None = None) -> torch.Tensor:
     """Used-band DFT of CP-stripped symbols: (..., S, n_fft) float32 →
-    (..., S, n_used) complex64, scaled by 1/ofdm_scale."""
-    spec = torch.fft.rfft(sym, cfg.n_fft, dim=-1)
-    return spec[..., cfg.bin_lo: cfg.bin_hi + 1] / np.float32(cfg.ofdm_scale)
+    (..., S, n_used) complex64, scaled by 1/ofdm_scale.
+
+    `delta` (scalar tensor, fractional clock offset) warps the DFT to the
+    bin frequencies k·(1+δ) the resampled waveform carries: the cos/sin
+    tables are built on the tensor's device from δ in float32, in the
+    reference's order (2π/N)·n·k·(1+δ), and the product is a full-float32
+    matmul (gf3x's HIGHEST twin)."""
+    if delta is None:
+        spec = torch.fft.rfft(sym, cfg.n_fft, dim=-1)
+        return spec[..., cfg.bin_lo: cfg.bin_hi + 1] / np.float32(
+            cfg.ofdm_scale)
+    dev = sym.device
+    n = torch.arange(cfg.n_fft, dtype=torch.float32, device=dev)[:, None]
+    k = torch.arange(cfg.bin_lo, cfg.bin_hi + 1, dtype=torch.float32,
+                     device=dev)[None, :]
+    d = torch.as_tensor(delta, dtype=torch.float32, device=dev)
+    th = np.float32(2.0 * np.pi / cfg.n_fft) * n * k * (1.0 + d)
+    inv = np.float32(1.0 / cfg.ofdm_scale)
+    xr = sym.to(torch.float32)
+    re = matmul_f32(xr, torch.cos(th)) * inv
+    im = -matmul_f32(xr, torch.sin(th)) * inv
+    return torch.complex(re, im)
+
+
+def deroll(cfg: ModemConfig, Y: torch.Tensor,
+           roll: torch.Tensor | None) -> torch.Tensor:
+    """Undo an early window cut of `roll` samples:
+    Y[k]·e^{+2πik·roll/N} (the CP makes the shift circular).
+    Y: (..., S, n_used); roll: (...,) int, or None for no cut offset.
+
+    k·roll is reduced mod N in integers before it becomes an angle, as
+    kernel 8 indexes its twiddle table: gf3x's float32 product
+    (2π/N)·roll·k reaches ≈ 236 rad at GF3 geometry, where one ulp is
+    1.5e-5 rad; the reduced angle stays below 2π."""
+    if roll is None:
+        return Y
+    k = torch.arange(cfg.bin_lo, cfg.bin_hi + 1, device=Y.device)
+    idx = (roll.to(torch.int64)[..., None, None] * k) % cfg.n_fft
+    ang = np.float32(2.0 * np.pi / cfg.n_fft) * idx.to(torch.float32)
+    return Y * torch.complex(torch.cos(ang), torch.sin(ang))

@@ -1,7 +1,9 @@
-"""Frame synchronization on torch tensors (counterpart of the main-path
-subset of gf3x/ops/sync.py): the FFT chirp matched filter, bounded and
-decimated onset search with first-arrival refinement, the block-aligned
-frame cut, and the Schmidl–Cox metric of an already-cut window.
+"""Frame synchronization on torch tensors (counterpart of gf3x/ops/sync.py
+without the long-recording overlap-save filter): the FFT chirp matched
+filter, bounded and decimated onset search with first-arrival refinement,
+the block-aligned frame cut alone (kernel 1, or kernel 7 for a batch that
+is not whole 8-row groups, as in gf3x) or fused with the used-band DFT
+(kernel 8), and Schmidl–Cox timing and metrics.
 
 The correlation stays an FFT (`torch.fft`, cuFFT on the card); the TPU's
 bf16 Toeplitz form is a TPU artefact. The cut follows `gather_cut`'s
@@ -16,11 +18,13 @@ import numpy as np
 import torch
 
 from ..config import ModemConfig
+from .kernels import cut_dft as _cut_dft
 from .kernels import gather_cut as _cut
 
 __all__ = ["sync_nfft", "bounded_sync_nfft", "bounded_mf_shape",
            "matched_filter", "find_frame_start", "max_cut_start",
-           "cut_plan", "cut_symbols", "sc_metric_window"]
+           "cut_plan", "cut_symbols", "cut_dft_spectra", "sc_metric_window",
+           "schmidl_cox_metric", "find_frame_start_sc", "sc_metric_at"]
 
 
 def _next_pow2(n: int) -> int:
@@ -145,19 +149,52 @@ def cut_symbols(rx: torch.Tensor, starts: torch.Tensor, *, S: int,
     """Fused frame cut + CP strip: (syms (..., S, n_fft), scw (..., n_fft)
     or None, roll (...,) int32). Symbol s of row i is
     rx[i, q·block + body_off + s·sym_len + cp :][:n_fft] (`cut_plan`), scw
-    the n_fft window at q·block + sc_off (None when sc_off < 0). Runs
-    kernel 1 on the card (`ops.kernels.gather_cut.cut_symbols`)."""
+    the n_fft window at q·block + sc_off (None when sc_off < 0).
+
+    On the card a batch of whole 8-row groups runs kernel 1
+    (`ops.kernels.gather_cut.cut_symbols`); any other batch — one recording
+    in `Modem.decode` — cuts its windows with kernel 7
+    (`ops.kernels.gather_cut.gather_cut`) and slices the symbols out of
+    them, the route gf3x's `cut_symbols` takes (gf3x/ops/sync.py:339-344,
+    398-402). Both give the same values."""
     *lead, T = rx.shape
     starts = torch.broadcast_to(starts.to(rx.device), tuple(lead))
     q, valid, r = cut_plan(T, starts, S=S, n_fft=n_fft, sym_len=sym_len,
                            sc_off=sc_off, body_off=body_off, block=block)
-    syms, scw = _cut.cut_symbols(
-        rx.reshape(-1, T).contiguous(), q.contiguous(), valid=valid,
-        block=block, S=S, n_fft=n_fft, body_off=body_off, sym_len=sym_len,
-        cp=cp, sc_off=sc_off)
+    rx2, q = rx.reshape(-1, T).contiguous(), q.contiguous()
+    geo = dict(S=S, n_fft=n_fft, body_off=body_off, sym_len=sym_len,
+               sc_off=sc_off)
+    if rx2.shape[0] % 8:
+        win = _cut.gather_cut(rx2, q, _cut.window_blocks(block, **geo),
+                              block, valid)
+        syms, scw = _cut.window_symbols(win, cp=cp, **geo)
+    else:
+        syms, scw = _cut.cut_symbols(rx2, q, valid=valid, block=block,
+                                     cp=cp, **geo)
     syms = syms.reshape(*lead, S, n_fft)
     scw = scw.reshape(*lead, n_fft) if scw is not None else None
     return syms, scw, r.reshape(tuple(lead))
+
+
+def cut_dft_spectra(cfg: ModemConfig, rx: torch.Tensor, starts: torch.Tensor,
+                    *, S: int, body_off: int, sc_off: int, block: int = 128):
+    """Fused `cut_symbols` + used-band DFT + deroll: (Y (..., S, n_used)
+    complex64, already derolled, scw (..., n_fft) or None). The same cut
+    geometry as `cut_symbols` (`cut_plan`); Y equals
+    deroll(ofdm_dft(syms), roll) of that cut. Runs kernel 8 on the card
+    (`ops.kernels.cut_dft.cut_dft`): the symbol matrix never reaches device
+    memory."""
+    *lead, T = rx.shape
+    starts = torch.broadcast_to(starts.to(rx.device), tuple(lead))
+    q, valid, r = cut_plan(T, starts, S=S, n_fft=cfg.n_fft,
+                           sym_len=cfg.symbol_len, sc_off=sc_off,
+                           body_off=body_off, block=block)
+    Y, scw = _cut_dft.cut_dft(
+        cfg, rx.reshape(-1, T).contiguous(), q.contiguous(), r.contiguous(),
+        valid=valid, block=block, S=S, body_off=body_off, sc_off=sc_off)
+    Y = Y.reshape(*lead, S, cfg.n_used)
+    scw = scw.reshape(*lead, cfg.n_fft) if scw is not None else None
+    return Y, scw
 
 
 def sc_metric_window(cfg: ModemConfig, win: torch.Tensor) -> torch.Tensor:
@@ -175,3 +212,79 @@ def sc_metric_window(cfg: ModemConfig, win: torch.Tensor) -> torch.Tensor:
     tot = torch.sum(h1 * h1, dim=-1) + Rw
     Rw = torch.maximum(Rw, 0.05 * tot + 1e-24)
     return (P * P) / (Rw * Rw)
+
+
+#: Above this length the window sums of the SC metric come from a
+#: correlation with a ones kernel instead of float32 prefix sums, which
+#: cancel catastrophically once they grow to the whole recording's energy.
+_SC_CUMSUM_MAX = 1 << 20
+
+
+def schmidl_cox_metric(cfg: ModemConfig, rx: torch.Tensor) -> torch.Tensor:
+    """M(d) = P(d)²/R(d)² over the half-symbol lag: P(d) = Σ_{m<N/2}
+    r[d+m]·r[d+m+N/2], R(d) = Σ r[d+m+N/2]². rx (..., T) → (..., T − n_fft)
+    float32. Window sums from prefix sums up to `_SC_CUMSUM_MAX` samples,
+    from the FFT correlation with a ones kernel beyond; R is floored at 5 %
+    of its maximum so near-silent windows do not spike to M ≈ 1."""
+    half = cfg.n_fft // 2
+    prod = rx[..., :-half] * rx[..., half:]
+    energy = rx[..., half:] ** 2
+    n = rx.shape[-1] - cfg.n_fft
+    if rx.shape[-1] <= _SC_CUMSUM_MAX:
+        zero = torch.zeros(*rx.shape[:-1], 1, dtype=rx.dtype,
+                           device=rx.device)
+        cs_p = torch.cat([zero, torch.cumsum(prod, dim=-1)], dim=-1)
+        cs_r = torch.cat([zero, torch.cumsum(energy, dim=-1)], dim=-1)
+        P = cs_p[..., half: half + n] - cs_p[..., :n]
+        R = cs_r[..., half: half + n] - cs_r[..., :n]
+    else:
+        ones = np.ones(half, dtype=np.float32)
+        P = matched_filter(prod, ones)[..., :n]
+        R = torch.clamp(matched_filter(energy, ones)[..., :n], min=0.0)
+    R = torch.maximum(R, 0.05 * torch.amax(R, dim=-1, keepdim=True) + 1e-24)
+    return (P * P) / (R * R)
+
+
+def find_frame_start_sc(cfg: ModemConfig, rx: torch.Tensor):
+    """Schmidl–Cox timing, the fallback when the chirp is unusable: the
+    repeated-half SC symbol makes an M ≈ 1 plateau of about a CP's width;
+    its centre is the centre of mass of M⁴ in a (2·cp+1)-wide window at the
+    argmax, then backed off to the chirp onset (cp/8 early: plateau smear
+    under multipath and clock offset pushes the centre late). rx (..., T) →
+    (start (...,) int32, peak M (...,) f32)."""
+    if not cfg.use_schmidl_cox:
+        raise ValueError("SC sync needs use_schmidl_cox=True: this config "
+                         "transmits no repeated-half symbol to lock onto")
+    M = schmidl_cox_metric(cfg, rx)
+    peak = torch.argmax(M, dim=-1)
+    peak_val = torch.gather(M, -1, peak[..., None])[..., 0]
+    W = 2 * cfg.cp + 1
+    flat = M.reshape(-1, M.shape[-1])
+    base = torch.clamp(peak.reshape(-1) - cfg.cp, min=0)
+    # the window is read from the clamped start as jax's dynamic_slice does
+    # when it would run past the end, while the centre adds to the
+    # unclamped base (the reference's arithmetic, kept for parity)
+    lo = torch.clamp(base, max=max(flat.shape[-1] - W, 0))
+    win = torch.gather(flat, 1, lo[:, None]
+                       + torch.arange(W, device=rx.device))
+    w = win ** 4
+    idx = torch.arange(W, dtype=torch.float32, device=rx.device)
+    com = torch.sum(w * idx, dim=-1) / torch.clamp(torch.sum(w, dim=-1),
+                                                   min=1e-12)
+    center = (base + com.to(torch.int32)).reshape(peak.shape)
+    start = center + cfg.cp // 2 - cfg.cp - cfg.chirp_len - cfg.cp // 8
+    return torch.clamp(start, min=0).to(torch.int32), peak_val
+
+
+def sc_metric_at(cfg: ModemConfig, rx: torch.Tensor,
+                 d: torch.Tensor) -> torch.Tensor:
+    """SC metric at one window start per row (clipped into the recording):
+    rx (..., T), d (...,) int → (...,) f32, ≈ 1 where the repeated-half SC
+    symbol sits at d. Touches only the n_fft samples there."""
+    T = rx.shape[-1]
+    d = torch.broadcast_to(torch.as_tensor(d, device=rx.device),
+                           rx.shape[:-1])
+    d = torch.clamp(d.to(torch.int64), 0, max(T - cfg.n_fft, 0)).reshape(-1)
+    cols = d[:, None] + torch.arange(cfg.n_fft, device=rx.device)
+    win = torch.gather(rx.reshape(-1, T), 1, cols)
+    return sc_metric_window(cfg, win.reshape(*rx.shape[:-1], cfg.n_fft))

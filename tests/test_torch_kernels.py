@@ -202,6 +202,6 @@ def test_kernel_build_recipe():
     assert "arch=compute_90a,code=sm_90a" in device.NVCC_FLAGS
     assert "--fmad=false" in device.NVCC_FLAGS
     names = {p.name for p in device.CSRC.iterdir()}
-    assert {"cut_symbols.cu", "fused_eq.cu", "ldpc_bp.cu", "split_eq.cu",
-            "eq_demap.cuh"} <= names
+    assert {"cut_symbols.cu", "gather_cut.cu", "cut_dft.cu", "fused_eq.cu",
+            "ldpc_bp.cu", "split_eq.cu", "eq_demap.cuh"} <= names
     assert device.kernel_lib.cache_info().currsize == 0
