@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the gf3x_torch port on one CUDA card (an H100 for sm_90a).
 
-Builds the seven CUDA kernels from `gf3x_torch/csrc/`, holds each against
+Builds the eight CUDA kernels from `gf3x_torch/csrc/`, holds each against
 its plain PyTorch version on the card at the shapes its path gives it, and
 drives the receive paths once each through the port's entry points:
 
@@ -19,11 +19,22 @@ drives the receive paths once each through the port's entry points:
   bit_loading=...)` with the reference's on-chip parity table — kernels 1,
   A (eq_track), B (demap_bins) and 3; on gf3-turbo the split pair is also
   held against kernel 2 and both are timed;
-- the six frozen captures of tests/fixtures/ through `decode_stream` to
-  their manifest sha256, and one of them through `decode` with sync='sc',
-  sfo='on' and dd='on': one recording, so the cut is kernel 7 (the
-  window cut gf3x takes for a batch that is not whole 8-row groups), held
-  at that shape and at an odd batch of config 5's rows.
+- gf3-longcp: `GF3_STANDARD.replace(n_fft=2048, cp=512, bin_lo=48,
+  bin_hi=607)` (CP = N/4, SURVEY.md:139) on bench.py's batch recipe —
+  gf3x's fused cut refuses its SC window offset, so the cut is kernel 6
+  (the window cut of whole 8-row groups), then 2 (held at U = 560) and 3;
+- the six frozen captures of tests/fixtures/ through `decode_stream`, and
+  one of them through `decode` with sync='sc', sfo='on' and dd='on': one
+  recording, so the cut is kernel 7 (the window cut gf3x takes for a batch
+  that is not whole 8-row groups), held at that shape and at an odd batch
+  of config 5's rows;
+- HARQ: `chase_combine` of two failed GF3 receptions, and of two
+  receptions at +800 ppm through `joint_clock_offset` (kernels 7, 2, 3);
+  ARQ: a two-round `ArqSender`/`ArqReceiver` session at 0 dB in which
+  every single decode fails; long recordings: `encode_file` transfers of
+  28 frames (> 1 000 000 samples, the device frame scan) and 180 frames
+  (> 8 000 000 samples, overlap-save) through `decode_stream`. Their
+  recordings come from `gf3x_torch.channel`.
 
 Any failed check raises, so the exit code is non-zero; there is no CPU
 route.
@@ -31,7 +42,10 @@ route.
 Run from the repository root:  python3 chip_smoke.py
 
 Phases print one line each. The last lines are a JSON object with every
-kernel's measurements, the card's name and power limit as nvidia-smi
+kernel's measurements (host-clock and CUDA-event times, the plain
+version's, the bound — the larger of its bytes at 3.35 TB/s and its
+float32 operations at 67 TFLOP/s — and the nearest single PyTorch call's
+time where there is one), the card's name and power limit as nvidia-smi
 reports them, and `{"ok": true, "device": {...}}`.
 """
 
@@ -48,6 +62,11 @@ import torch
 B = 1024            # frames per batch (config 5)
 MARGIN = 4096       # random onset headroom per recording, as in bench.py
 TIMED_RUNS = 20     # median over this many synchronised runs
+HBM_BPS = 3.35e12   # H100 SXM device memory rate, bytes/s
+F32_FLOPS = 67e12   # H100 SXM float32 rate outside the tensor cores
+# gf3-longcp: CP = N/4 at N = 2048 (SURVEY.md:139), the same band and bins
+# of 21.5 Hz as GF3; defined here and in the tests only (gf3x has no preset)
+LONGCP = dict(n_fft=2048, cp=512, bin_lo=48, bin_hi=607)
 # the bit-loaded path's table: tools/tpu_parity.py's on-chip parity table
 LOADING_SEED, LOADING_P = 5, [0.1, 0.4, 0.35, 0.15]
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
@@ -66,6 +85,65 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
     return 1e3 * float(np.median(times))
 
 
+def event_ms(fn, runs: int = 50) -> float:
+    """Device time of one fn() in ms: CUDA events around `runs`
+    back-to-back calls after a warm-up, divided by `runs`."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def bound(nbytes: float, flops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move over HBM_BPS and its float32 operations over
+    F32_FLOPS."""
+    t_b, t_o = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bound_bytes=nbytes, bound_flops=flops)
+
+
+def cut_index(q: torch.Tensor, block: int, offsets) -> torch.Tensor:
+    """The int64 gather index of a window cut: row i reads
+    q[i]·block + offsets, for `torch.gather` as the library yardstick."""
+    return q.to(torch.int64)[:, None] * block + offsets[None, :]
+
+
+def gather_call(rx: torch.Tensor, idx: torch.Tensor):
+    """One `torch.gather` at a precomputed index (built, and clamped into
+    the row, outside the timing): the library yardstick of a cut, which
+    leaves the cut's zero tail out."""
+    idx = idx.clamp(0, rx.shape[-1] - 1)
+    return lambda: torch.gather(rx, 1, idx)
+
+
+def timed(fn_k, fn_p, nbytes: float, flops: float = 0.0, lib=None) -> dict:
+    """A kernel's row of times: host-clock ms of the kernel and its plain
+    version, the kernel's CUDA-event device ms, the library yardstick's
+    host-clock ms (None where no single call computes the function) and
+    the bound."""
+    return dict(ms=median_ms(fn_k), plain_ms=median_ms(fn_p),
+                device_ms=event_ms(fn_k),
+                library_ms=None if lib is None else median_ms(lib),
+                **bound(nbytes, flops))
+
+
+def tail_timed(cfg, fn_k, fn_p, Y) -> dict:
+    """`timed` for a uniform EQ/demap tail (kernel 2): the bound counts the
+    data symbols' spectra, Ĥ and the noise floor in, the LLRs and four
+    per-symbol diagnostics out, and 14 operations per data cell (EQ,
+    derotation and the demap's products); no single call computes it."""
+    Bk, D, U = Y.shape[0], cfg.n_data_symbols, cfg.n_used
+    nbytes = (8 * Bk * D * U + 8 * Bk * U + 4 * Bk
+              + 4 * Bk * cfg.raw_bits_per_frame + 4 * 4 * Bk * D)
+    return timed(fn_k, fn_p, nbytes, 14.0 * Bk * D * U)
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -82,11 +160,10 @@ def build_report(log: str) -> str:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            for short in ("cut_symbols", "gather_cut", "cut_dft",
-                          "fused_eq_demap",
-                          "eq_track", "demap_bins", "minsum"):
-                if short in name:
-                    name = short
+            name = max((short for short in (
+                "cut_symbols", "gather_cut", "gather_cut_group", "cut_dft",
+                "fused_eq_demap", "eq_track", "demap_bins", "minsum")
+                if short in name), key=len, default=name)
         elif "stack frame" in ln:
             stack = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -193,7 +270,7 @@ def run_path(modem, rx, payload, delays, counters, label, entry=None):
     sync_err = int((diag.sync_start.cpu() - torch.as_tensor(delays)).abs()
                    .max())
     check(sync_err <= cfg.cp // 4, f"{label}: sync off by {sync_err} samples")
-    cpu = Modem(cfg, max_delay=MARGIN + cfg.cp,
+    cpu = Modem(cfg, max_delay=MARGIN + cfg.cp, device="cpu",
                 use_cut_dft=modem.use_cut_dft)
     bits_cpu, _ = getattr(cpu, entry)(rx[:4].cpu())
     check(torch.equal(bits_cpu, bits[:4].cpu()),
@@ -238,17 +315,20 @@ def run_captures(dev, counters):
 
 def hold_gather_cut(rx, q, nb, block, valid):
     """Kernel 7 against its plain version on one input: the windows equal.
-    Returns (max |difference|, kernel ms, plain ms)."""
+    Returns `timed`'s dict with max_abs_err."""
     from gf3x_torch.ops.kernels import gather_cut
 
     win_k = gather_cut.gather_cut(rx, q, nb, block, valid)
     win_p = gather_cut.gather_cut_plain(rx, q, nb, block, valid)
     check(torch.equal(win_k, win_p), f"gather_cut kernel differs from its "
           f"plain version at {tuple(rx.shape)}")
-    return (float((win_k - win_p).abs().max()),
-            median_ms(lambda: gather_cut.gather_cut(rx, q, nb, block, valid)),
-            median_ms(lambda: gather_cut.gather_cut_plain(rx, q, nb, block,
-                                                          valid)))
+    L = nb * block
+    return dict(max_abs_err=float((win_k - win_p).abs().max()), **timed(
+        lambda: gather_cut.gather_cut(rx, q, nb, block, valid),
+        lambda: gather_cut.gather_cut_plain(rx, q, nb, block, valid),
+        2 * rx.shape[0] * L * 4 + q.numel() * 4,
+        lib=gather_call(rx, cut_index(q, block, torch.arange(
+            L, device=rx.device)))))
 
 
 def run_routes(dev, counters):
@@ -257,8 +337,8 @@ def run_routes(dev, counters):
     7, 2 and 3 launched on each route and kernel 1 not (one recording cuts
     with kernel 7, as gf3x's `cut_symbols` does). Kernel 7 is held first at
     the cut this recording gives it. Returns (the launch counts summed over
-    the three, kernel 7's (max |difference|, ms, plain ms) and kernel 1's
-    ms on the same cut)."""
+    the three, and kernel 7's row at this cut — `hold_gather_cut`'s dict
+    with kernel 1's ms on the same cut)."""
     from gf3x_torch import GF3_STANDARD, Modem
     from gf3x_torch.io import read_wav
     from gf3x_torch.ops import sync
@@ -283,9 +363,9 @@ def run_routes(dev, counters):
     k1_ms = median_ms(lambda: gather_cut.cut_symbols(
         x2, q, valid=valid, block=block, cp=cfg.cp, **geo))
     print(f"gather_cut at decode's cut of {cap['wav']} (1 x {x.shape[-1]} "
-          f"-> 1 x {nb * block}): equal; {held[1]:.3f} ms vs plain "
-          f"{held[2]:.3f} ms; kernel 1 on the same cut {k1_ms:.3f} ms",
-          flush=True)
+          f"-> 1 x {nb * block}): equal; {held['ms']:.3f} ms vs plain "
+          f"{held['plain_ms']:.3f} ms; kernel 1 on the same cut {k1_ms:.3f} "
+          "ms", flush=True)
     total = {name: 0 for name in counters}
     for kw in (dict(sync="sc"), dict(sfo="on"), dict(dd="on")):
         res, launches = launch_counts(counters,
@@ -302,7 +382,253 @@ def run_routes(dev, counters):
               f"{int(res.diag.sync_start)}, clock_ppm "
               f"{float(res.diag.clock_ppm):.2f}, launches {launches}",
               flush=True)
-    return total, (*held, k1_ms)
+    return total, dict(held, kernel1_same_cut_ms=k1_ms)
+
+
+def run_longcp(dev, counters, rows):
+    """gf3-longcp on bench.py's batch recipe (1024 × 79 121): kernel 6 held
+    against its plain version at the path's cut (exactly equal) and timed
+    beside kernel 1 on the same cut; the strided symbol view the cut hands
+    cuFFT timed against a contiguous copy; kernel 2 held at U = 560; then
+    `demodulate` once with every counter at 0 — 1024/1024 CRC-ok, kernels
+    6, 2 and 3 launched, 1 and 7 not — and its step timed. Adds kernel 6's
+    row and kernel 2's U = 560 times to `rows`; returns (launch counts,
+    step ms, the DFT's view and copy ms)."""
+    import bench
+    from gf3x_torch import GF3_STANDARD, Modem
+    from gf3x_torch.ops.kernels import fused_eq, gather_cut
+    from gf3x_torch.ops.ofdm import ofdm_dft
+
+    cfg = GF3_STANDARD.replace(**LONGCP)
+    modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
+    rx_np, payload, delays = bench.build_batch(modem, B, MARGIN,
+                                               np.random.default_rng(0))
+    rx = torch.as_tensor(rx_np, device=dev)
+    del rx_np
+    check(modem._fused_cut_refuses(rx.shape[-1]), "gf3-longcp: gf3x's fused "
+          "cut must refuse this geometry")
+    q, _, kw, _, Y, H, nv = path_inputs(modem, rx)
+    blk = kw["block"]
+    geo = {k: kw[k] for k in ("S", "n_fft", "body_off", "sym_len", "sc_off")}
+    nb = gather_cut.group_blocks(blk, **geo)
+    L = nb * blk
+    win_k = gather_cut.gather_cut_group(rx, q, nb, blk)
+    win_p = gather_cut.gather_cut_group_plain(rx, q, nb, blk)
+    check(torch.equal(win_k, win_p), f"gather_cut_group kernel differs from "
+          f"its plain version at {tuple(rx.shape)} -> {tuple(win_k.shape)}")
+    rows["gather_cut_group"] = dict(
+        name="gather_cut_group", route="cuda",
+        source="gf3x_torch/csrc/gather_cut_group.cu",
+        replaces="gf3x/ops/pallas/gather_cut.py:95",
+        max_abs_err=float((win_k - win_p).abs().max()),
+        **timed(lambda: gather_cut.gather_cut_group(rx, q, nb, blk),
+                lambda: gather_cut.gather_cut_group_plain(rx, q, nb, blk),
+                2 * 4 * B * L + 4 * B,
+                lib=gather_call(rx, cut_index(q, blk, torch.arange(
+                    L, device=dev)))),
+        kernel1_same_cut_ms=median_ms(
+            lambda: gather_cut.cut_symbols(rx, q, **kw)),
+        kernel1_same_cut_device_ms=event_ms(
+            lambda: gather_cut.cut_symbols(rx, q, **kw)))
+    r6 = rows["gather_cut_group"]
+    syms, _ = gather_cut.window_symbols(win_k, cp=cfg.cp, **geo)
+    dft = dict(view_ms=median_ms(lambda: ofdm_dft(cfg, syms)),
+               contiguous_ms=median_ms(lambda: ofdm_dft(cfg,
+                                                        syms.contiguous())))
+    print(f"gather_cut_group at gf3-longcp's cut ({B} x {rx.shape[-1]} -> "
+          f"{B} x {L}): equal; {r6['ms']:.3f} ms (device "
+          f"{r6['device_ms']:.3f}, bound {r6['bound_ms']:.3f}) vs plain "
+          f"{r6['plain_ms']:.3f} ms, torch.gather {r6['library_ms']:.3f} ms; "
+          f"kernel 1 on the same cut {r6['kernel1_same_cut_ms']:.3f} ms "
+          f"(device {r6['kernel1_same_cut_device_ms']:.3f}); DFT of the "
+          f"strided symbol view {dft['view_ms']:.3f} ms, of a contiguous "
+          f"copy {dft['contiguous_ms']:.3f} ms", flush=True)
+    del win_k, win_p, syms
+    pv = modem.pilot_vals
+    _, err, scale = hold_fused(cfg, Y, H, nv, pv, "U = 560")
+    u560 = tail_timed(cfg, lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv, pv),
+                      lambda: fused_eq.fused_eq_demap_plain(cfg, Y, H, nv,
+                                                            pv), Y)
+    rows["fused_eq_demap"]["longcp"] = dict(u560, max_abs_err=err)
+    print(f"fused_eq_demap at U = {cfg.n_used} ({cfg.n_used // 8} pilots): "
+          f"hard decisions equal, max |dLLR| {err:.3g} (mean |LLR| "
+          f"{scale:.3g}); {u560['ms']:.3f} ms vs plain {u560['plain_ms']:.3f}"
+          " ms", flush=True)
+    del Y, H, nv
+    launches, _, diag, sync_err = run_path(modem, rx, payload, delays,
+                                           counters, "gf3-longcp")
+    for name in ("gather_cut_group", "fused_eq_demap", "minsum_totals"):
+        check(launches[name] > 0, f"gf3-longcp: {name} did not launch: "
+              f"{launches}")
+    for name in ("cut_symbols", "gather_cut", "cut_dft"):
+        check(launches[name] == 0, f"gf3-longcp: {name} launched: "
+              f"{launches}")
+    step_ms = median_ms(lambda: modem.demodulate(rx))
+    print(f"demodulate, gf3-longcp (n_fft {cfg.n_fft}, cp {cfg.cp}, "
+          f"{cfg.n_used} used bins, {cfg.n_codewords} codewords, T "
+          f"{rx.shape[-1]}): {B}/{B} rows CRC-ok with the planted payload, "
+          f"sync within {sync_err} samples, launches {launches}; "
+          f"{step_ms:.3f} ms/step, "
+          f"{B * cfg.n_data_symbols / (step_ms / 1e3):.1f} data symbols/s",
+          flush=True)
+    return launches, step_ms, dft
+
+
+def sum_counts(total: dict, launches: dict) -> None:
+    for name in total:
+        total[name] += launches[name]
+
+
+def run_harq(dev, counters):
+    """tests/test_combining.py's HARQ scenarios on the card, recordings from
+    `gf3x_torch.channel`: (a) two GF3 receptions at −0.5 dB, each failing
+    `decode(start=s, sfo='off')`, that `chase_combine` decodes; (b) two
+    receptions at +800 ppm and 0.5 dB, where sfo='off' combining fails, the
+    joint clock offset lands within 250 ppm of the truth and sfo='on'
+    combining decodes. Kernels 7, 2 and 3 launch, kernel 1 not. Returns
+    (launch counts, seconds per scenario, joint δ̂ in ppm)."""
+    from gf3x_torch import Modem, preset
+    from gf3x_torch.channel import awgn, delay_gain, resample_sfo
+    from gf3x_torch.models.stream import chase_combine
+
+    m = Modem(preset("gf3"), device=dev)
+    total, secs = {name: 0 for name in counters}, {}
+
+    rng = np.random.default_rng(5)
+    payload = bytes(rng.integers(0, 256, 500, dtype=np.uint8))
+    wav = m.encode(payload, "f.bin")
+    rcp = []
+    for delay, seed in ((300, 1), (700, 2)):
+        r = np.random.default_rng(seed)
+        rcp.append((awgn(delay_gain(wav, delay, 1.0,
+                                    total_len=wav.size + 2000), -0.5, r),
+                    delay))
+    t0 = time.perf_counter()
+    (singles, res), launches = launch_counts(counters, lambda: (
+        [m.decode(x, start=s, sfo="off") for x, s in rcp],
+        chase_combine(m, rcp)))
+    secs["two_failed"] = time.perf_counter() - t0
+    check(not any(r.crc_ok for r in singles), "HARQ (a): a single reception "
+          "decoded at -0.5 dB")
+    check(res.crc_ok and res.payload == payload, "HARQ (a): the combined "
+          "receptions did not decode")
+    sum_counts(total, launches)
+    print(f"HARQ (a): two receptions at -0.5 dB each fail, chase_combine "
+          f"CRC-ok with the payload; launches {launches}; "
+          f"{secs['two_failed']:.3f} s", flush=True)
+
+    rng = np.random.default_rng(8)
+    payload = bytes(rng.integers(0, 256, 400, dtype=np.uint8))
+    wav = m.encode(payload, "k.bin")
+    rcp = []
+    for seed in (31, 32):
+        r = np.random.default_rng(seed)
+        rcp.append((resample_sfo(awgn(delay_gain(
+            wav.astype(np.float64), 300, 1.0, total_len=wav.size + 3000),
+            0.5, r), 800.0).astype(np.float32), 300))
+    t0 = time.perf_counter()
+    (off, d, on), launches = launch_counts(counters, lambda: (
+        chase_combine(m, rcp, sfo="off"), m.joint_clock_offset(rcp),
+        chase_combine(m, rcp, sfo="on")))
+    secs["clock_offset"] = time.perf_counter() - t0
+    check(not off.crc_ok, "HARQ (b): sfo='off' combining decoded at +800 "
+          "ppm")
+    check(abs(d * 1e6 - 800.0) < 250.0, f"HARQ (b): joint clock offset "
+          f"{d * 1e6:.1f} ppm, +800 planted")
+    check(on.crc_ok and on.payload == payload, "HARQ (b): sfo='on' "
+          "combining did not decode")
+    sum_counts(total, launches)
+    print(f"HARQ (b): +800 ppm at 0.5 dB, sfo='off' combining fails, joint "
+          f"clock offset {d * 1e6:.3f} ppm, sfo='on' combining CRC-ok; "
+          f"launches {launches}; {secs['clock_offset']:.3f} s", flush=True)
+    for name in ("gather_cut", "fused_eq_demap", "minsum_totals"):
+        check(total[name] > 0, f"HARQ: {name} did not launch")
+    check(total["cut_symbols"] == 0, "HARQ: kernel 1 launched on single "
+          "receptions")
+    return total, secs, d * 1e6
+
+
+def run_arq(dev, counters):
+    """The HARQ half of examples/arq_file_transfer.py on the card: a
+    two-frame transfer through a room (rt60 15 ms) at 0 dB, two rounds in
+    which every single decode fails, completed by chase combining the
+    stored copies per seq. Returns (launch counts, seconds)."""
+    from gf3x_torch import Modem, preset
+    from gf3x_torch.channel import (awgn, delay_gain, multipath,
+                                    room_impulse_response)
+    from gf3x_torch.models.arq import ArqReceiver, ArqSender
+    from gf3x_torch.models.stream import frame_capacity
+
+    m = Modem(preset("gf3"), device=dev)
+    rng = np.random.default_rng(7)
+    rir = room_impulse_response(rng, rt60=0.015, drr_db=8.0)
+
+    def air(wav):
+        x = multipath(wav, rir)
+        x = delay_gain(x, int(rng.integers(500, 3000)), 0.7,
+                       total_len=x.size + 6000)
+        return awgn(x, 0.0, rng)
+
+    payload = bytes(rng.integers(0, 256, 2 * frame_capacity(m, "h.bin"),
+                                 dtype=np.uint8))
+    tx, rcv = ArqSender(m, payload, "h.bin"), ArqReceiver(m, sfo="off")
+    t0 = time.perf_counter()
+    (got0, nack, got1), launches = launch_counts(counters, lambda: (
+        rcv.feed(air(tx.initial())), rcv.nack(),
+        rcv.feed(air(tx.retransmit("all")), nacked="all")))
+    secs = time.perf_counter() - t0
+    check(not any(f.crc_ok for f in got0.frames) and nack == "all",
+          f"ARQ: round 0 at 0 dB decoded a frame (nack {nack})")
+    check(got1.complete and got1.payload == payload, "ARQ: two all-failed "
+          "rounds did not complete by combining")
+    print(f"ARQ: two all-failed rounds at 0 dB -> complete, payload equal "
+          f"({len(payload)} B); launches {launches}; {secs:.3f} s",
+          flush=True)
+    return launches, secs
+
+
+def run_long_recordings(dev, counters):
+    """`encode_file` transfers of 28 and 180 GF3 frames (1 264 235 and
+    8 139 195 samples: the device frame scan, and above 8 000 000 its
+    overlap-save form) in 20 dB AWGN through `decode_stream` on the card:
+    complete with the payload. The windows decode through
+    `demodulate_prewindowed`, so no cut kernel runs. Returns (launch
+    counts summed, seconds per recording)."""
+    from gf3x_torch import Modem, preset
+    from gf3x_torch.channel import awgn, delay_gain
+    from gf3x_torch.models.stream import (MAX_HOST_SCAN, MAX_WHOLE_FFT,
+                                          decode_stream, encode_file,
+                                          frame_capacity)
+
+    m = Modem(preset("gf3"), device=dev)
+    total, secs = {name: 0 for name in counters}, {}
+    for n_frames, floor, seed in ((28, MAX_HOST_SCAN, 40),
+                                  (180, MAX_WHOLE_FFT, 41)):
+        rng = np.random.default_rng(seed)
+        cap = frame_capacity(m, "long.bin")
+        data = bytes(rng.integers(0, 256, n_frames * cap - 7,
+                                  dtype=np.uint8))
+        wav = encode_file(m, data, "long.bin")
+        rec = awgn(delay_gain(wav, 1000, 0.5, total_len=wav.size + 5000),
+                   20.0, rng).astype(np.float32)
+        check(rec.size > floor, f"long recording: {rec.size} samples")
+        t0 = time.perf_counter()
+        res, launches = launch_counts(counters,
+                                      lambda: decode_stream(m, rec))
+        secs[f"{n_frames}_frames"] = time.perf_counter() - t0
+        check(res.complete and res.payload == data
+              and res.starts.size == n_frames, f"long recording of "
+              f"{n_frames} frames: not decoded (missing {res.missing})")
+        for name in ("fused_eq_demap", "minsum_totals"):
+            check(launches[name] > 0, f"long recording: {name} did not "
+                  "launch")
+        for name in ("cut_symbols", "gather_cut", "gather_cut_group"):
+            check(launches[name] == 0, f"long recording: {name} launched")
+        sum_counts(total, launches)
+        print(f"decode_stream of {n_frames} frames ({rec.size} samples): "
+              f"complete, payload equal ({len(data)} B); launches "
+              f"{launches}; {secs[f'{n_frames}_frames']:.3f} s", flush=True)
+    return total, secs
 
 
 def main() -> None:
@@ -314,7 +640,7 @@ def main() -> None:
     from gf3x_torch import GF3_FAST, GF3_STANDARD, GF3_TURBO, Modem
     from gf3x_torch.ops.kernels import (cut_dft, fused_eq, gather_cut,
                                         ldpc_bp, split_eq)
-    from gf3x_torch.ops.ofdm import ofdm_dft
+    from gf3x_torch.ops.ofdm import deroll, ofdm_dft
     from gf3x_torch.utils.device import kernel_lib, library_path
 
     smi = subprocess.run(
@@ -349,13 +675,19 @@ def main() -> None:
     syms_p, scw_p = gather_cut.cut_symbols_plain(rx, q, **kw)
     check(torch.equal(syms_k, syms_p) and torch.equal(scw_k, scw_p),
           "cut_symbols kernel differs from its plain version")
+    n_fft, blk = kw["n_fft"], kw["block"]
+    offs = torch.cat([kw["body_off"] + s * kw["sym_len"] + kw["cp"]
+                      + torch.arange(n_fft, device=dev)
+                      for s in range(kw["S"])]
+                     + [kw["sc_off"] + torch.arange(n_fft, device=dev)])
     rows = {"cut_symbols": dict(
         name="cut_symbols", route="cuda",
         source="gf3x_torch/csrc/cut_symbols.cu",
         replaces="gf3x/ops/pallas/gather_cut.py:242", max_abs_err=0.0,
-        ms=median_ms(lambda: gather_cut.cut_symbols(rx, q, **kw)),
-        plain_ms=median_ms(lambda: gather_cut.cut_symbols_plain(rx, q,
-                                                                **kw)))}
+        **timed(lambda: gather_cut.cut_symbols(rx, q, **kw),
+                lambda: gather_cut.cut_symbols_plain(rx, q, **kw),
+                2 * 4 * (syms_k.numel() + scw_k.numel()) + 4 * q.numel(),
+                lib=gather_call(rx, cut_index(q, blk, offs))))}
     print(f"cut_symbols: equal; {rows['cut_symbols']['ms']:.3f} ms vs plain "
           f"{rows['cut_symbols']['plain_ms']:.3f} ms", flush=True)
 
@@ -367,8 +699,8 @@ def main() -> None:
     odd7 = hold_gather_cut(rx[: B - 1].contiguous(), q[: B - 1].contiguous(),
                            nb7, kw["block"], kw["valid"])
     print(f"gather_cut at {B - 1} rows ({B - 1} x {rx.shape[-1]} -> "
-          f"{B - 1} x {nb7 * kw['block']}): equal; {odd7[1]:.3f} ms vs plain "
-          f"{odd7[2]:.3f} ms", flush=True)
+          f"{B - 1} x {nb7 * kw['block']}): equal; {odd7['ms']:.3f} ms vs "
+          f"plain {odd7['plain_ms']:.3f} ms", flush=True)
 
     # ---- kernel 2 vs plain on the path's spectra and channel estimate
     pv = modem.pilot_vals
@@ -377,9 +709,9 @@ def main() -> None:
         name="fused_eq_demap", route="cuda",
         source="gf3x_torch/csrc/fused_eq.cu",
         replaces="gf3x/ops/pallas/fused_eq.py:295", max_abs_err=err,
-        ms=median_ms(lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv, pv)),
-        plain_ms=median_ms(lambda: fused_eq.fused_eq_demap_plain(
-            cfg, Y, H, nv, pv)))
+        **tail_timed(cfg, lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv, pv),
+                     lambda: fused_eq.fused_eq_demap_plain(cfg, Y, H, nv,
+                                                           pv), Y))
     print(f"fused_eq_demap: hard decisions equal, max |dLLR| {err:.3g} "
           f"(mean |LLR| {scale:.3g}); {rows['fused_eq_demap']['ms']:.3f} ms "
           f"vs plain {rows['fused_eq_demap']['plain_ms']:.3f} ms",
@@ -395,14 +727,19 @@ def main() -> None:
           "bit-identical to its plain version")
     check(torch.equal(uns_k, uns_p) and torch.equal(pas_k, pas_p),
           "minsum_totals unsat/passes differ from its plain version")
+    # bound: the LLRs in, the totals, unsat and passes out, and four
+    # operations per edge per sweep run (the loop ends early by data)
+    edges = sum(len(r) for r in ldpc_bp.row_edges(code.z, code.rate)) * code.z
     rows["minsum_totals"] = dict(
         name="minsum_totals", route="cuda",
         source="gf3x_torch/csrc/ldpc_bp.cu",
         replaces="gf3x/ops/pallas/ldpc_bp.py:158",
         max_abs_err=float((tot_k - tot_p).abs().max()),
-        ms=median_ms(lambda: code.decode_totals(lam, cfg.ldpc_iters)),
-        plain_ms=median_ms(lambda: ldpc_bp.minsum_totals_plain(
-            lam, code.z, code.rate, cfg.ldpc_iters)))
+        **timed(lambda: code.decode_totals(lam, cfg.ldpc_iters),
+                lambda: ldpc_bp.minsum_totals_plain(lam, code.z, code.rate,
+                                                    cfg.ldpc_iters),
+                4 * (2 * lam.numel() + 2 * lam.shape[0]),
+                4.0 * edges * float(pas_k.sum())))
     # at the batch's 20 dB every codeword is valid before the first sweep,
     # so hold the message updates too: the same codewords as BPSK LLRs at
     # σ = 0.8, which take several sweeps and leave some unsatisfied
@@ -416,6 +753,10 @@ def main() -> None:
           and torch.equal(pas_k, pas_p), "minsum_totals differs from its "
           "plain version on noisy LLRs")
     noisy_ms = median_ms(lambda: code.decode_totals(noisy, cfg.ldpc_iters))
+    noisy_dev_ms = event_ms(lambda: code.decode_totals(noisy,
+                                                       cfg.ldpc_iters))
+    noisy_bound = bound(4 * (2 * noisy.numel() + 2 * noisy.shape[0]),
+                        4.0 * edges * float(pas_k.sum()))
     noisy_plain_ms = median_ms(lambda: ldpc_bp.minsum_totals_plain(
         noisy, code.z, code.rate, cfg.ldpc_iters))
     print(f"minsum_totals: totals bit-identical over {lam.shape[0]} "
@@ -423,11 +764,18 @@ def main() -> None:
           f"{rows['minsum_totals']['plain_ms']:.3f} ms (0 sweeps); noisy: "
           f"mean passes {float(pas_k.float().mean()):.2f}, max "
           f"{int(pas_k.max())}, unsat {int(uns_k.sum())}, {noisy_ms:.3f} ms "
-          f"vs plain {noisy_plain_ms:.3f} ms", flush=True)
+          f"(device {noisy_dev_ms:.3f}, bound {noisy_bound['bound_ms']:.4f} "
+          f"by {noisy_bound['bound_by']}) vs plain {noisy_plain_ms:.3f} ms",
+          flush=True)
+    rows["minsum_totals"].update(noisy_ms=noisy_ms,
+                                 noisy_device_ms=noisy_dev_ms,
+                                 noisy_plain_ms=noisy_plain_ms,
+                                 noisy_bound_ms=noisy_bound["bound_ms"])
 
     # ---- the config-5 main path, once, through the user's entry point
     counters = {"cut_symbols": gather_cut.cut_symbols,
                 "gather_cut": gather_cut.gather_cut,
+                "gather_cut_group": gather_cut.gather_cut_group,
                 "fused_eq_demap": fused_eq.fused_eq_demap,
                 "eq_track": split_eq.eq_track,
                 "demap_bins": split_eq.demap_bins,
@@ -438,8 +786,9 @@ def main() -> None:
     for name in ("cut_symbols", "fused_eq_demap", "minsum_totals"):
         check(launches5[name] > 0, f"config 5: {name} did not launch: "
               f"{launches5}")
-    check(launches5["gather_cut"] == 0, "config 5: kernel 7 launched on "
-          "whole 8-row groups")
+    check(launches5["gather_cut"] == 0 and launches5["gather_cut_group"] == 0,
+          "config 5: kernel 7 or 6 launched on an aligned batch of whole "
+          "8-row groups")
     step_ms = median_ms(lambda: modem.demodulate(rx))
     sps = B * cfg.n_data_symbols / (step_ms / 1e3)
     print(f"demodulate: {B}/{B} rows CRC-ok with the planted payload, "
@@ -473,13 +822,22 @@ def main() -> None:
     db8 = 10 * np.log10(np.sum(np.abs(got8 - ref8) ** 2)
                         / np.sum(np.abs(ref8) ** 2))
     check(db8 <= -80.0, f"cut_dft error {db8:.1f} dB > -80 dB")
+    # bound: the symbol and SC windows in, the spectra and SC window out,
+    # and a real FFT (2.5·N·log2 N) plus the deroll (6 per bin) per symbol;
+    # the library yardstick is the chain rfft + slice + deroll on kernel
+    # 1's cut (PERF.md §6)
+    S8, U8 = kw["S"], cfg.n_used
     rows["cut_dft"] = dict(
         name="cut_dft", route="cuda", source="gf3x_torch/csrc/cut_dft.cu",
         replaces="gf3x/ops/pallas/cut_dft.py:182", max_abs_err=err8,
         mean_abs=scale8, max_err_over_mean_abs=err8 / scale8,
-        ms=median_ms(lambda: cut_dft.cut_dft(cfg, rx, q, roll, **kw8)),
-        plain_ms=median_ms(lambda: cut_dft.cut_dft_plain(cfg, rx, q, roll,
-                                                         **kw8)))
+        **timed(lambda: cut_dft.cut_dft(cfg, rx, q, roll, **kw8),
+                lambda: cut_dft.cut_dft_plain(cfg, rx, q, roll, **kw8),
+                4 * B * (S8 + 1) * n_fft + 8 * B * S8 * U8
+                + 4 * B * n_fft + 8 * B,
+                B * S8 * (2.5 * n_fft * np.log2(n_fft) + 6.0 * U8),
+                lib=lambda: deroll(cfg, torch.fft.rfft(syms_k, dim=-1)[
+                    ..., cfg.bin_lo: cfg.bin_hi + 1], roll)))
     print(f"cut_dft: max |dY| {err8:.3g} (mean |Y| {scale8:.3g}), SC window "
           f"equal to kernel 1's, {db8:.1f} dB vs float64 (gate -80 dB); "
           f"{rows['cut_dft']['ms']:.3f} ms vs plain "
@@ -498,6 +856,8 @@ def main() -> None:
         check(launches8[name] > 0, f"cut+DFT route: {name} did not launch")
     check(torch.equal(bits8, bits5), "cut+DFT route: bits differ from the "
           "two-stage route's")
+    check(launches8["gather_cut_group"] == 0, "cut+DFT route: kernel 6 "
+          "launched")
     turns, blocks = in_turns({"two_stage": lambda: modem.demodulate(rx),
                               "cut_dft": lambda: modem8.demodulate(rx)})
     print(f"demodulate, cut+DFT route: {B}/{B} rows CRC-ok, bits equal to "
@@ -515,7 +875,8 @@ def main() -> None:
         entry="demodulate_sfo")
     for name in ("cut_symbols", "fused_eq_demap", "minsum_totals"):
         check(launchesS[name] > 0, f"demodulate_sfo: {name} did not launch")
-    check(launchesS["cut_dft"] == 0, "demodulate_sfo: cut_dft launched")
+    check(launchesS["cut_dft"] == 0 and launchesS["gather_cut_group"] == 0,
+          "demodulate_sfo: cut_dft or kernel 6 launched")
     syms_s, sc_s, roll_s = modem._cut_frame(rx, modem._sync(rx)[0])
     delta = modem._two_pass_delta(syms_s, sc_s, roll_s)
     check(abs(float(delta)) * 1e6 < 20.0, f"demodulate_sfo: |delta| "
@@ -568,6 +929,7 @@ def main() -> None:
     pv = modem.pilot_vals
 
     # ---- kernel A vs plain on the loaded batch's spectra
+    D_, U_ = cfg.n_data_symbols, cfg.n_used
     a_k = split_eq.eq_track(cfg, Y, H, nv, pv)
     a_p = split_eq.eq_track_plain(cfg, Y, H, nv, pv)
     d_slope = float((a_k[1] - a_p[1]).abs().max())
@@ -581,9 +943,13 @@ def main() -> None:
         name="eq_track", route="cuda", source="gf3x_torch/csrc/split_eq.cu",
         replaces="gf3x/ops/pallas/split_eq.py:140",
         max_abs_err=float((a_k[0] - a_p[0]).abs().max()),
-        ms=median_ms(lambda: split_eq.eq_track(cfg, Y, H, nv, pv)),
-        plain_ms=median_ms(lambda: split_eq.eq_track_plain(cfg, Y, H, nv,
-                                                           pv)))
+        # bound: the data symbols' spectra, Ĥ and the noise floor in, the
+        # derotated bins and three per-symbol rows out; 12 operations per
+        # cell (EQ and derotation)
+        **timed(lambda: split_eq.eq_track(cfg, Y, H, nv, pv),
+                lambda: split_eq.eq_track_plain(cfg, Y, H, nv, pv),
+                8 * B * D_ * U_ * 2 + 8 * B * U_ + 4 * B + 3 * 4 * B * D_,
+                12.0 * B * D_ * U_))
     print(f"eq_track: slope/cpe within {max(d_slope, d_cpe):.3g} rad, eq "
           f"{d_eq:.3g} and nv_sym {d_nv:.3g} of mean magnitude; "
           f"{rows['eq_track']['ms']:.3f} ms vs plain "
@@ -606,9 +972,15 @@ def main() -> None:
     rows["demap_bins"] = dict(
         name="demap_bins", route="cuda", source="gf3x_torch/csrc/split_eq.cu",
         replaces="gf3x/ops/pallas/split_eq.py:279", max_abs_err=err,
-        ms=median_ms(lambda: split_eq.demap_bins(cfg, eq, H, nv_sym, tables)),
-        plain_ms=median_ms(lambda: split_eq.demap_bins_plain(cfg, eq, H,
-                                                             nv_sym)))
+        # bound: the data bins' equalized values and Ĥ and the per-symbol
+        # noise floor in, the LLRs and two per-symbol rows out; 4
+        # operations per LLR
+        **timed(lambda: split_eq.demap_bins(cfg, eq, H, nv_sym, tables),
+                lambda: split_eq.demap_bins_plain(cfg, eq, H, nv_sym),
+                8 * B * D_ * cfg.n_data_bins + 8 * B * cfg.n_data_bins
+                + 4 * B * D_ + 4 * B * cfg.raw_bits_per_frame
+                + 2 * 4 * B * D_,
+                4.0 * B * cfg.raw_bits_per_frame))
     print(f"demap_bins: hard decisions equal, max |dLLR| {err:.3g} (mean "
           f"|LLR| {scale:.3g}); {rows['demap_bins']['ms']:.3f} ms vs plain "
           f"{rows['demap_bins']['plain_ms']:.3f} ms", flush=True)
@@ -635,8 +1007,9 @@ def main() -> None:
     for name in ("cut_symbols", "eq_track", "demap_bins", "minsum_totals"):
         check(launchesL[name] > 0, f"bit-loaded: {name} did not launch: "
               f"{launchesL}")
-    check(launchesL["fused_eq_demap"] == 0, "bit-loaded: the fused kernel "
-          "launched")
+    check(launchesL["fused_eq_demap"] == 0
+          and launchesL["gather_cut_group"] == 0, "bit-loaded: the fused "
+          "kernel or kernel 6 launched")
     stepL_ms = median_ms(lambda: modem.demodulate(rx))
     spsL = B * cfg.n_data_symbols / (stepL_ms / 1e3)
     print(f"demodulate, bit-loaded ({cfg.n_active_bins} active bins, "
@@ -648,23 +1021,36 @@ def main() -> None:
           f"{stepL_ms:.3f} ms/step, {spsL:.1f} data symbols/s", flush=True)
     del modem, rx
 
+    # ---- gf3-longcp: kernel 6 on its path
+    launchesLC, longcp_ms, longcp_dft = run_longcp(dev, counters, rows)
+
     # ---- the six frozen captures through decode_stream, then one of them
     # through decode's other routes
     launchesC, cap_s = run_captures(dev, counters)
     launchesR, held7 = run_routes(dev, counters)
+
+    # ---- HARQ, ARQ and the long recordings
+    launchesH, harq_s, harq_ppm = run_harq(dev, counters)
+    launchesA, arq_s = run_arq(dev, counters)
+    launchesT, long_s = run_long_recordings(dev, counters)
     rows["gather_cut"] = dict(
         name="gather_cut", route="cuda",
         source="gf3x_torch/csrc/gather_cut.cu",
         replaces="gf3x/ops/pallas/gather_cut.py:157",
-        max_abs_err=max(held7[0], odd7[0]), ms=held7[1], plain_ms=held7[2],
-        kernel1_same_cut_ms=held7[3], odd_batch_ms=odd7[1],
-        odd_batch_plain_ms=odd7[2])
+        **dict(held7, max_abs_err=max(held7["max_abs_err"],
+                                      odd7["max_abs_err"])),
+        odd_batch={k: v for k, v in odd7.items() if k != "max_abs_err"})
 
     check("jax" not in sys.modules and "gf3x" not in sys.modules,
           "jax or gf3x was imported")
     by_path = {"config5": launches5, "cut_dft_route": launches8,
                "sfo": launchesS, "bit_loaded": launchesL,
-               "captures": launchesC, "routes": launchesR}
+               "longcp": launchesLC, "captures": launchesC,
+               "routes": launchesR, "harq": launchesH, "arq": launchesA,
+               "long_recordings": launchesT}
+    check(len(rows) == 8 and all(
+        sum(c[name] for c in by_path.values()) > 0 for name in rows),
+          "a kernel has no row or never launched on a path")
     for name, row in rows.items():
         row["launches"] = sum(c[name] for c in by_path.values())
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
@@ -673,6 +1059,9 @@ def main() -> None:
                       "loaded_data_symbols_per_s": spsL,
                       "in_turns_ms": turns, "sfo_step_ms": sfo_ms,
                       "captures_s": cap_s, "gf3_turbo_tail": turbo,
+                      "longcp_step_ms": longcp_ms, "longcp_dft": longcp_dft,
+                      "harq_s": harq_s, "harq_joint_ppm": harq_ppm,
+                      "arq_s": arq_s, "long_recording_s": long_s,
                       "build_s": build_s, "package": gf3x_torch.__name__}),
           flush=True)
     print(smi, flush=True)

@@ -3,14 +3,19 @@ held against. It runs every decode route of gf3x's Modem (chirp or
 Schmidl–Cox sync, frame cut — alone or fused with the used-band DFT —, LS
 estimate, EQ/track/demap — fused for uniform configs, split for bit-loaded
 ones —, LDPC, the clock-offset loop and the decision-directed retry), the
-multi-frame stream decoder, the transmit path and link adaptation, with
-seven hand-written CUDA kernels for sm_90a on the card and their plain PyTorch
+multi-frame stream decoder with its long-recording frame scan, HARQ chase
+combining, the ARQ state machines, the channel simulators, the transmit
+path and link adaptation, with eight
+hand-written CUDA kernels for sm_90a on the card and their plain PyTorch
 versions on the CPU. It never imports jax or gf3x.
 
+A `Modem` lives on the card unless the caller asks for the CPU:
+
     from gf3x_torch import GF3_STANDARD, Modem
-    modem = Modem(GF3_STANDARD, max_delay=4352, device="cuda")
+    modem = Modem(GF3_STANDARD, max_delay=4352)  # on torch.device("cuda")
     bits, diag = modem.demodulate(rx)            # rx: (B, T) float32
-    res = Modem(GF3_STANDARD).decode(recording)  # one WAV's samples
+    res = modem.decode(recording)                # one WAV's samples
+    cpu = Modem(GF3_STANDARD, device="cpu")      # the plain versions
 """
 
 import torch

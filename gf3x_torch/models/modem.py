@@ -1,20 +1,24 @@
 """The modem as a torch module: batched `encode(bytes) → waveform` and every
 decode route of gf3x/models/modem.py — chirp or Schmidl–Cox sync, the
-clock-offset loop, the decision-directed retry, prewindowed frames — and
-`decode` with gf3x's retry policy.
+clock-offset loop, the decision-directed retry, prewindowed frames —,
+`decode` with gf3x's retry policy, and the HARQ surface (`coded_llrs`,
+`joint_clock_offset`, `decode_stream_llr`) that chase combining runs on.
 
 Receive path of one (B, T) float32 batch:
 
     find_frame_start (bounded, 2× decimated when `max_delay` is set),
         or find_frame_start_sc (`demodulate_sc`)
-    → cut_symbols            kernel 1 (frame cut + CP strip); a batch that
-                             is not whole 8-row groups (`decode` of one
-                             recording) takes kernel 7's window cut, as
-                             in gf3x
+    → cut_symbols            by gf3x's rule: kernel 1 (frame cut + CP
+                             strip); kernel 6's window cut of whole 8-row
+                             groups where gf3x's fused cut refuses the
+                             geometry (CP = N/4 at N = 2048); kernel 7's
+                             window cut for a batch that is not whole
+                             8-row groups (`decode` of one recording)
     → ofdm_dft + deroll      cuFFT, one phase ramp for the block-grid roll;
                              the δ-warped matmul DFT in the clock-offset loop
-      (with `use_cut_dft`, on the plain route: cut_dft_spectra, kernel 8 —
-       cut, DFT and deroll in one launch)
+      (with `use_cut_dft`, on the plain route of a geometry the fused cut
+       takes: cut_dft_spectra, kernel 8 — cut, DFT and deroll in one
+       launch)
     → estimate_channel       LS + tap denoise + ISI profile on K symbols
     → the EQ/demap tail, by config (`_tail_route`):
         uniform:     fused_eq_demap       kernel 2 (EQ, pilot tracking, demap)
@@ -52,7 +56,8 @@ from ..ops.ofdm import deroll, ofdm_dft, ofdm_modulate
 from ..ops.sfo import (auto_retry_needed, prefer_retry, sc_clock_offset,
                        slope_clock_offset)
 from ..ops.sync import (cut_dft_spectra, cut_symbols, find_frame_start,
-                        find_frame_start_sc, max_cut_start, sc_metric_window)
+                        find_frame_start_sc, fused_cut_refuses,
+                        max_cut_start, sc_metric_window)
 from ..utils.bits import (bits_to_bytes, bytes_to_bits, pack_header,
                           parse_frame_header)
 from .frame import (data_symbols_from_bits, demap_bin_tables,
@@ -108,18 +113,22 @@ class DecodeResult:
 class Modem(torch.nn.Module):
     """PyTorch implementation of the GF3 transceiver.
 
-    >>> m = Modem(GF3_STANDARD, max_delay=4352, device="cuda")
+    >>> m = Modem(GF3_STANDARD, max_delay=4352)  # buffers on the card
     >>> bits, diag = m.demodulate(rx)            # (B, T) float32 on the card
     >>> res = m.decode(recording)                # np waveform → DecodeResult
+    >>> cpu = Modem(GF3_STANDARD, device="cpu")  # plain versions, no card
     """
 
     def __init__(self, cfg: ModemConfig, max_delay: Optional[int] = None,
                  device=None, use_cut_dft: bool = False):
         """`max_delay` (samples) bounds the frame onset the sync searches
         for (the streaming receiver's case); None searches the recording.
-        `use_cut_dft` routes the plain decode (no clock-offset loop, no DD)
-        through kernel 8, the fused cut + DFT + deroll; off by default, as
-        in gf3x, and a setting of this instance only."""
+        `device` holds the buffers: the card (`cuda`) by default, which
+        raises as torch raises where there is none; `device="cpu"` is the
+        explicit CPU route, on the kernels' plain versions. `use_cut_dft`
+        routes the plain decode (no clock-offset loop, no DD) through
+        kernel 8, the fused cut + DFT + deroll; off by default, as in
+        gf3x, and a setting of this instance only."""
         super().__init__()
         self.cfg = cfg.validate()
         self.max_delay = max_delay
@@ -136,8 +145,11 @@ class Modem(torch.nn.Module):
             "pilot_vals": lay.pilot_vals,
             "sc_sym": lay.sc_sym,
             "scramble": lay.scramble,
-            "fec_index": np.asarray(interleave_bits(
-                cfg, np.arange(cfg.raw_bits_per_frame), inverse=True)),
+            # wire order → coded-stream order: the deinterleaver, or none
+            # for a config that sends its coded bits uninterleaved
+            "fec_index": (np.asarray(interleave_bits(
+                cfg, np.arange(cfg.raw_bits_per_frame), inverse=True))
+                if cfg.interleave else np.arange(cfg.raw_bits_per_frame)),
         }
         (tables["demap_used"], tables["demap_bits"],
          tables["demap_off"]) = demap_bin_tables(cfg)
@@ -149,8 +161,7 @@ class Modem(torch.nn.Module):
             tables["ldpc_parity"] = self._code.P
         for name, arr in tables.items():
             self.register_buffer(name, torch.as_tensor(np.array(arr)))
-        if device is not None:
-            self.to(device)
+        self.to(torch.device("cuda" if device is None else device))
 
     @property
     def device(self) -> torch.device:
@@ -244,9 +255,14 @@ class Modem(torch.nn.Module):
                  max_cut_start(T, cut_len, self._cut_block))
         base = torch.clamp(start + cfg.chirp_len - backoff, 0, hi)
         base = torch.broadcast_to(base, rx.shape[:-1])
-        sc_off = (cfg.cp + backoff + self._cut_block // 2
-                  if cfg.use_schmidl_cox else -1)
-        return base, S, sc_off
+        return base, S, self._cut_geom_sc_off()
+
+    def _cut_geom_sc_off(self) -> int:
+        """SC window offset within the cut window (−1 without SC): the
+        ±block misalignment centred inside the SC guard budget."""
+        cfg = self.cfg
+        return (cfg.cp + cfg.cp // 4 + self._cut_block // 2
+                if cfg.use_schmidl_cox else -1)
 
     def _cut_frame(self, rx: torch.Tensor, start: torch.Tensor):
         """Sync position → (syms (..., S, n_fft), SC window or None, roll)."""
@@ -256,6 +272,17 @@ class Modem(torch.nn.Module):
                            sym_len=cfg.symbol_len, cp=cfg.cp,
                            body_off=cfg.sc_len, sc_off=sc_off,
                            block=self._cut_block)
+
+    def _fused_cut_refuses(self, T: int) -> bool:
+        """Whether gf3x's fused cut kernels refuse this config's cut of a
+        length-T recording (`ops.sync.fused_cut_refuses`)."""
+        cfg = self.cfg
+        S = cfg.n_known_symbols + cfg.n_data_symbols
+        sc_off = self._cut_geom_sc_off()
+        return fused_cut_refuses(T, S=S, n_fft=cfg.n_fft,
+                                 sym_len=cfg.symbol_len, cp=cfg.cp,
+                                 body_off=cfg.sc_len, sc_off=sc_off,
+                                 block=self._cut_block)
 
     def _cut_dft_frame(self, rx: torch.Tensor, start: torch.Tensor):
         """Fused cut + used-band DFT + deroll (kernel 8), the same cut as
@@ -418,6 +445,14 @@ class Modem(torch.nn.Module):
         lam = llr[:, self.fec_index[:used]] * sign
         return lam.reshape(-1, cfg.ldpc_n)
 
+    def coded_stream_llr(self, llr: torch.Tensor) -> torch.Tensor:
+        """The tails' scrambled wire-order LLRs (..., raw_bits) →
+        descrambled LLRs in coded-STREAM order (..., raw_bits), positive ⇒
+        the coded bit is 0: gf3x's `coded_stream_llr`, the canonical
+        layout LLRs are compared and chase-combined in."""
+        return llr[..., self.fec_index] * (
+            1.0 - 2.0 * self.scramble.to(torch.float32))
+
     def _payload_bits(self, llr: torch.Tensor):
         """Scrambled wire-order LLRs (B, raw_bits) → (info bits (B,
         payload_bits) uint8, fec_iters (B,), fec_unsat (B,), llr_hist
@@ -428,9 +463,8 @@ class Modem(torch.nn.Module):
         hist = torch.zeros(B, 16, dtype=torch.int32, device=llr.device)
         hist.scatter_add_(1, bkt, torch.ones_like(bkt, dtype=torch.int32))
         if cfg.fec != "ldpc":
-            sign = 1.0 - 2.0 * self.scramble.to(torch.float32)
             zeros = torch.zeros(B, dtype=torch.int32, device=llr.device)
-            return hard_bits(llr[:, self.fec_index] * sign), zeros, zeros, hist
+            return hard_bits(self.coded_stream_llr(llr)), zeros, zeros, hist
         ncw, k = cfg.n_codewords, cfg.ldpc_k
         tot, unsat, passes = self._code.decode_totals(
             self._codeword_llrs(llr), cfg.ldpc_iters)
@@ -475,13 +509,15 @@ class Modem(torch.nn.Module):
         DecodeDiag. rx (..., T), start (...,) or scalar. `sfo_correct`
         inserts the clock-offset loop, `dd` takes the decision-directed
         demod; the plain route takes kernel 8 when `use_cut_dft` is set
-        (the other two re-demodulate the symbol matrix, so they keep the
-        two-stage cut)."""
+        and the geometry suits gf3x's fused cut (the other two
+        re-demodulate the symbol matrix, so they keep the two-stage cut;
+        so does a geometry gf3x's fused cut refuses, as in gf3x)."""
         cfg = self.cfg
         lead = tuple(rx.shape[:-1])
         B = int(np.prod(lead))
         S = cfg.n_known_symbols + cfg.n_data_symbols
-        if self.use_cut_dft and not sfo_correct and not dd:
+        if (self.use_cut_dft and not sfo_correct and not dd
+                and not self._fused_cut_refuses(rx.shape[-1])):
             Y, sc_win = self._cut_dft_frame(rx, start)
             out = self._demod_spectra(Y.reshape(B, S, cfg.n_used))
         else:
@@ -635,6 +671,74 @@ class Modem(torch.nn.Module):
             if retry.crc_ok:
                 return retry
         return res
+
+    # ---------------------------------------------- HARQ (chase combining)
+    def _cut_one(self, rx, start: int):
+        """One recording's cut on the modem's device: (syms (1, S, n_fft),
+        SC window (1, n_fft) or None, roll (1,)) — a batch of one, so
+        kernel 7 cuts it, as gf3x's `cut_symbols` does."""
+        x = torch.as_tensor(np.asarray(rx, dtype=np.float32),
+                            device=self.device)
+        s = torch.as_tensor(int(start), dtype=torch.int32, device=self.device)
+        return self._cut_frame(x[None], s)
+
+    @torch.no_grad()
+    def coded_llrs(self, rx: np.ndarray, start: int,
+                   sfo_correct: bool = False,
+                   delta: Optional[float] = None) -> np.ndarray:
+        """One reception's descrambled coded-stream LLRs
+        (raw_bits_per_frame,) float32 — the soft input `chase_combine` sums
+        over repeated receptions of one frame (the tails scale LLRs by
+        1/σ², so the plain sum is maximum-ratio combining). `delta`
+        demodulates through the δ-warped DFT at a known clock offset (the
+        joint estimate of `joint_clock_offset`); `sfo_correct` estimates δ
+        from this reception alone through the two-pass loop."""
+        syms, sc_win, roll = self._cut_one(rx, start)
+        if delta is not None:
+            d = torch.as_tensor(delta, dtype=torch.float32,
+                                device=self.device)
+        elif sfo_correct:
+            d = self._two_pass_delta(syms, sc_win, roll)
+        else:
+            d = None
+        llr, _ = self._demod_syms(syms, delta=d, roll=roll)
+        return self.coded_stream_llr(llr)[0].cpu().numpy()
+
+    @torch.no_grad()
+    def joint_clock_offset(self, receptions) -> float:
+        """One shared δ̂ from every reception of a frame (the copies ride
+        one TX/RX clock pair, so the offset is one unknown): each
+        reception is cut alone, the SC per-bin correlations of all of them
+        sum coherently before the phase read (`sc_clock_offset(pool=
+        True)`), and one δ₀-warped demod of the stacked receptions gives
+        pilot slopes per row, combined by their median (gf3x's midpoint
+        median). receptions: iterable of (recording, chirp onset)."""
+        cuts = [self._cut_one(rx, start) for rx, start in receptions]
+        syms = torch.cat([c[0] for c in cuts])
+        roll = torch.cat([c[2] for c in cuts])
+        if cuts[0][1] is not None:
+            d0 = sc_clock_offset(self.cfg, torch.cat([c[1] for c in cuts]),
+                                 pool=True)
+        else:
+            d0 = torch.zeros((), device=self.device)
+        _, (_, _, slope, *_) = self._demod_syms(syms, delta=d0, roll=roll)
+        return float(_median(slope_clock_offset(self.cfg, slope)))
+
+    @torch.no_grad()
+    def decode_stream_llr(self, llr: np.ndarray) -> DecodeResult:
+        """Descrambled coded-stream LLRs (raw_bits_per_frame,) →
+        DecodeResult: the FEC decode (kernel 3 on the modem's device, in
+        float32 where gf3x runs its NumPy float64 min-sum) and the header
+        parse, no demodulation — `chase_combine`'s tail on summed LLRs."""
+        cfg = self.cfg
+        llr = np.asarray(llr, dtype=np.float32)
+        if cfg.fec != "ldpc":
+            return self._result((llr < 0).astype(np.uint8), None)
+        used = cfg.n_codewords * cfg.ldpc_n
+        lam = torch.tensor(llr[:used], device=self.device).reshape(
+            cfg.n_codewords, cfg.ldpc_n)
+        info, _, _ = self._code.decode(lam, cfg.ldpc_iters)
+        return self._result(info.reshape(-1).cpu().numpy(), None)
 
     def _host_results(self, bits: torch.Tensor,
                       diag) -> list[DecodeResult]:

@@ -1,4 +1,4 @@
-"""The frame cut's two kernels, each with its plain PyTorch version:
+"""The frame cut's three kernels, each with its plain PyTorch version:
 
 - kernel 1, `cut_symbols`: fused frame cut + CP strip
   (`csrc/cut_symbols.cu`, replacing
@@ -8,7 +8,12 @@
   (`csrc/gather_cut.cu`, replacing gf3x/ops/pallas/gather_cut.py:
   gather_cut_tpu), which gf3x's `cut_symbols` falls back to for a batch
   that is not a whole number of 8-row groups; plain version: one
-  `torch.gather`.
+  `torch.gather`;
+- kernel 6, `gather_cut_group`: the same window cut over whole 8-row
+  groups (`csrc/gather_cut_group.cu`, replacing gf3x/ops/pallas/
+  gather_cut.py:gather_cut_group_tpu), which gf3x's `cut_symbols` takes
+  for such a batch when the fused cut refuses the geometry; plain version:
+  `gather_cut_plain` over the whole-block prefix.
 
 Each wrapper runs its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises); `<wrapper>.launches` counts the
@@ -22,7 +27,8 @@ import torch
 
 from ...utils.device import launch, ptr, stream_of
 
-__all__ = ["gather_cut", "gather_cut_plain", "window_blocks",
+__all__ = ["gather_cut", "gather_cut_plain", "gather_cut_group",
+           "gather_cut_group_plain", "window_blocks", "group_blocks",
            "window_symbols", "cut_symbols", "cut_symbols_plain"]
 
 
@@ -68,6 +74,45 @@ def gather_cut(rx: torch.Tensor, q: torch.Tensor, nb: int, block: int,
 gather_cut.launches = 0
 
 
+def gather_cut_group_plain(rx: torch.Tensor, q: torch.Tensor, nb: int,
+                           block: int) -> torch.Tensor:
+    """`gather_cut_plain` with `valid` the whole-block prefix
+    floor(T/block)·block, the values of `gather_cut_group_tpu`: (B, T) →
+    (B, nb·block), row i = rx[i, q[i]·block:][:nb·block], zeros past the
+    prefix."""
+    return gather_cut_plain(rx, q, nb, block, (rx.shape[-1] // block) * block)
+
+
+def gather_cut_group(rx: torch.Tensor, q: torch.Tensor, nb: int,
+                     block: int) -> torch.Tensor:
+    """`gather_cut_group_plain` for a CPU tensor; the CUDA kernel
+    otherwise. The batch must be whole 8-row groups."""
+    if rx.dim() != 2 or rx.shape[0] % 8:
+        raise ValueError(f"gather_cut_group: needs rx (B, T) with B % 8 == 0,"
+                         f" got {tuple(rx.shape)}")
+    if rx.device.type == "cpu":
+        return gather_cut_group_plain(rx, q, nb, block)
+    if rx.device.type != "cuda" or q.device != rx.device:
+        raise ValueError(f"gather_cut_group: rx on {rx.device}, q on "
+                         f"{q.device}; both must be on one CUDA device")
+    if (rx.dtype != torch.float32 or q.dtype != torch.int32
+            or q.shape != rx.shape[:1] or not rx.is_contiguous()
+            or not q.is_contiguous()):
+        raise ValueError("gather_cut_group: needs contiguous rx (B, T) "
+                         "float32 and q (B,) int32")
+    B, T = rx.shape
+    L = nb * block
+    win = torch.empty(B, L, device=rx.device)
+    with torch.cuda.device(rx.device):
+        launch("gf3x_gather_cut_group", _GATHER_ARGS, ptr(rx), ptr(q),
+               ptr(win), B, T, (T // block) * block, L, block, stream_of(rx))
+    gather_cut_group.launches += 1
+    return win
+
+
+gather_cut_group.launches = 0
+
+
 def window_symbols(win: torch.Tensor, *, S: int, n_fft: int, body_off: int,
                    sym_len: int, cp: int, sc_off: int):
     """Cut windows (B, ≥ need) → (syms (B, S, n_fft) view, scw (B, n_fft)
@@ -84,6 +129,15 @@ def window_blocks(block: int, S: int, n_fft: int, body_off: int,
     window."""
     need = max(body_off + S * sym_len, sc_off + n_fft if sc_off >= 0 else 0)
     return -(-need // block)
+
+
+def group_blocks(block: int, S: int, n_fft: int, body_off: int,
+                 sym_len: int, sc_off: int) -> int:
+    """gf3x's `gather_cut` window in blocks (gf3x/ops/sync.py:307-308): the
+    cut's need plus a block of roll slack, rounded up to whole 8-block
+    tiles. Kernel 6's output width and the `nb` of the cut's q clip."""
+    nb = window_blocks(block, S, n_fft, body_off, sym_len, sc_off) + 1
+    return -(-nb // 8) * 8
 
 
 def cut_symbols_plain(rx: torch.Tensor, q: torch.Tensor, *, valid: int,

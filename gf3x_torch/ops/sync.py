@@ -1,16 +1,17 @@
-"""Frame synchronization on torch tensors (counterpart of gf3x/ops/sync.py
-without the long-recording overlap-save filter): the FFT chirp matched
-filter, bounded and decimated onset search with first-arrival refinement,
-the block-aligned frame cut alone (kernel 1, or kernel 7 for a batch that
-is not whole 8-row groups, as in gf3x) or fused with the used-band DFT
-(kernel 8), and Schmidl–Cox timing and metrics.
+"""Frame synchronization on torch tensors (counterpart of gf3x/ops/sync.py):
+the FFT chirp matched filter and its overlap-save form for long
+recordings, bounded and decimated onset search with first-arrival
+refinement, the block-aligned frame cut alone (kernel 1, 6 or 7, by gf3x's
+rule) or fused with the used-band DFT (kernel 8), and Schmidl–Cox timing
+and metrics.
 
 The correlation stays an FFT (`torch.fft`, cuFFT on the card); the TPU's
 bf16 Toeplitz form is a TPU artefact. The cut follows `gather_cut`'s
 semantics (window block q = clip(start // block, 0, nf + 8 − nb), roll
 r = start − q·block, samples past the whole-block prefix read as zero), the
-values the JAX CPU path computes; the TPU kernel's per-group span staging
-has no counterpart because a GPU block reads its own window directly."""
+values the JAX CPU path computes; the TPU kernels' per-group span staging
+and their 8 MiB staging budget have no counterpart because a GPU block
+reads its own window directly."""
 
 from __future__ import annotations
 
@@ -22,9 +23,10 @@ from .kernels import cut_dft as _cut_dft
 from .kernels import gather_cut as _cut
 
 __all__ = ["sync_nfft", "bounded_sync_nfft", "bounded_mf_shape",
-           "matched_filter", "find_frame_start", "max_cut_start",
-           "cut_plan", "cut_symbols", "cut_dft_spectra", "sc_metric_window",
-           "schmidl_cox_metric", "find_frame_start_sc", "sc_metric_at"]
+           "matched_filter", "streaming_matched_filter", "find_frame_start",
+           "max_cut_start", "cut_plan", "fused_cut_refuses", "cut_symbols",
+           "cut_dft_spectra", "sc_metric_window", "schmidl_cox_metric",
+           "find_frame_start_sc", "sc_metric_at"]
 
 
 def _next_pow2(n: int) -> int:
@@ -73,6 +75,27 @@ def matched_filter(rx: torch.Tensor, chirp, nfft: int | None = None
     M = torch.fft.irfft(R * _chirp_spectrum(chirp, nfft, rx.device), nfft,
                         dim=-1)
     return M[..., :T]
+
+
+def streaming_matched_filter(rx: torch.Tensor, chirp,
+                             chunk: int = 1 << 15) -> torch.Tensor:
+    """Overlap-save matched filter for unbounded recordings: the values of
+    `matched_filter` (up to FFT rounding) computed chunk by chunk, so the
+    FFT workspace is O(chunk + len(chirp)) instead of one next-pow2(T)
+    transform. rx (..., T) → (..., T)."""
+    *lead, T = rx.shape
+    L = len(chirp)
+    n_chunks = -(-T // chunk)
+    F = _next_pow2(chunk + L)
+    c_f = _chirp_spectrum(chirp, F, rx.device)
+    rx_pad = torch.nn.functional.pad(rx, (0, n_chunks * chunk + L - T))
+    out = torch.empty(*lead, n_chunks * chunk, dtype=rx.dtype,
+                      device=rx.device)
+    for i in range(n_chunks):
+        seg = rx_pad[..., i * chunk: i * chunk + chunk + L]
+        m = torch.fft.irfft(torch.fft.rfft(seg, F, dim=-1) * c_f, F, dim=-1)
+        out[..., i * chunk: (i + 1) * chunk] = m[..., :chunk]
+    return out[..., :T]
 
 
 def _first_arrival(mabs: torch.Tensor, peak: torch.Tensor,
@@ -129,9 +152,7 @@ def cut_plan(T: int, starts: torch.Tensor, *, S: int, n_fft: int,
     read as zero —, roll (B,) int32). q = clip(start // block, 0,
     nf + 8 − nb) and roll = start − q·block clipped to [0, block), as
     gf3x's `gather_cut` computes them."""
-    need = max(body_off + S * sym_len, sc_off + n_fft if sc_off >= 0 else 0)
-    nb = -(-(need + block) // block)
-    nb = -(-nb // 8) * 8
+    nb = _cut.group_blocks(block, S, n_fft, body_off, sym_len, sc_off)
     nf = T // block
     s = starts.to(torch.int32).reshape(-1)
     if nf + 8 - nb < 0:
@@ -143,6 +164,20 @@ def cut_plan(T: int, starts: torch.Tensor, *, S: int, n_fft: int,
     return q, nf * block, torch.clamp(s - q * block, 0, block - 1)
 
 
+def fused_cut_refuses(T: int, *, S: int, n_fft: int, sym_len: int, cp: int,
+                      body_off: int, sc_off: int, block: int) -> bool:
+    """Whether gf3x's fused cut kernels (`cut_symbols_tpu`, `cut_dft_tpu`)
+    refuse this geometry (gf3x/ops/sync.py:_cut_plan and its callers'
+    tests, :388-389, :527): an extraction offset — `block`, `body_off`,
+    `cp`, `sym_len`, or `sc_off` when ≥ 0 — not a multiple of 128 (Mosaic
+    lane alignment), or a window of more blocks than the recording's
+    whole-block prefix holds."""
+    nb = _cut.group_blocks(block, S, n_fft, body_off, sym_len, sc_off)
+    aligned = all(v % 128 == 0 for v in (block, body_off, cp, sym_len)) and (
+        sc_off < 0 or sc_off % 128 == 0)
+    return not aligned or nb > T // block
+
+
 def cut_symbols(rx: torch.Tensor, starts: torch.Tensor, *, S: int,
                 n_fft: int, sym_len: int, cp: int, body_off: int,
                 sc_off: int, block: int = 128):
@@ -151,12 +186,18 @@ def cut_symbols(rx: torch.Tensor, starts: torch.Tensor, *, S: int,
     rx[i, q·block + body_off + s·sym_len + cp :][:n_fft] (`cut_plan`), scw
     the n_fft window at q·block + sc_off (None when sc_off < 0).
 
-    On the card a batch of whole 8-row groups runs kernel 1
-    (`ops.kernels.gather_cut.cut_symbols`); any other batch — one recording
-    in `Modem.decode` — cuts its windows with kernel 7
-    (`ops.kernels.gather_cut.gather_cut`) and slices the symbols out of
-    them, the route gf3x's `cut_symbols` takes (gf3x/ops/sync.py:339-344,
-    398-402). Both give the same values."""
+    Three routes, gf3x's (gf3x/ops/sync.py:329-348, 388-402), all with the
+    same values:
+
+    - a batch that is not whole 8-row groups (`Modem.decode` of one
+      recording): kernel 7 (`ops.kernels.gather_cut.gather_cut`) cuts the
+      windows and the symbols are sliced out of them;
+    - whole 8-row groups with a 128-sample block on a geometry the fused
+      cut refuses (`fused_cut_refuses`; CP = N/4 at N = 2048): kernel 6
+      (`gather_cut_group`) cuts gf3x's 8-block-rounded windows, then the
+      same slice;
+    - otherwise (tiny-CP blocks under 128 included): kernel 1
+      (`ops.kernels.gather_cut.cut_symbols`), the fused cut."""
     *lead, T = rx.shape
     starts = torch.broadcast_to(starts.to(rx.device), tuple(lead))
     q, valid, r = cut_plan(T, starts, S=S, n_fft=n_fft, sym_len=sym_len,
@@ -167,6 +208,11 @@ def cut_symbols(rx: torch.Tensor, starts: torch.Tensor, *, S: int,
     if rx2.shape[0] % 8:
         win = _cut.gather_cut(rx2, q, _cut.window_blocks(block, **geo),
                               block, valid)
+        syms, scw = _cut.window_symbols(win, cp=cp, **geo)
+    elif block % 128 == 0 and fused_cut_refuses(T, cp=cp, block=block,
+                                                **geo):
+        win = _cut.gather_cut_group(rx2, q, _cut.group_blocks(block, **geo),
+                                    block)
         syms, scw = _cut.window_symbols(win, cp=cp, **geo)
     else:
         syms, scw = _cut.cut_symbols(rx2, q, valid=valid, block=block,

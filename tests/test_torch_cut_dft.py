@@ -134,8 +134,8 @@ def test_use_cut_dft_demodulate_matches_gf3x():
                                        np.random.default_rng(0))
     j_bits, jd = jm._decode_jit(jnp.asarray(rx))
     jd = jax.device_get(jd)
-    fused = TModem(CFG, max_delay=MAX_DELAY, use_cut_dft=True)
-    two = TModem(CFG, max_delay=MAX_DELAY)
+    fused = TModem(CFG, max_delay=MAX_DELAY, use_cut_dft=True, device="cpu")
+    two = TModem(CFG, max_delay=MAX_DELAY, device="cpu")
     assert fused.use_cut_dft and not two.use_cut_dft
     bits, d = fused.demodulate(torch.as_tensor(rx))
     bits2, d2 = two.demodulate(torch.as_tensor(rx))
@@ -167,7 +167,7 @@ def test_use_cut_dft_routes_only_the_plain_decode(monkeypatch):
     """The fused route takes the plain decode only: with the flag set,
     `demodulate` never cuts a symbol matrix, while the clock-offset loop
     and the DD retry still do (they re-demodulate it)."""
-    m = TModem(CFG, use_cut_dft=True)
+    m = TModem(CFG, use_cut_dft=True, device="cpu")
     wav = m.encode(b"route", "r.bin")
     rx = torch.as_tensor(np.concatenate([np.zeros(500, np.float32), wav,
                                          np.zeros(3000, np.float32)]))

@@ -30,7 +30,7 @@ def test_fused_eq_demap_plain_matches_xla_twin(bps):
     ≤ 1e-4 rel."""
     cfg = GF3_STANDARD.replace(bits_per_symbol=bps, fec="none",
                                n_data_symbols=6)
-    jm, tm = JModem(cfg), TModem(cfg)
+    jm, tm = JModem(cfg), TModem(cfg, device="cpu")
     rng = np.random.default_rng(bps)
     info = rng.integers(0, 2, (3, cfg.payload_bits_per_frame), dtype=np.uint8)
     wav = np.asarray(jm.modulate_frames(jnp.asarray(info)))
@@ -132,7 +132,7 @@ def test_fec_gather_matches_coded_stream_llr():
     """The FEC ingest's static gather (deinterleave + descramble) lands each
     LLR where gf3x's `coded_stream_llr` puts it: exact."""
     cfg = GF3_STANDARD
-    tm = TModem(cfg)
+    tm = TModem(cfg, device="cpu")
     llr = np.random.default_rng(3).standard_normal(
         (2, cfg.raw_bits_per_frame)).astype(np.float32)
     ref = np.asarray(j_interleave(cfg, jnp.asarray(llr), inverse=True)) * \

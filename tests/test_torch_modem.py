@@ -79,7 +79,7 @@ def gf3x_tables(cfg):
 def test_encode_waveform_matches():
     """One frame, bytes → waveform: ≤ 1e-5 abs (float32 irfft in two FFT
     libraries; the chirp, bits and symbols are exact)."""
-    jm, tm = JModem(CFG), TModem(CFG)
+    jm, tm = JModem(CFG), TModem(CFG, device="cpu")
     payload = np.random.default_rng(1).integers(0, 256, 300, np.uint8).tobytes()
     ref = jm.encode(payload, "a.bin")
     got = tm.encode(payload, "a.bin")
@@ -99,7 +99,7 @@ def test_demodulate_batch_matches_gf3x(batch):
     slope/cpe ≤ 1e-4 rad, evm and mean|LLR| ≤ 1e-3 rel, fec_unsat exact,
     fec_iters ≤ ldpc_iters (per codeword here, batch-wide in gf3x)."""
     rx, payload, delays, j_bits, jd = batch
-    tm = TModem(CFG, max_delay=MAX_DELAY)
+    tm = TModem(CFG, max_delay=MAX_DELAY, device="cpu")
     bits, d = tm.demodulate(torch.as_tensor(rx))
     bits = bits.numpy()
     assert np.array_equal(bits, j_bits)
@@ -134,7 +134,7 @@ def test_demodulate_batch_matches_gf3x(batch):
 def test_tables_bit_exact_and_loadable(batch):
     """The port's self-built tables equal gf3x's bit for bit, and a port
     modem loaded from gf3x's tables decodes identically."""
-    tm = TModem(CFG, max_delay=MAX_DELAY)
+    tm = TModem(CFG, max_delay=MAX_DELAY, device="cpu")
     ref = gf3x_tables(CFG)
     assert set(ref) == set(TABLES)
     for name, arr in ref.items():
@@ -142,7 +142,7 @@ def test_tables_bit_exact_and_loadable(batch):
         assert buf.dtype == np.asarray(arr).dtype, name
         assert np.array_equal(buf, arr), name
 
-    loaded = TModem(CFG, max_delay=MAX_DELAY)
+    loaded = TModem(CFG, max_delay=MAX_DELAY, device="cpu")
     for name in ("known_syms", "denoise"):          # prove the copy lands
         loaded.get_buffer(name).zero_()
     load_reference_tables(loaded, ref)
@@ -161,7 +161,7 @@ def test_decode_recorded_fixture_matches():
     both implementations (unbounded sync): the same bits, CRC ok."""
     rx, _ = read_wav(REPO / "tests" / "fixtures" / "gf3_single_room.wav")
     ref = JModem(CFG).decode(rx, sfo="off", dd="off")
-    got = TModem(CFG).decode(rx, sfo="off", dd="off")
+    got = TModem(CFG, device="cpu").decode(rx, sfo="off", dd="off")
     assert got.crc_ok and ref.crc_ok
     assert np.array_equal(got.bits, ref.bits)
     assert got.payload == ref.payload and got.filename == ref.filename
@@ -174,7 +174,7 @@ def test_known_start_roundtrip(preset):
     uncoded: the payload comes back CRC-ok, every codeword satisfied."""
     from gf3x_torch import preset as t_preset
 
-    tm = TModem(t_preset(preset))
+    tm = TModem(t_preset(preset), device="cpu")
     payload = b"known start " * 8
     wav = tm.encode(payload, "k.bin")
     rx = np.concatenate([np.zeros(300, np.float32), wav,
@@ -194,9 +194,49 @@ def test_import_leaves_jax_out():
             "gf3x_torch.ops.kernels.split_eq, gf3x_torch.ops.kernels.cut_dft, "
             "gf3x_torch.ops.adapt, gf3x_torch.ops.sfo, gf3x_torch.ops.sync, "
             "gf3x_torch.models.stream, gf3x_torch.io, gf3x_torch.io.audio, "
-            "gf3x_torch.utils.captures;"
+            "gf3x_torch.utils.captures, gf3x_torch.models.arq, "
+            "gf3x_torch.channel, gf3x_torch.channel.sims;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gf3x')];"
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_modem_on_the_card_by_default():
+    """A `Modem` without a device puts its buffers on the card, and raises
+    as torch raises where there is none; `device="cpu"` (a string or a
+    torch.device) is the explicit CPU route."""
+    from gf3x_torch import preset as t_preset
+
+    cfg = t_preset("loopback")
+    if torch.cuda.is_available():
+        assert TModem(cfg).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            TModem(cfg)
+    for dev in ("cpu", torch.device("cpu")):
+        m = TModem(cfg, device=dev)
+        assert m.device.type == "cpu"
+        assert all(b.device.type == "cpu" for b in m.buffers())
+
+
+def test_uninterleaved_config_roundtrip():
+    """A config that sends its coded bits uninterleaved (`interleave=False`)
+    decodes: the port's wire-to-stream index is the identity there, as
+    gf3x's `coded_stream_llr` skips its deinterleaver; the coded-stream
+    LLRs' signs equal gf3x's."""
+    from gf3x import preset as j_preset
+    from gf3x_torch import preset as t_preset
+
+    tm = TModem(t_preset("gf3").replace(interleave=False), device="cpu")
+    jm = JModem(j_preset("gf3").replace(interleave=False))
+    payload = b"no interleaver " * 4
+    wav = tm.encode(payload, "u.bin")
+    assert np.max(np.abs(wav - jm.encode(payload, "u.bin"))) <= 1e-5
+    rx = np.concatenate([np.zeros(300, np.float32), wav,
+                         np.zeros(2000, np.float32)])
+    res = tm.decode(rx, start=300, sfo="off")
+    assert res.crc_ok and res.payload == payload
+    assert np.array_equal(tm.coded_llrs(rx, 300) < 0,
+                          jm.coded_llrs(rx, 300) < 0)

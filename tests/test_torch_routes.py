@@ -56,7 +56,7 @@ def recording(cfg, seed, ppm=0.0, rt60=0.02, drr_db=6.0, snr_db=15.0,
 def modems():
     """One gf3x and one port modem per config, shared so that gf3x's
     compiled programs are reused across cases."""
-    return {cfg: (JModem(cfg), TModem(cfg)) for cfg in (CFG, GF3_HICAP)}
+    return {cfg: (JModem(cfg), TModem(cfg, device="cpu")) for cfg in (CFG, GF3_HICAP)}
 
 
 def frames_at(ppm, B, seed):
@@ -352,4 +352,4 @@ def test_decode_auto_takes_the_dd_retry(modems):
 
 def test_decode_rejects_unknown_sync():
     with pytest.raises(ValueError, match="sync"):
-        TModem(CFG).decode(np.zeros(CFG.frame_len, np.float32), sync="x")
+        TModem(CFG, device="cpu").decode(np.zeros(CFG.frame_len, np.float32), sync="x")

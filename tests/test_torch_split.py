@@ -154,7 +154,7 @@ def test_split_tail_matches_xla_twin(which):
     ≤ 1e-4·mean|LLR|, slope/cpe ≤ 1e-4 rad, EVM and mean|LLR| ≤ 1e-4
     relative; and at 64-QAM the fused tail gives the same numbers."""
     cfg = small(LOADED if which == "loaded" else GF3_TURBO)
-    jm, tm = JModem(cfg), TModem(cfg)
+    jm, tm = JModem(cfg), TModem(cfg, device="cpu")
     body, info = noisy_bodies(jm, 3, 3e-3, 2)
     llr_r, (_, _, sl_r, cp_r, evm_r, mab_r, *_) = jax.tree.map(
         np.asarray, jm._demod_prewindowed(jnp.asarray(body),
@@ -185,7 +185,7 @@ def test_split_tail_matches_pallas_interpret(which):
     and noise floor: hard decisions exact, soft within gf3x's own bound
     for its kernels (0.03·mean|LLR|, tests/test_pallas_kernels.py)."""
     cfg = small(LOADED if which == "loaded" else GF3_TURBO)
-    jm, tm = JModem(cfg), TModem(cfg)
+    jm, tm = JModem(cfg), TModem(cfg, device="cpu")
     body, _ = noisy_bodies(jm, 4, 2e-3, 3)
     Y, H, nv = ref_tail_inputs(cfg, body)
     fused, _ = jm._split_eq_demap(jnp.asarray(Y), jnp.asarray(H),
@@ -217,7 +217,7 @@ def test_loaded_slice_matches_gf3x(loaded_batch):
     (sync within 2, H / noise_var / isi_var ≤ 1e-3 rel, slope/cpe ≤ 1e-4
     rad, evm and mean|LLR| ≤ 1e-3 rel, fec_unsat exact)."""
     rx, payload, j_bits, jd = loaded_batch
-    tm = TModem(LOADED, max_delay=MAX_DELAY)
+    tm = TModem(LOADED, max_delay=MAX_DELAY, device="cpu")
     bits, d = tm.demodulate(torch.as_tensor(rx))
     assert np.array_equal(bits.numpy(), j_bits)
     results = tm.decode_batch(rx)
@@ -249,7 +249,7 @@ def test_loaded_slice_matches_gf3x(loaded_batch):
 
 def test_loaded_encode_waveform_matches():
     """One loaded frame, bytes → waveform: ≤ 1e-5 abs."""
-    jm, tm = JModem(LOADED), TModem(LOADED)
+    jm, tm = JModem(LOADED), TModem(LOADED, device="cpu")
     payload = np.random.default_rng(1).integers(0, 256, 700, np.uint8).tobytes()
     ref = jm.encode(payload, "l.bin")
     got = tm.encode(payload, "l.bin")
@@ -272,7 +272,7 @@ def test_adapt_flow_on_the_port():
     again, all on the port: the copied `adapt` gives gf3x's table on the
     same host diag, and the adapted frame decodes CRC-ok."""
     rng = np.random.default_rng(6)
-    probe = TModem(GF3_STANDARD)
+    probe = TModem(GF3_STANDARD, device="cpu")
     res = probe.decode(_room(probe.encode(b"probe", "p"), rng))
     assert res.crc_ok
     table = tadapt.bit_loading_from_probe(res.diag, GF3_STANDARD)
@@ -280,7 +280,7 @@ def test_adapt_flow_on_the_port():
     assert tadapt.recommend_preset(res.diag, GF3_STANDARD) == \
         jadapt.recommend_preset(res.diag, GF3_STANDARD)
     assert len(set(table)) > 1                       # the notch shows
-    adapted = TModem(GF3_STANDARD.replace(bit_loading=table))
+    adapted = TModem(GF3_STANDARD.replace(bit_loading=table), device="cpu")
     payload = bytes(range(256)) * 2
     out = adapted.decode(_room(adapted.encode(payload, "a"), rng))
     assert out.crc_ok and out.payload == payload
@@ -290,10 +290,10 @@ def test_adapt_flow_on_the_port():
 def test_tail_route_by_config():
     """Loaded → split, every uniform order → fused; the fused wrapper
     refuses a loaded config on any device."""
-    assert TModem(small(LOADED))._tail_route() == "split"
+    assert TModem(small(LOADED), device="cpu")._tail_route() == "split"
     for cfg in (GF3_STANDARD, GF3_TURBO, GF3_STANDARD.replace(
             bits_per_symbol=4)):
-        assert TModem(small(cfg))._tail_route() == "fused"
+        assert TModem(small(cfg), device="cpu")._tail_route() == "fused"
     cfg = small(LOADED)
     Y = torch.zeros(1, 8, cfg.n_used, dtype=torch.complex64)
     H = torch.ones(1, cfg.n_used, dtype=torch.complex64)
