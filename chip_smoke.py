@@ -8,7 +8,8 @@ drives the receive paths once each through the port's entry points:
 - config 5: `Modem(GF3_STANDARD, max_delay=4096 + cp).demodulate` on
   bench.py's 1024-frame batch — kernels 1 (cut), 2 (fused EQ/demap) and 3
   (LDPC); kernel 2 is held at QPSK, 16-QAM (gf3-fast) and 64-QAM
-  (gf3-turbo);
+  (gf3-turbo); bench.py's batch recipe is copied here (`build_batch`), so
+  nothing of the JAX side is imported;
 - the fused cut+DFT route: the same batch through
   `Modem(..., use_cut_dft=True).demodulate` — kernel 8 (cut + DFT +
   deroll) in place of kernel 1, then 2 and 3; both routes' steps are
@@ -41,12 +42,17 @@ route.
 
 Run from the repository root:  python3 chip_smoke.py
 
+Kernel 2 is also held bit for bit against the split pair (kernels A + B)
+at config 5 and gf3-turbo, and kernel 7's call against `torch.gather`'s in
+turns at the one-recording cut.
+
 Phases print one line each. The last lines are a JSON object with every
-kernel's measurements (host-clock and CUDA-event times, the plain
-version's, the bound — the larger of its bytes at 3.35 TB/s and its
-float32 operations at 67 TFLOP/s — and the nearest single PyTorch call's
-time where there is one), the card's name and power limit as nvidia-smi
-reports them, and `{"ok": true, "device": {...}}`.
+kernel's measurements (host-clock and CUDA-event times, the kernel's own
+device time from torch.profiler, the plain version's time, the bound — the
+larger of its bytes at 3.35 TB/s and its float32 operations at 67 TFLOP/s
+— and the nearest single PyTorch call's time where there is one), the
+card's name and power limit as nvidia-smi reports them, and
+`{"ok": true, "device": {...}}`.
 """
 
 import hashlib
@@ -70,6 +76,37 @@ LONGCP = dict(n_fft=2048, cp=512, bin_lo=48, bin_hi=607)
 # the bit-loaded path's table: tools/tpu_parity.py's on-chip parity table
 LOADING_SEED, LOADING_P = 5, [0.1, 0.4, 0.35, 0.15]
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+# What the redesigns of kernels 2 and 7 were predicted to reach on an H100
+# 80GB HBM3 at 700 W, and what the designs before them measured there
+# (PERF.md §6): printed beside this run's numbers
+EXPECTED = {
+    "fused_eq_demap": "predicted 0.04-0.08 ms device; one block per symbol "
+                      "took 0.195",
+    "fused_eq_demap U=560": "predicted 0.08-0.16 ms device; one block per "
+                            "symbol took 0.463",
+    "gather_cut": "predicted a host-clock call at or under torch.gather's; "
+                  "the ctypes binding took 0.031 ms against 0.023",
+}
+
+
+def build_batch(modem, B: int, margin: int, rng):
+    """B copies of a real frame at random delays + 20 dB AWGN (decodable):
+    (rx (B, frame_len + margin) float32, payload, delays).
+
+    A copy of bench.py:37-49 (`build_batch`, the JAX benchmark's config-5
+    batch recipe), kept here so that this script imports nothing of the
+    JAX side; tests/test_torch_kernels.py holds the two equal."""
+    cfg = modem.cfg
+    payload = rng.integers(0, 256, 540, dtype=np.uint8).tobytes()
+    wav = modem.encode(payload, "bench.bin")
+    T = cfg.frame_len + margin
+    rx = np.zeros((B, T), dtype=np.float32)
+    delays = rng.integers(0, margin, size=B)
+    for i in range(B):
+        rx[i, delays[i]: delays[i] + wav.size] = wav
+    p = float(np.mean(wav**2))
+    rx += (rng.standard_normal((B, T)) * np.sqrt(p / 100.0)).astype(np.float32)
+    return rx, payload, delays
 
 
 def median_ms(fn, runs: int = TIMED_RUNS) -> float:
@@ -98,6 +135,66 @@ def event_ms(fn, runs: int = 50) -> float:
     return start.elapsed_time(end) / runs
 
 
+def graph_us(fn, runs: int = 50) -> float:
+    """Device time of one fn() in µs from `runs` calls captured in one CUDA
+    graph: the replay timed with CUDA events, so the host's issue rate
+    does not enter."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(runs):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return 1e3 * start.elapsed_time(end) / runs
+
+
+def kernel_us(fn, names, runs: int = 20) -> dict:
+    """The device time of the kernels fn() launches whose names contain
+    one of `names`, per call, in µs: the kernels' own durations from
+    torch.profiler over `runs` calls after a warm-up. Where the profiler
+    records no device time, the CUDA-graph replay time of fn() instead.
+    Returns {"us": ..., "by": "profiler" | "graph"}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if any(n in ev.key for n in names):
+            total += float(getattr(ev, "self_device_time_total", None)
+                           or getattr(ev, "self_cuda_time_total", 0.0))
+    if total > 0.0:
+        return dict(us=total / runs, by="profiler")
+    return dict(us=graph_us(fn), by="graph")
+
+
+def issue_us(fn, runs: int = 2000) -> float:
+    """Host time to issue one fn() in µs, over `runs` back-to-back calls
+    with no synchronisation between them (for calls much longer than
+    their kernels, the host's cost of the call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / runs
+
+
 def bound(nbytes: float, flops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes the
     function must move over HBM_BPS and its float32 operations over
@@ -122,26 +219,37 @@ def gather_call(rx: torch.Tensor, idx: torch.Tensor):
     return lambda: torch.gather(rx, 1, idx)
 
 
-def timed(fn_k, fn_p, nbytes: float, flops: float = 0.0, lib=None) -> dict:
+def timed(fn_k, fn_p, nbytes: float, flops: float = 0.0, lib=None, *,
+          kernel: str) -> dict:
     """A kernel's row of times: host-clock ms of the kernel and its plain
-    version, the kernel's CUDA-event device ms, the library yardstick's
-    host-clock ms (None where no single call computes the function) and
-    the bound."""
-    return dict(ms=median_ms(fn_k), plain_ms=median_ms(fn_p),
-                device_ms=event_ms(fn_k),
-                library_ms=None if lib is None else median_ms(lib),
-                **bound(nbytes, flops))
+    version; the kernel's device time twice — `device_ms`, CUDA events over
+    50 back-to-back calls (for a body of a few µs that is the host's issue
+    rate), and `kernel_us`, the body alone (the profiler's durations of the
+    kernels whose names contain `kernel`); the library yardstick's
+    host-clock ms and, for a `torch.gather` yardstick, its kernel's µs
+    (None where no single call computes the function); and the bound."""
+    k_us = kernel_us(fn_k, [kernel])
+    row = dict(ms=median_ms(fn_k), plain_ms=median_ms(fn_p),
+               device_ms=event_ms(fn_k), kernel_us=k_us["us"],
+               kernel_us_by=k_us["by"],
+               library_ms=None if lib is None else median_ms(lib),
+               **bound(nbytes, flops))
+    if lib is not None:
+        row["library_kernel_us"] = kernel_us(lib, ["gather"])["us"]
+    return row
 
 
 def tail_timed(cfg, fn_k, fn_p, Y) -> dict:
     """`timed` for a uniform EQ/demap tail (kernel 2): the bound counts the
-    data symbols' spectra, Ĥ and the noise floor in, the LLRs and four
-    per-symbol diagnostics out, and 14 operations per data cell (EQ,
-    derotation and the demap's products); no single call computes it."""
+    data symbols' spectra, Ĥ and the noise floor in, the LLRs, slope and
+    cpe per data symbol and evm and mean |llr| per frame out, and 14
+    operations per data cell (EQ, derotation and the demap's products); no
+    single call computes it."""
     Bk, D, U = Y.shape[0], cfg.n_data_symbols, cfg.n_used
     nbytes = (8 * Bk * D * U + 8 * Bk * U + 4 * Bk
-              + 4 * Bk * cfg.raw_bits_per_frame + 4 * 4 * Bk * D)
-    return timed(fn_k, fn_p, nbytes, 14.0 * Bk * D * U)
+              + 4 * Bk * cfg.raw_bits_per_frame + 4 * 2 * Bk * D + 4 * 2 * Bk)
+    return timed(fn_k, fn_p, nbytes, 14.0 * Bk * D * U,
+                 kernel="fused_eq_demap_kernel")
 
 
 def check(ok: bool, what: str) -> None:
@@ -200,6 +308,23 @@ def hold_fused(cfg, Y, H, nv, pv, label):
     out_p = fused_eq.fused_eq_demap_plain(cfg, Y, H, nv, pv)
     err, scale = hold_tail(out_k, out_p, f"fused_eq_demap {label}")
     return out_k, err, scale
+
+
+def hold_split(modem, Y, H, nv, out_k, label):
+    """Kernel 2's outputs `out_k` against the split pair (kernels A + B,
+    `Modem._split_eq_demap`) on the same inputs: llr, slope and cpe
+    bit-identical (the two share their device code), evm and mean |llr|
+    within 1e-4 relative (summed in another order). Returns that largest
+    relative difference."""
+    split = modem._split_eq_demap(Y, H, nv)
+    for i, name in ((0, "llr"), (1, "slope"), (2, "cpe")):
+        check(torch.equal(out_k[i], split[i]), f"{label}: kernel 2's {name} "
+              "is not bit-identical to the split pair's")
+    rel = max(float(((a - b).abs() / b.abs()).max())
+              for a, b in zip(out_k[3:], split[3:]))
+    check(rel <= 1e-4, f"{label}: evm or mean|llr| differ from the split "
+          f"pair's by {rel} rel")
+    return rel
 
 
 def hold_tail(out_k, out_p, what):
@@ -328,7 +453,7 @@ def hold_gather_cut(rx, q, nb, block, valid):
         lambda: gather_cut.gather_cut_plain(rx, q, nb, block, valid),
         2 * rx.shape[0] * L * 4 + q.numel() * 4,
         lib=gather_call(rx, cut_index(q, block, torch.arange(
-            L, device=rx.device)))))
+            L, device=rx.device))), kernel="gather_cut_kernel"))
 
 
 def run_routes(dev, counters):
@@ -359,13 +484,41 @@ def run_routes(dev, counters):
                                   cfg.symbol_len, sc_off)
     x2, q = x.reshape(1, -1), q.contiguous()
     held = hold_gather_cut(x2, q, nb, block, valid)
+    # the call against torch.gather's, in turns: at this size both are the
+    # host's issue of one launch and a few µs of kernel
+    turns, _ = in_turns({
+        "gather_cut": lambda: gather_cut.gather_cut(x2, q, nb, block, valid),
+        "torch_gather": gather_call(x2, cut_index(q, block, torch.arange(
+            nb * block, device=x.device)))}, blocks=16, runs=100)
+    # where the call's host time goes: the whole call, torch.gather's, the
+    # output's allocation and the entry alone (conversion and CUDA launch)
+    from gf3x_torch.utils import device
+
+    L = nb * block
+    win = torch.empty(1, L, device=x.device)
+    entry = device._ENTRIES["gf3x_gather_cut"]
+    stream = torch.cuda.current_stream().cuda_stream
+    pieces = {
+        "call": lambda: gather_cut.gather_cut(x2, q, nb, block, valid),
+        "torch_gather": gather_call(x2, cut_index(q, block, torch.arange(
+            L, device=x.device))),
+        "allocation": lambda: x2.new_empty(1, L),
+        "entry": lambda: entry(x2.data_ptr(), q.data_ptr(), win.data_ptr(),
+                               1, x2.shape[1], valid, L, block, stream,
+                               x.device.index)}
+    call_us = {name: issue_us(fn) for name, fn in pieces.items()}
     # what the B % 8 route costs against kernel 1 on the same cut
     k1_ms = median_ms(lambda: gather_cut.cut_symbols(
         x2, q, valid=valid, block=block, cp=cfg.cp, **geo))
     print(f"gather_cut at decode's cut of {cap['wav']} (1 x {x.shape[-1]} "
           f"-> 1 x {nb * block}): equal; {held['ms']:.3f} ms vs plain "
-          f"{held['plain_ms']:.3f} ms; kernel 1 on the same cut {k1_ms:.3f} "
-          "ms", flush=True)
+          f"{held['plain_ms']:.3f} ms; in turns (16 blocks of 100 calls) "
+          f"{turns['gather_cut']:.4f} ms vs torch.gather "
+          f"{turns['torch_gather']:.4f} ms; kernel {held['kernel_us']:.2f} us"
+          f" vs torch.gather's {held['library_kernel_us']:.2f} us; device_ms "
+          f"(issue-bound) {held['device_ms']:.4f}; host issue us per call "
+          f"{ {k: round(v, 2) for k, v in call_us.items()} }; kernel 1 on the "
+          f"same cut {k1_ms:.3f} ms ({EXPECTED['gather_cut']})", flush=True)
     total = {name: 0 for name in counters}
     for kw in (dict(sync="sc"), dict(sfo="on"), dict(dd="on")):
         res, launches = launch_counts(counters,
@@ -382,7 +535,8 @@ def run_routes(dev, counters):
               f"{int(res.diag.sync_start)}, clock_ppm "
               f"{float(res.diag.clock_ppm):.2f}, launches {launches}",
               flush=True)
-    return total, dict(held, kernel1_same_cut_ms=k1_ms)
+    return total, dict(held, kernel1_same_cut_ms=k1_ms, turns_ms=turns,
+                       issue_us=call_us)
 
 
 def run_longcp(dev, counters, rows):
@@ -394,15 +548,14 @@ def run_longcp(dev, counters, rows):
     6, 2 and 3 launched, 1 and 7 not — and its step timed. Adds kernel 6's
     row and kernel 2's U = 560 times to `rows`; returns (launch counts,
     step ms, the DFT's view and copy ms)."""
-    import bench
     from gf3x_torch import GF3_STANDARD, Modem
     from gf3x_torch.ops.kernels import fused_eq, gather_cut
     from gf3x_torch.ops.ofdm import ofdm_dft
 
     cfg = GF3_STANDARD.replace(**LONGCP)
     modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
-    rx_np, payload, delays = bench.build_batch(modem, B, MARGIN,
-                                               np.random.default_rng(0))
+    rx_np, payload, delays = build_batch(modem, B, MARGIN,
+                                         np.random.default_rng(0))
     rx = torch.as_tensor(rx_np, device=dev)
     del rx_np
     check(modem._fused_cut_refuses(rx.shape[-1]), "gf3-longcp: gf3x's fused "
@@ -425,7 +578,7 @@ def run_longcp(dev, counters, rows):
                 lambda: gather_cut.gather_cut_group_plain(rx, q, nb, blk),
                 2 * 4 * B * L + 4 * B,
                 lib=gather_call(rx, cut_index(q, blk, torch.arange(
-                    L, device=dev)))),
+                    L, device=dev))), kernel="gather_cut_group_kernel"),
         kernel1_same_cut_ms=median_ms(
             lambda: gather_cut.cut_symbols(rx, q, **kw)),
         kernel1_same_cut_device_ms=event_ms(
@@ -453,7 +606,9 @@ def run_longcp(dev, counters, rows):
     print(f"fused_eq_demap at U = {cfg.n_used} ({cfg.n_used // 8} pilots): "
           f"hard decisions equal, max |dLLR| {err:.3g} (mean |LLR| "
           f"{scale:.3g}); {u560['ms']:.3f} ms vs plain {u560['plain_ms']:.3f}"
-          " ms", flush=True)
+          f" ms; device {u560['device_ms']:.4f} ms, kernel "
+          f"{u560['kernel_us']:.1f} us, bound {u560['bound_ms']:.4f} ms "
+          f"({EXPECTED['fused_eq_demap U=560']})", flush=True)
     del Y, H, nv
     launches, _, diag, sync_err = run_path(modem, rx, payload, delays,
                                            counters, "gf3-longcp")
@@ -635,7 +790,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; there is no CPU "
                            "route")
-    import bench
     import gf3x_torch
     from gf3x_torch import GF3_FAST, GF3_STANDARD, GF3_TURBO, Modem
     from gf3x_torch.ops.kernels import (cut_dft, fused_eq, gather_cut,
@@ -661,8 +815,8 @@ def main() -> None:
 
     def batch(cfg):
         modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
-        rx_np, payload, delays = bench.build_batch(
-            modem, B, MARGIN, np.random.default_rng(0))
+        rx_np, payload, delays = build_batch(modem, B, MARGIN,
+                                             np.random.default_rng(0))
         return modem, torch.as_tensor(rx_np, device=dev), payload, delays
 
     # ---- config 5: the main path's inputs, bench.py's batch built by the port
@@ -687,7 +841,8 @@ def main() -> None:
         **timed(lambda: gather_cut.cut_symbols(rx, q, **kw),
                 lambda: gather_cut.cut_symbols_plain(rx, q, **kw),
                 2 * 4 * (syms_k.numel() + scw_k.numel()) + 4 * q.numel(),
-                lib=gather_call(rx, cut_index(q, blk, offs))))}
+                lib=gather_call(rx, cut_index(q, blk, offs)),
+                kernel="cut_symbols_kernel"))}
     print(f"cut_symbols: equal; {rows['cut_symbols']['ms']:.3f} ms vs plain "
           f"{rows['cut_symbols']['plain_ms']:.3f} ms", flush=True)
 
@@ -704,18 +859,32 @@ def main() -> None:
 
     # ---- kernel 2 vs plain on the path's spectra and channel estimate
     pv = modem.pilot_vals
-    (llr_k, *_), err, scale = hold_fused(cfg, Y, H, nv, pv, "QPSK")
-    rows["fused_eq_demap"] = dict(
+    out2, err, scale = hold_fused(cfg, Y, H, nv, pv, "QPSK")
+    llr_k = out2[0]
+    split_rel = hold_split(modem, Y, H, nv, out2, "config 5")
+    # and at the batches of one recording and of an odd few, which take
+    # other launch geometries (one symbol per warp)
+    for nb2 in (1, 7):
+        hold_fused(cfg, Y[:nb2].contiguous(), H[:nb2].contiguous(),
+                   nv[:nb2].contiguous(), pv, f"QPSK, B = {nb2}")
+    r2 = rows["fused_eq_demap"] = dict(
         name="fused_eq_demap", route="cuda",
         source="gf3x_torch/csrc/fused_eq.cu",
         replaces="gf3x/ops/pallas/fused_eq.py:295", max_abs_err=err,
+        geometry=str(fused_eq.fused_eq_geometry(
+            cfg, B,
+            torch.cuda.get_device_properties(0).multi_processor_count)),
+        split_pair_rel=split_rel,
         **tail_timed(cfg, lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv, pv),
                      lambda: fused_eq.fused_eq_demap_plain(cfg, Y, H, nv,
                                                            pv), Y))
     print(f"fused_eq_demap: hard decisions equal, max |dLLR| {err:.3g} "
-          f"(mean |LLR| {scale:.3g}); {rows['fused_eq_demap']['ms']:.3f} ms "
-          f"vs plain {rows['fused_eq_demap']['plain_ms']:.3f} ms",
-          flush=True)
+          f"(mean |LLR| {scale:.3g}), held at B = 1 and 7 too; llr, slope "
+          f"and cpe bit-identical to the split pair's (evm, mean|llr| within "
+          f"{split_rel:.2g} rel); {r2['geometry']}; {r2['ms']:.3f} ms vs "
+          f"plain {r2['plain_ms']:.3f} ms; device {r2['device_ms']:.4f} ms, "
+          f"kernel {r2['kernel_us']:.1f} us, bound {r2['bound_ms']:.4f} ms "
+          f"({EXPECTED['fused_eq_demap']})", flush=True)
 
     # ---- kernel 3 vs plain on the path's codeword LLRs
     lam = modem._codeword_llrs(llr_k).contiguous()
@@ -739,7 +908,7 @@ def main() -> None:
                 lambda: ldpc_bp.minsum_totals_plain(lam, code.z, code.rate,
                                                     cfg.ldpc_iters),
                 4 * (2 * lam.numel() + 2 * lam.shape[0]),
-                4.0 * edges * float(pas_k.sum())))
+                4.0 * edges * float(pas_k.sum()), kernel="minsum_kernel"))
     # at the batch's 20 dB every codeword is valid before the first sweep,
     # so hold the message updates too: the same codewords as BPSK LLRs at
     # σ = 0.8, which take several sweeps and leave some unsatisfied
@@ -755,6 +924,8 @@ def main() -> None:
     noisy_ms = median_ms(lambda: code.decode_totals(noisy, cfg.ldpc_iters))
     noisy_dev_ms = event_ms(lambda: code.decode_totals(noisy,
                                                        cfg.ldpc_iters))
+    noisy_us = kernel_us(lambda: code.decode_totals(noisy, cfg.ldpc_iters),
+                         ["minsum_kernel"])["us"]
     noisy_bound = bound(4 * (2 * noisy.numel() + 2 * noisy.shape[0]),
                         4.0 * edges * float(pas_k.sum()))
     noisy_plain_ms = median_ms(lambda: ldpc_bp.minsum_totals_plain(
@@ -764,11 +935,13 @@ def main() -> None:
           f"{rows['minsum_totals']['plain_ms']:.3f} ms (0 sweeps); noisy: "
           f"mean passes {float(pas_k.float().mean()):.2f}, max "
           f"{int(pas_k.max())}, unsat {int(uns_k.sum())}, {noisy_ms:.3f} ms "
-          f"(device {noisy_dev_ms:.3f}, bound {noisy_bound['bound_ms']:.4f} "
+          f"(device {noisy_dev_ms:.3f}, kernel {noisy_us:.1f} us, bound "
+          f"{noisy_bound['bound_ms']:.4f} "
           f"by {noisy_bound['bound_by']}) vs plain {noisy_plain_ms:.3f} ms",
           flush=True)
     rows["minsum_totals"].update(noisy_ms=noisy_ms,
                                  noisy_device_ms=noisy_dev_ms,
+                                 noisy_kernel_us=noisy_us,
                                  noisy_plain_ms=noisy_plain_ms,
                                  noisy_bound_ms=noisy_bound["bound_ms"])
 
@@ -823,9 +996,10 @@ def main() -> None:
                         / np.sum(np.abs(ref8) ** 2))
     check(db8 <= -80.0, f"cut_dft error {db8:.1f} dB > -80 dB")
     # bound: the symbol and SC windows in, the spectra and SC window out,
-    # and a real FFT (2.5·N·log2 N) plus the deroll (6 per bin) per symbol;
-    # the library yardstick is the chain rfft + slice + deroll on kernel
-    # 1's cut (PERF.md §6)
+    # and a real FFT (2.5·N·log2 N) plus the deroll (6 per bin) per symbol.
+    # No single PyTorch call computes the cut with the DFT, so there is no
+    # library yardstick; the chain rfft + slice + deroll on kernel 1's cut
+    # (without the cut) is timed beside it as `rfft_chain_ms`
     S8, U8 = kw["S"], cfg.n_used
     rows["cut_dft"] = dict(
         name="cut_dft", route="cuda", source="gf3x_torch/csrc/cut_dft.cu",
@@ -836,8 +1010,9 @@ def main() -> None:
                 4 * B * (S8 + 1) * n_fft + 8 * B * S8 * U8
                 + 4 * B * n_fft + 8 * B,
                 B * S8 * (2.5 * n_fft * np.log2(n_fft) + 6.0 * U8),
-                lib=lambda: deroll(cfg, torch.fft.rfft(syms_k, dim=-1)[
-                    ..., cfg.bin_lo: cfg.bin_hi + 1], roll)))
+                kernel="cut_dft_kernel"),
+        rfft_chain_ms=median_ms(lambda: deroll(cfg, torch.fft.rfft(
+            syms_k, dim=-1)[..., cfg.bin_lo: cfg.bin_hi + 1], roll)))
     print(f"cut_dft: max |dY| {err8:.3g} (mean |Y| {scale8:.3g}), SC window "
           f"equal to kernel 1's, {db8:.1f} dB vs float64 (gate -80 dB); "
           f"{rows['cut_dft']['ms']:.3f} ms vs plain "
@@ -908,15 +1083,16 @@ def main() -> None:
               f"{err:.3g} (mean |LLR| {scale:.3g})", flush=True)
         if cfg_u is not GF3_TURBO:
             continue
-        split = m_u._split_eq_demap(Y, H, nv)
-        err, scale = hold_tail(split, out_k, "split vs fused at 64-QAM")
+        rel = hold_split(m_u, Y, H, nv, out_k, "gf3-turbo")
         fused_ms = median_ms(lambda: m_u._fused_eq_demap(Y, H, nv))
         split_ms = median_ms(lambda: m_u._split_eq_demap(Y, H, nv))
-        turbo = dict(fused_ms=fused_ms, split_ms=split_ms, max_abs_err=err)
-        print(f"gf3-turbo tail: split pair vs kernel 2, hard decisions "
-              f"equal, max |dLLR| {err:.3g} (mean |LLR| {scale:.3g}); split "
-              f"{split_ms:.3f} ms vs fused {fused_ms:.3f} ms", flush=True)
-        del m_u, rx_u, Y, H, nv, out_k, split
+        turbo = dict(fused_ms=fused_ms, split_ms=split_ms, max_abs_err=0.0,
+                     evm_mabs_rel=rel)
+        print(f"gf3-turbo tail: kernel 2's llr, slope and cpe bit-identical "
+              f"to the split pair's (evm, mean|llr| within {rel:.2g} rel); "
+              f"split {split_ms:.3f} ms vs fused {fused_ms:.3f} ms",
+              flush=True)
+        del m_u, rx_u, Y, H, nv, out_k
 
     # ---- the bit-loaded path's inputs
     table = tuple(int(x) for x in np.random.default_rng(LOADING_SEED).choice(
@@ -949,7 +1125,7 @@ def main() -> None:
         **timed(lambda: split_eq.eq_track(cfg, Y, H, nv, pv),
                 lambda: split_eq.eq_track_plain(cfg, Y, H, nv, pv),
                 8 * B * D_ * U_ * 2 + 8 * B * U_ + 4 * B + 3 * 4 * B * D_,
-                12.0 * B * D_ * U_))
+                12.0 * B * D_ * U_, kernel="eq_track_kernel"))
     print(f"eq_track: slope/cpe within {max(d_slope, d_cpe):.3g} rad, eq "
           f"{d_eq:.3g} and nv_sym {d_nv:.3g} of mean magnitude; "
           f"{rows['eq_track']['ms']:.3f} ms vs plain "
@@ -980,7 +1156,7 @@ def main() -> None:
                 8 * B * D_ * cfg.n_data_bins + 8 * B * cfg.n_data_bins
                 + 4 * B * D_ + 4 * B * cfg.raw_bits_per_frame
                 + 2 * 4 * B * D_,
-                4.0 * B * cfg.raw_bits_per_frame))
+                4.0 * B * cfg.raw_bits_per_frame, kernel="demap_bins_kernel"))
     print(f"demap_bins: hard decisions equal, max |dLLR| {err:.3g} (mean "
           f"|LLR| {scale:.3g}); {rows['demap_bins']['ms']:.3f} ms vs plain "
           f"{rows['demap_bins']['plain_ms']:.3f} ms", flush=True)

@@ -3,18 +3,23 @@
 // apart: the split's equalized bins are the fused kernel's internal ones,
 // bit for bit, and both demap a bin with the same max-log code.
 //
-// gf3x_eq_track_symbol: one-tap EQ, CSI-weighted pilot phase tracking
-// (coarse slope, baseline ladder, intercept), derotation and the
-// per-symbol noise floor of one (frame, data symbol). It is held to the
-// XLA twin the JAX CPU path runs, not to the Pallas kernels:
-// Modem._eq_tail (gf3x/models/modem.py:639-671) and pilot_phase_correct
-// (gf3x/ops/chanest.py:166-211), so angles come from atan2f (the Pallas
-// kernels use a polynomial).
+// One symbol's tracking is held to the XLA twin the JAX CPU path runs, not
+// to the Pallas kernels: Modem._eq_tail (gf3x/models/modem.py:639-671) and
+// pilot_phase_correct (gf3x/ops/chanest.py:166-211), so angles come from
+// atan2f (the Pallas kernels use a polynomial). Its pieces:
 //
-// Layout: one block per (frame, data symbol), thread k = used bin k. The
-// pilot fits are short serial reductions over the P pilots (35 at GF3
-// geometry) that depend on each other, so warp 0 runs them on products
-// staged in shared memory while the block waits.
+// - the per-bin arithmetic (gf3x_eq_bin, gf3x_pilot_product,
+//   gf3x_derotate, gf3x_pilot_residual);
+// - gf3x_fit_pilots_warp: the CSI-weighted pilot phase fit (coarse slope,
+//   baseline ladder, intercept) by ONE warp, pilot p on lane p mod 32,
+//   synchronised by __syncwarp alone;
+// - gf3x_noise_floor_warp: the per-symbol noise floor, likewise.
+//
+// Kernel A runs them through gf3x_eq_track_symbol (one block per (frame,
+// data symbol), thread k = used bin k, warp 0 fitting while the block
+// waits); kernel 2 runs them with one warp per symbol (fused_eq.cu). Both
+// call the same code in the same order, so slope, cpe, nv_sym and every
+// derotated bin agree bit for bit.
 #pragma once
 
 #include "common.cuh"
@@ -41,7 +46,7 @@ struct TrackedBin {
     float slope, cpe;    // pilot phase fit a, b (same on every thread)
 };
 
-// Σ_p z[p+lag]·conj(z[p]) over p < n − lag, summed by warp 0 (all lanes
+// Σ_p z[p+lag]·conj(z[p]) over p < n − lag, summed by one warp (all lanes
 // get the result).
 __device__ __forceinline__ float2 gf3x_lag_products(const float* zr,
                                                     const float* zi, int n,
@@ -54,10 +59,83 @@ __device__ __forceinline__ float2 gf3x_lag_products(const float* zr,
     return make_float2(gf3x_warp_sum(cr), gf3x_warp_sum(ci));
 }
 
-// Every thread of the block must call this (it synchronises the block);
-// `sm` is gf3x_track_smem_floats(P) floats of shared scratch. The kernels
-// declare their argument struct __grid_constant__, so `a` refers to the
-// parameter bank itself and is not copied to a local stack frame.
+// One-tap EQ of a bin: X̂ = Y / Ĥ, with h2 = |Ĥ|².
+__device__ __forceinline__ float2 gf3x_eq_bin(float2 y, float2 h, float h2) {
+    return make_float2((y.x * h.x + y.y * h.y) / h2,
+                       (y.y * h.x - y.x * h.y) / h2);
+}
+
+// A pilot's CSI-weighted product z = X̂_p · conj(p) · |Ĥ_p|².
+__device__ __forceinline__ float2 gf3x_pilot_product(float2 x, float2 pv,
+                                                     float h2) {
+    return make_float2((x.x * pv.x + x.y * pv.y) * h2,
+                       (x.y * pv.x - x.x * pv.y) * h2);
+}
+
+// Bin k derotated by e^{−i(a·k + b)}.
+__device__ __forceinline__ float2 gf3x_derotate(float2 x, float slope, int k,
+                                                float cpe) {
+    float s, c;
+    sincosf(slope * static_cast<float>(k) + cpe, &s, &c);
+    return make_float2(x.x * c + x.y * s, x.y * c - x.x * s);
+}
+
+// A derotated pilot's noise term |Ĥ_p|²·|X̂_p − p|².
+__device__ __forceinline__ float gf3x_pilot_residual(float2 x, float2 pv,
+                                                     float h2) {
+    const float ur = x.x - pv.x, ui = x.y - pv.y;
+    return h2 * (ur * ur + ui * ui);
+}
+
+// The pilot phase fit of one symbol by one warp: zr/zi hold the P
+// CSI-weighted pilot products (visible to the whole warp), dr/di are P
+// floats each of scratch. Returns (slope, cpe) in every lane.
+__device__ __forceinline__ float2 gf3x_fit_pilots_warp(const TrackArgs& a,
+                                                       const float* zr,
+                                                       const float* zi,
+                                                       float* dr, float* di,
+                                                       int lane) {
+    float2 inc = gf3x_lag_products(zr, zi, a.P, 1, lane);
+    float slope = atan2f(inc.y, inc.x) / a.mean_dk;
+    for (int st = 0; st < a.n_ladder; ++st) {
+        for (int p = lane; p < a.P; p += 32) {
+            float s, c;
+            sincosf(slope * static_cast<float>(p * a.sp), &s, &c);
+            dr[p] = zr[p] * c + zi[p] * s;     // z·e^{−i·a·k}
+            di[p] = zi[p] * c - zr[p] * s;
+        }
+        __syncwarp();
+        const float2 corr = gf3x_lag_products(dr, di, a.P, a.ladder_q[st], lane);
+        slope = slope + atan2f(corr.y, corr.x) / a.ladder_base[st];
+        __syncwarp();
+    }
+    float wr = 0.0f, wi = 0.0f;
+    for (int p = lane; p < a.P; p += 32) {
+        float s, c;
+        sincosf(slope * static_cast<float>(p * a.sp), &s, &c);
+        wr += zr[p] * c + zi[p] * s;
+        wi += zi[p] * c - zr[p] * s;
+    }
+    wr = gf3x_warp_sum(wr);
+    wi = gf3x_warp_sum(wi);
+    return make_float2(slope, atan2f(wi, wr));
+}
+
+// The per-symbol noise floor σ̂² = max(nv, Σ_p r[p] / P) by one warp, from
+// the P pilot residuals r (visible to the whole warp); every lane gets it.
+__device__ __forceinline__ float gf3x_noise_floor_warp(const float* r, int P,
+                                                       float nv, int lane) {
+    float acc = 0.0f;
+    for (int p = lane; p < P; p += 32) acc += r[p];
+    acc = gf3x_warp_sum(acc);
+    return fmaxf(nv, acc / static_cast<float>(P));
+}
+
+// One (frame, data symbol) per block, thread k = used bin k. Every thread
+// of the block must call this (it synchronises the block); `sm` is
+// gf3x_track_smem_floats(P) floats of shared scratch. The kernels declare
+// their argument struct __grid_constant__, so `a` refers to the parameter
+// bank itself and is not copied to a local stack frame.
 __device__ __forceinline__ TrackedBin gf3x_eq_track_symbol(
         const TrackArgs& a, int b, int d, float* sm) {
     float* zr = sm;             // (P,) CSI-weighted pilot products
@@ -71,57 +149,30 @@ __device__ __forceinline__ TrackedBin gf3x_eq_track_symbol(
     const bool bin = k < a.U;
     const bool pilot = bin && (k % a.sp == 0);
 
-    // ---- one-tap EQ: X̂ = Y / Ĥ
-    float er = 0.0f, ei = 0.0f, h2 = 0.0f;
+    float2 x = make_float2(0.0f, 0.0f);
+    float h2 = 0.0f;
     if (bin) {
-        const float2 y = a.y[(static_cast<long long>(b) * a.S + a.K + d) * a.U + k];
         const float2 h = a.h[static_cast<long long>(b) * a.U + k];
         h2 = h.x * h.x + h.y * h.y;
-        er = (y.x * h.x + y.y * h.y) / h2;
-        ei = (y.y * h.x - y.x * h.y) / h2;
+        x = gf3x_eq_bin(a.y[(static_cast<long long>(b) * a.S + a.K + d) * a.U + k],
+                        h, h2);
     }
     if (pilot) {
-        // z = X̂_p · conj(p) · |Ĥ_p|²
         const int p = k / a.sp;
-        const float2 pv = a.pv[p];
-        zr[p] = (er * pv.x + ei * pv.y) * h2;
-        zi[p] = (ei * pv.x - er * pv.y) * h2;
+        const float2 z = gf3x_pilot_product(x, a.pv[p], h2);
+        zr[p] = z.x;
+        zi[p] = z.y;
     }
     __syncthreads();
-
-    // ---- slope (coarse + baseline ladder) and intercept, by warp 0
     if (warp == 0) {
-        float2 inc = gf3x_lag_products(zr, zi, a.P, 1, lane);
-        float slope = atan2f(inc.y, inc.x) / a.mean_dk;
-        for (int st = 0; st < a.n_ladder; ++st) {
-            for (int p = lane; p < a.P; p += 32) {
-                float s, c;
-                sincosf(slope * static_cast<float>(p * a.sp), &s, &c);
-                dr[p] = zr[p] * c + zi[p] * s;     // z·e^{−i·a·k}
-                di[p] = zi[p] * c - zr[p] * s;
-            }
-            __syncwarp();
-            const float2 corr = gf3x_lag_products(dr, di, a.P, a.ladder_q[st], lane);
-            slope = slope + atan2f(corr.y, corr.x) / a.ladder_base[st];
-            __syncwarp();
-        }
-        float wr = 0.0f, wi = 0.0f;
-        for (int p = lane; p < a.P; p += 32) {
-            float s, c;
-            sincosf(slope * static_cast<float>(p * a.sp), &s, &c);
-            wr += zr[p] * c + zi[p] * s;
-            wi += zi[p] * c - zr[p] * s;
-        }
-        wr = gf3x_warp_sum(wr);
-        wi = gf3x_warp_sum(wi);
+        const float2 fit = gf3x_fit_pilots_warp(a, zr, zi, dr, di, lane);
         if (lane == 0) {
-            s_abn[0] = slope;
-            s_abn[1] = atan2f(wi, wr);
+            s_abn[0] = fit.x;
+            s_abn[1] = fit.y;
         }
     }
     __syncthreads();
 
-    // ---- derotate every used bin by e^{−i(a·k + b)}
     TrackedBin t;
     t.slope = s_abn[0];
     t.cpe = s_abn[1];
@@ -129,24 +180,18 @@ __device__ __forceinline__ TrackedBin gf3x_eq_track_symbol(
     t.xr = 0.0f;
     t.xi = 0.0f;
     if (bin) {
-        float s, c;
-        sincosf(t.slope * static_cast<float>(k) + t.cpe, &s, &c);
-        t.xr = er * c + ei * s;
-        t.xi = ei * c - er * s;
+        const float2 r = gf3x_derotate(x, t.slope, k, t.cpe);
+        t.xr = r.x;
+        t.xi = r.y;
     }
-    // ---- per-symbol noise floor σ̂² = Σ_p |Ĥ_p|²·|X̂_p − p|² / P
     if (pilot) {
         const int p = k / a.sp;
-        const float2 pv = a.pv[p];
-        const float ur = t.xr - pv.x, ui = t.xi - pv.y;
-        zr[p] = h2 * (ur * ur + ui * ui);
+        zr[p] = gf3x_pilot_residual(make_float2(t.xr, t.xi), a.pv[p], h2);
     }
     __syncthreads();
     if (warp == 0) {
-        float acc = 0.0f;
-        for (int p = lane; p < a.P; p += 32) acc += zr[p];
-        acc = gf3x_warp_sum(acc);
-        if (lane == 0) s_abn[2] = fmaxf(a.nv[b], acc / static_cast<float>(a.P));
+        const float nv_sym = gf3x_noise_floor_warp(zr, a.P, a.nv[b], lane);
+        if (lane == 0) s_abn[2] = nv_sym;
     }
     __syncthreads();
     t.nv_sym = s_abn[2];

@@ -1,5 +1,5 @@
 // Fused one-tap EQ + CSI-weighted pilot phase tracking + per-symbol noise
-// floor + max-log demap, QPSK to 64-QAM.
+// floor + max-log demap, QPSK to 64-QAM, one warp per (frame, data symbol).
 //
 // Replaces gf3x/ops/pallas/fused_eq.py:fused_eq_demap_tpu. It is held to
 // the XLA twin the JAX CPU path runs, not to the Pallas kernel:
@@ -7,19 +7,37 @@
 // (gf3x/ops/chanest.py:166-211) and Modem._xla_demap (modem.py:911-930).
 // So angles come from atan2f (the Pallas kernel uses a polynomial), and the
 // effective noise is nv_sym / max(|H|², 1e-12) (the twin's form). The EQ,
-// tracking and demap code is shared with the split tail (eq_demap.cuh).
+// tracking and noise-floor code is the split tail's (eq_demap.cuh), so the
+// LLRs, slope and cpe equal kernels A + B's bit for bit on a uniform config.
 //
 // Output is the twin's layout: scrambled, interleaved data-bin LLRs
 // (B, D·R) in qam_demap_llr bit order (per data bin: m I-axis bits, then m
-// Q-axis bits), slope and cpe (B, D), and per-(frame, symbol) partial sums
-// of the EVM distances and of |llr| that the wrapper reduces over D.
+// Q-axis bits), slope and cpe (B, D), and per frame the mean EVM distance
+// over the data bins and the mean |llr|.
 //
-// What bounds it on the card: bytes. Per data symbol it reads U complex
-// bins (plus Ĥ, shared by the frame's D blocks through L2) and writes R
-// LLRs; the arithmetic is a few dozen flops per bin. Design: one block per
-// (frame, data symbol) with one thread per used bin, so loads of the
-// interleaved (re, im) bins coalesce; the pilot fits are done by warp 0
-// (eq_demap.cuh), so the block synchronises three times per symbol.
+// What bounds it on the card: bytes. It reads the data symbols' bins, Ĥ and
+// the noise floor and writes the LLRs and the diagnostics: 88.5 MB at
+// config 5 (B = 1024, U = 280, QPSK), 176.8 MB at U = 560 — 0.026 and
+// 0.053 ms at 3.35 TB/s. The arithmetic is a few dozen flops per bin. What
+// kept the first design (one block per symbol, a thread per bin) at 11-13 %
+// of that rate was latency: the pilot fit is a serial chain of warp
+// reductions, atan2f and sincosf that one warp ran while the block's other
+// warps waited at barriers, and at most 3-7 such blocks fit on an SM.
+//
+// Design: a block takes one frame. It stages Ĥ, |Ĥ|² and 1/max(|Ĥ|², 1e-12)
+// in shared memory once (one block barrier); its W warps then walk the
+// frame's D data symbols, warp w taking symbols w, w + W, ... Each warp
+// runs its symbol's whole chain (EQ, fit, noise floor, demap) synchronised
+// by __syncwarp alone, and copies its next symbol's bins into its second
+// shared-memory buffer with cp.async while it works on the current one. So
+// every SM holds many independent chains instead of one per block. W and
+// the shared-memory size come from the wrapper (fused_eq_geometry), which
+// fits the batch's frames onto the SMs. A lane stores a data bin's 2m LLRs
+// as vectors: one float2 (QPSK), one float4 (16-QAM), a float4 and a float2
+// (64-QAM). The block reduces its symbols' EVM and |llr| sums in a fixed
+// order and writes the frame's means itself.
+#include <cstdint>
+
 #include "eq_demap.cuh"
 
 namespace {
@@ -31,53 +49,203 @@ struct FusedArgs {
     float* llr;          // (B, D·R)
     float* slope;        // (B, D)
     float* cpe;          // (B, D)
-    float* evm_part;     // (B, D) Σ over data bins of the min distances
-    float* abs_part;     // (B, D) Σ |llr|
-    int m, R;
+    float* evm;          // (B,) mean min distance over the data bins
+    float* mabs;         // (B,) mean |llr|
+    int R;               // LLRs per data symbol
+    int warps;           // W: warp w takes data symbols w, w + W, ...
+    int nbuf;            // symbol buffers per warp: 2 when W < D, else 1
+    float evm_div;       // D · n_data_bins
+    float abs_div;       // D · R
     float lv[kMaxLevels];   // PAM level of each Gray label
 };
 
-__global__ void fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
-    extern __shared__ float sm[];
-    __shared__ float s_lv[kMaxLevels];
-    __shared__ float s_red[64];
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(s), "l"(src) : "memory");
+}
 
-    const int D = a.t.D;
-    const int b = blockIdx.x / D;
-    const int d = blockIdx.x % D;
-    const int k = threadIdx.x;
-    if (k < kMaxLevels) s_lv[k] = a.lv[k];
-    const TrackedBin t = gf3x_eq_track_symbol(a.t, b, d, sm);
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-    // ---- max-log demap of the data bins
+// Waits for all but the newest group: the current symbol's copy.
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Lane `lane`'s share (bins lane, lane + 32, ...) of data symbol d's bins
+// into buf, as one cp.async group; an empty group when d ≥ D.
+__device__ __forceinline__ void fetch_symbol(const TrackArgs& a, int b, int d,
+                                             float2* buf, int lane) {
+    if (d < a.D) {
+        const float2* src =
+            a.y + (static_cast<long long>(b) * a.S + a.K + d) * a.U;
+        for (int k = lane; k < a.U; k += 32) cp_async8(buf + k, src + k);
+    }
+    cp_async_commit();
+}
+
+// A data bin's 2m LLRs as vector stores (`out` is 8-byte aligned; 16 when
+// m = 2).
+template <int m>
+__device__ __forceinline__ void store_llrs(float* out, const float* l) {
+    if constexpr (m == 1) {
+        *reinterpret_cast<float2*>(out) = make_float2(l[0], l[1]);
+    } else if constexpr (m == 2) {
+        *reinterpret_cast<float4*>(out) = make_float4(l[0], l[1], l[2], l[3]);
+    } else if ((reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+        *reinterpret_cast<float4*>(out) = make_float4(l[0], l[1], l[2], l[3]);
+        *reinterpret_cast<float2*>(out + 4) = make_float2(l[4], l[5]);
+    } else {
+        *reinterpret_cast<float2*>(out) = make_float2(l[0], l[1]);
+        *reinterpret_cast<float4*>(out + 2) = make_float4(l[2], l[3], l[4], l[5]);
+    }
+}
+
+// Dynamic shared memory, in floats (the wrapper's fused_eq_geometry
+// computes the same): Ĥ (2U) | W·nbuf symbol buffers (2U each) | |Ĥ|² (U) |
+// 1/max(|Ĥ|², 1e-12) (U) | W pilot scratches (4P each) | the W warps' two
+// sums.
+template <int m>
+__global__ void __launch_bounds__(1024)
+fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
+    extern __shared__ __align__(16) float sm[];
+    const TrackArgs& t = a.t;
+    const int U = t.U, P = t.P, D = t.D, sp = t.sp, W = a.warps;
+    const int b = blockIdx.x;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    float2* hs = reinterpret_cast<float2*>(sm);
+    float2* buf = hs + U + static_cast<size_t>(w) * a.nbuf * U;
+    float* h2s = sm + 2 * U + 2 * U * W * a.nbuf;
+    float* inv_csi = h2s + U;
+    float* zr = inv_csi + U + 4 * P * w;
+    float* zi = zr + P;
+    float* dr = zi + P;
+    float* di = dr + P;
+    float* red = inv_csi + U + 4 * P * W;
+
+    // the warp's first symbol is in flight while the block stages Ĥ
+    fetch_symbol(t, b, w, buf, lane);
+    for (int k = threadIdx.x; k < U; k += blockDim.x) {
+        const float2 h = t.h[static_cast<long long>(b) * U + k];
+        const float h2 = h.x * h.x + h.y * h.y;
+        hs[k] = h;
+        h2s[k] = h2;
+        inv_csi[k] = 1.0f / fmaxf(h2, 1e-12f);
+    }
+    __syncthreads();
+
+    float lv[kMaxLevels];
+#pragma unroll
+    for (int i = 0; i < kMaxLevels; ++i) lv[i] = a.lv[i];
+    const float nv = t.nv[b];
+    // data bin j is used bin j + g + 1 with g = j / (sp − 1) (strided
+    // pilots at k ≡ 0 mod sp): lane's first g and remainder, and their
+    // steps for j += 32
+    const int nd = U - P, spm1 = sp - 1;
+    const int g0 = nd > 0 ? lane / spm1 : 0, r0 = nd > 0 ? lane % spm1 : 0;
+    const int step_g = nd > 0 ? 32 / spm1 : 0;
+    const int step_r = nd > 0 ? 32 % spm1 : 0;
     float md_sum = 0.0f, abs_sum = 0.0f;
-    if (k < a.t.U && k % a.t.sp != 0) {
-        const int j = k - k / a.t.sp - 1;               // data-bin index
-        const float nv_eff = t.nv_sym * (1.0f / fmaxf(t.h2, 1e-12f));
-        const float nvc = fmaxf(nv_eff, 1e-12f);
-        float* out = a.llr + (static_cast<long long>(b) * D + d) * a.R +
-                     static_cast<long long>(j) * 2 * a.m;
-        gf3x_demap_bin(a.m, t.xr, t.xi, s_lv, nvc, out, md_sum, abs_sum);
-    }
-    // ---- block sums of the EVM distances and |llr|
-    gf3x_block_sum2(md_sum, abs_sum, s_red);
-    if (k == 0) {
+    for (int d = w, i = 0; d < D; d += W, ++i) {
+        float2* cur = buf + (i & (a.nbuf - 1)) * U;
+        fetch_symbol(t, b, d + W, buf + ((i + 1) & (a.nbuf - 1)) * U, lane);
+        cp_async_wait_all_but_newest();
+        __syncwarp();
+
+        // one-tap EQ in place, then the pilots' CSI-weighted products
+        for (int k = lane; k < U; k += 32) {
+            cur[k] = gf3x_eq_bin(cur[k], hs[k], h2s[k]);
+        }
+        __syncwarp();
+        for (int p = lane; p < P; p += 32) {
+            const int k = p * sp;
+            const float2 z = gf3x_pilot_product(cur[k], t.pv[p], h2s[k]);
+            zr[p] = z.x;
+            zi[p] = z.y;
+        }
+        __syncwarp();
+        const float2 fit = gf3x_fit_pilots_warp(t, zr, zi, dr, di, lane);
+        __syncwarp();
+
+        // noise floor from the derotated pilots
+        for (int p = lane; p < P; p += 32) {
+            const int k = p * sp;
+            zr[p] = gf3x_pilot_residual(gf3x_derotate(cur[k], fit.x, k, fit.y),
+                                        t.pv[p], h2s[k]);
+        }
+        __syncwarp();
+        const float nv_sym = gf3x_noise_floor_warp(zr, P, nv, lane);
+
+        // derotate and demap the data bins
         const long long o = static_cast<long long>(b) * D + d;
-        a.slope[o] = t.slope;
-        a.cpe[o] = t.cpe;
-        a.evm_part[o] = md_sum;
-        a.abs_part[o] = abs_sum;
+        float* row = a.llr + o * a.R;
+        for (int j = lane, g = g0, r = r0; j < nd; j += 32) {
+            const int k = j + g + 1;
+            g += step_g;
+            r += step_r;
+            if (r >= spm1) {
+                r -= spm1;
+                ++g;
+            }
+            const float2 x = gf3x_derotate(cur[k], fit.x, k, fit.y);
+            const float nv_eff = nv_sym * inv_csi[k];
+            const float nvc = fmaxf(nv_eff, 1e-12f);
+            float l[2 * m];
+            gf3x_demap_axis<m>(x.x, lv, nvc, l, md_sum, abs_sum);
+            gf3x_demap_axis<m>(x.y, lv, nvc, l + m, md_sum, abs_sum);
+            store_llrs<m>(row + 2 * m * j, l);
+        }
+        if (lane == 0) {
+            a.slope[o] = fit.x;
+            a.cpe[o] = fit.y;
+        }
+        __syncwarp();   // cur and the scratch are rewritten next
     }
+
+    // the frame's sums: warps in order
+    md_sum = gf3x_warp_sum(md_sum);
+    abs_sum = gf3x_warp_sum(abs_sum);
+    if (lane == 0) {
+        red[w] = md_sum;
+        red[W + w] = abs_sum;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        float e = 0.0f, s = 0.0f;
+        for (int v = 0; v < W; ++v) {
+            e += red[v];
+            s += red[W + v];
+        }
+        a.evm[b] = e / a.evm_div;
+        a.mabs[b] = s / a.abs_div;
+    }
+}
+
+template <int m>
+cudaError_t launch_fused(const FusedArgs& a, long long B, int smem,
+                         cudaStream_t stream) {
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            fused_eq_demap_kernel<m>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+    }
+    fused_eq_demap_kernel<m><<<static_cast<unsigned>(B), 32 * a.warps, smem,
+                               stream>>>(a);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
 GF3X_EXPORT int gf3x_fused_eq_demap(
         const float* y, const float* h, const float* nv, const float* pv,
-        float* llr, float* slope, float* cpe, float* evm_part,
-        float* abs_part, long long B, int S, int K, int U, int P, int sp,
-        int m, const float* levels, int n_ladder, int q0, float base0,
-        int q1, float base1, float mean_dk, void* stream) {
+        float* llr, float* slope, float* cpe, float* evm, float* mabs,
+        long long B, int S, int K, int U, int P, int sp, int m,
+        const float* levels, int n_ladder, int q0, float base0, int q1,
+        float base1, float mean_dk, int warps, int nbuf, int smem,
+        float evm_div, float abs_div, void* stream) {
     FusedArgs a;
     a.t.y = reinterpret_cast<const float2*>(y);
     a.t.h = reinterpret_cast<const float2*>(h);
@@ -98,17 +266,20 @@ GF3X_EXPORT int gf3x_fused_eq_demap(
     a.llr = llr;
     a.slope = slope;
     a.cpe = cpe;
-    a.evm_part = evm_part;
-    a.abs_part = abs_part;
-    a.m = m;
+    a.evm = evm;
+    a.mabs = mabs;
     a.R = (U - P) * 2 * m;
+    a.warps = warps;
+    a.nbuf = nbuf;
+    a.evm_div = evm_div;
+    a.abs_div = abs_div;
     for (int i = 0; i < kMaxLevels; ++i) a.lv[i] = i < (1 << m) ? levels[i] : 0.0f;
-    const long long nblocks = B * a.t.D;
-    const int threads = ((U + 31) / 32) * 32;
-    const size_t smem = gf3x_track_smem_floats(P) * sizeof(float);
-    if (nblocks > 0) {
-        fused_eq_demap_kernel<<<static_cast<unsigned>(nblocks), threads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(a);
+    if (B <= 0) return static_cast<int>(cudaGetLastError());
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (m) {
+    case 1: return static_cast<int>(launch_fused<1>(a, B, smem, s));
+    case 2: return static_cast<int>(launch_fused<2>(a, B, smem, s));
+    case 3: return static_cast<int>(launch_fused<3>(a, B, smem, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
     }
-    return static_cast<int>(cudaGetLastError());
 }

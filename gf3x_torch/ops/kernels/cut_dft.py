@@ -10,14 +10,13 @@ float32 SC window, or None when sc_off < 0)."""
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from ...config import ModemConfig
-from ...utils.device import launch, ptr, stream_of
+from ...utils.device import launch
 from ..ofdm import deroll, ofdm_dft
 from .gather_cut import cut_symbols_plain
 
@@ -43,10 +42,6 @@ def twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
     th = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
     tw = np.stack([np.cos(th), np.sin(th)]).astype(np.float32)
     return torch.as_tensor(tw, device=device)
-
-
-_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 9
-         + [ctypes.c_float, ctypes.c_void_p])
 
 
 def cut_dft(cfg: ModemConfig, rx: torch.Tensor, q: torch.Tensor,
@@ -79,12 +74,11 @@ def cut_dft(cfg: ModemConfig, rx: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"cut_dft: valid={valid} outside [0, {T}]")
     Y = torch.empty(B, S, cfg.n_used, dtype=torch.complex64, device=dev)
     scw = torch.empty(B, N if sc_off >= 0 else 0, device=dev)
-    with torch.cuda.device(dev):
-        launch("gf3x_cut_dft", _ARGS, ptr(rx), ptr(q), ptr(roll),
-               ptr(twiddles(N, dev)), ptr(Y), ptr(scw), B, T, valid, block,
-               S, N, body_off, cfg.symbol_len, cfg.cp, sc_off, cfg.bin_lo,
-               cfg.n_used, float(np.float32(1.0 / cfg.ofdm_scale)),
-               stream_of(rx))
+    launch("gf3x_cut_dft", dev.index, rx.data_ptr(), q.data_ptr(),
+           roll.data_ptr(), twiddles(N, dev).data_ptr(), Y.data_ptr(),
+           scw.data_ptr(), B, T, valid, block, S, N, body_off, cfg.symbol_len,
+           cfg.cp, sc_off, cfg.bin_lo, cfg.n_used,
+           float(np.float32(1.0 / cfg.ofdm_scale)))
     cut_dft.launches += 1
     return Y, (scw if sc_off >= 0 else None)
 

@@ -13,22 +13,36 @@ launches. Both return
     slope (B, D), cpe (B, D) f32 — pilot phase fit per data symbol,
     evm   (B,) f32 — mean |X̂ − hard decision|² over the data bins,
     mabs  (B,) f32 — mean |llr|.
+
+The kernel takes one frame per block and one data symbol per warp at a
+time; `fused_eq_geometry` chooses the warps per block and the shared
+memory for a batch, and the CPU tests reach it.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ...config import ModemConfig, layout
-from ...utils.device import launch, ptr, stream_of
+from ...utils.device import launch
 from ..constellation import pam_label_levels, qam_norm
 from .split_eq import (check_track_inputs, demap_bins_plain, eq_track_plain,
                        track_constants)
 
-__all__ = ["fused_eq_demap", "fused_eq_demap_plain"]
+__all__ = ["fused_eq_demap", "fused_eq_demap_plain", "fused_eq_geometry",
+           "FusedGeometry", "launch_constants"]
+
+SMEM_BLOCK = 232_448     # dynamic shared memory one block may use (227 KB)
+SMEM_SM = 233_472        # shared memory of one SM (228 KB)
+SMEM_RESERVED = 1_024    # per resident block
+WARPS_SM = 32            # resident warps per SM at ≤ 64 registers a thread
+                         # (the kernel's __launch_bounds__(1024))
+BLOCKS_SM = 32
+H100_SMS = 132
 
 
 def fused_eq_demap_plain(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
@@ -42,9 +56,85 @@ def fused_eq_demap_plain(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
     return llr, slope, cpe, evm, mabs
 
 
-_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 6
-         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+@dataclass(frozen=True)
+class FusedGeometry:
+    """Kernel 2's launch: one block per frame with `warps` warps; warp w
+    takes data symbols w, w + warps, ... (`passes` of them at most), each
+    through `nbuf` shared-memory symbol buffers (2: the next symbol's copy
+    overlaps the current one's work); `smem` bytes of dynamic shared
+    memory per block."""
+
+    warps: int
+    passes: int
+    nbuf: int
+    smem: int
+
+    def symbols(self, warp: int, D: int) -> range:
+        """The data symbols warp `warp` of a block takes."""
+        return range(warp, D, self.warps)
+
+
+def _smem_bytes(U: int, P: int, warps: int, nbuf: int) -> int:
+    """fused_eq.cu's layout: Ĥ (2U floats), the warps' symbol buffers (2U
+    each), |Ĥ|² and its clamped inverse (U each), the warps' pilot scratch
+    (4P each) and sums (2)."""
+    return 4 * (4 * U + warps * (2 * U * nbuf + 4 * P + 2))
+
+
+@functools.lru_cache(maxsize=None)
+def fused_eq_geometry(cfg: ModemConfig, B: int,
+                      sms: int = H100_SMS) -> FusedGeometry:
+    """Warps per block for a batch of B frames on `sms` SMs: of the warp
+    counts whose shared memory fits a block, the one with the fewest
+    symbols in a row per warp slot (waves of resident blocks × symbols per
+    warp), then the most resident warps, then the fewest warps. Raises if
+    no count fits."""
+    D, U, P = cfg.n_data_symbols, cfg.n_used, cfg.n_pilots
+    best, best_key = None, None
+    for warps in range(1, min(D, 32) + 1):
+        passes = -(-D // warps)
+        if -(-D // passes) != warps:    # the same passes with fewer warps
+            continue
+        nbuf = 2 if passes > 1 else 1
+        smem = _smem_bytes(U, P, warps, nbuf)
+        if smem > SMEM_BLOCK:
+            continue
+        resident = min(WARPS_SM // warps, BLOCKS_SM,
+                       SMEM_SM // (smem + SMEM_RESERVED))
+        waves = -(-max(B, 1) // (resident * sms))
+        key = (waves * passes, -resident * warps, warps)
+        if best_key is None or key < best_key:
+            best, best_key = FusedGeometry(warps, passes, nbuf, smem), key
+    if best is None:
+        raise ValueError(f"fused_eq_demap: no warp count fits U={U}, P={P} "
+                         f"in {SMEM_BLOCK} bytes of shared memory")
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def launch_constants(cfg: ModemConfig):
+    """The kernel's per-config constants, computed once per config:
+    (track_constants(cfg), the PAM levels — the values qam_demap_llr uses —
+    as a float32 host array and its address, D·n_data_bins and the raw bits
+    per frame as float32, the divisors of evm and mabs)."""
+    m = cfg.bits_per_symbol // 2
+    levels = (pam_label_levels(m) * qam_norm(cfg.bits_per_symbol)).astype(
+        np.float32)
+    return (track_constants(cfg), levels, levels.ctypes.data,
+            float(np.float32(cfg.n_data_symbols * cfg.n_data_bins)),
+            float(np.float32(cfg.raw_bits_per_frame)))
+
+
+@functools.lru_cache(maxsize=None)
+def _pilot_floats(cfg: ModemConfig, device: torch.device) -> torch.Tensor:
+    """The config's pilot values as (P, 2) float32 on `device`."""
+    return torch.view_as_real(torch.as_tensor(layout(cfg).pilot_vals,
+                                              device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def fused_eq_demap(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
@@ -61,27 +151,27 @@ def fused_eq_demap(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
     check_track_inputs("fused_eq_demap", cfg, Y, H, noise_var)
     dev = Y.device
     B, S, U = Y.shape
-    K, D = cfg.n_known_symbols, cfg.n_data_symbols
-    if pilot_vals is None:
-        pilot_vals = torch.as_tensor(layout(cfg).pilot_vals, device=dev)
-    y = torch.view_as_real(Y.contiguous())
-    h = torch.view_as_real(H.contiguous())
+    D = cfg.n_data_symbols
+    pv = (_pilot_floats(cfg, dev) if pilot_vals is None else
+          torch.view_as_real(pilot_vals.to(dev, torch.complex64)
+                             .contiguous()))
+    (mean_dk, n_ladder, q0, b0, q1, b1), _, levels, evm_div, abs_div = \
+        launch_constants(cfg)
+    geo = fused_eq_geometry(cfg, B, _sm_count(dev.index))
+    # the inputs stay bound until the launch: a temporary's memory could be
+    # handed to the next allocation before the kernel reads it
+    y, h = Y.contiguous(), H.contiguous()
     nv = noise_var.to(torch.float32).contiguous()
-    pv = torch.view_as_real(pilot_vals.to(dev, torch.complex64).contiguous())
     llr = torch.empty(B, cfg.raw_bits_per_frame, device=dev)
-    slope, cpe, evm_p, abs_p = torch.empty(4, B, D, device=dev)
-    m = cfg.bits_per_symbol // 2
-    levels = (ctypes.c_float * 8)(
-        *(pam_label_levels(m) * qam_norm(cfg.bits_per_symbol)).tolist())
-    mean_dk, n_ladder, q0, b0, q1, b1 = track_constants(cfg)
-    with torch.cuda.device(dev):
-        launch("gf3x_fused_eq_demap", _ARGS, ptr(y), ptr(h), ptr(nv), ptr(pv),
-               ptr(llr), ptr(slope), ptr(cpe), ptr(evm_p), ptr(abs_p), B, S,
-               K, U, cfg.n_pilots, cfg.pilot_spacing, m, levels, n_ladder,
-               q0, b0, q1, b1, mean_dk, stream_of(Y))
+    slope, cpe = torch.empty(2, B, D, device=dev)
+    evm, mabs = torch.empty(2, B, device=dev)
+    launch("gf3x_fused_eq_demap", dev.index, y.data_ptr(), h.data_ptr(),
+           nv.data_ptr(), pv.data_ptr(), llr.data_ptr(), slope.data_ptr(),
+           cpe.data_ptr(), evm.data_ptr(), mabs.data_ptr(), B, S,
+           cfg.n_known_symbols, U, cfg.n_pilots, cfg.pilot_spacing,
+           cfg.bits_per_symbol // 2, levels, n_ladder, q0, b0, q1, b1, mean_dk,
+           geo.warps, geo.nbuf, geo.smem, evm_div, abs_div)
     fused_eq_demap.launches += 1
-    evm = evm_p.sum(dim=1) / np.float32(D * cfg.n_data_bins)
-    mabs = abs_p.sum(dim=1) / np.float32(cfg.raw_bits_per_frame)
     return llr, slope, cpe, evm, mabs
 
 

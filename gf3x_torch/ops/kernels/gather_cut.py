@@ -21,11 +21,9 @@ launches."""
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ...utils.device import launch, ptr, stream_of
+from ...utils.device import launch
 
 __all__ = ["gather_cut", "gather_cut_plain", "gather_cut_group",
            "gather_cut_group_plain", "window_blocks", "group_blocks",
@@ -42,31 +40,33 @@ def gather_cut_plain(rx: torch.Tensor, q: torch.Tensor, nb: int, block: int,
     return torch.where(cols < valid, got, torch.zeros((), device=rx.device))
 
 
-_GATHER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 \
-    + [ctypes.c_int, ctypes.c_void_p]
+_F32, _I32 = torch.float32, torch.int32
 
 
 def gather_cut(rx: torch.Tensor, q: torch.Tensor, nb: int, block: int,
                valid: int) -> torch.Tensor:
-    """`gather_cut_plain` for a CPU tensor; the CUDA kernel otherwise."""
-    if rx.device.type == "cpu":
+    """`gather_cut_plain` for a CPU tensor; the CUDA kernel otherwise.
+
+    On one recording the kernel runs about 2 µs, so this call path is kept
+    to the checks that guard the kernel, each tensor attribute read once:
+    the decode of one recording pays it on every cut."""
+    if not rx.is_cuda and rx.device.type == "cpu":
         return gather_cut_plain(rx, q, nb, block, valid)
-    if rx.device.type != "cuda" or q.device != rx.device:
-        raise ValueError(f"gather_cut: rx on {rx.device}, q on {q.device}; "
-                         "both must be on one CUDA device")
-    if (rx.dtype != torch.float32 or q.dtype != torch.int32 or rx.dim() != 2
-            or q.shape != rx.shape[:1] or not rx.is_contiguous()
-            or not q.is_contiguous()):
-        raise ValueError("gather_cut: needs contiguous rx (B, T) float32 "
-                         "and q (B,) int32")
-    B, T = rx.shape
-    if not 0 <= valid <= T:
-        raise ValueError(f"gather_cut: valid={valid} outside [0, {T}]")
+    shape, dev = rx.shape, rx.get_device()
+    if (not rx.is_cuda or len(shape) != 2 or q.shape != shape[:1]
+            or q.get_device() != dev or rx.dtype is not _F32
+            or q.dtype is not _I32 or not rx.is_contiguous()
+            or not q.is_contiguous() or not 0 <= valid <= shape[1]):
+        raise ValueError(f"gather_cut: needs contiguous rx (B, T) float32 "
+                         f"and q (B,) int32 on one CUDA device and 0 <= valid "
+                         f"<= T; got rx {tuple(shape)} {rx.dtype} on "
+                         f"{rx.device}, q {tuple(q.shape)} {q.dtype} on "
+                         f"{q.device}, valid={valid}")
+    B, T = shape
     L = nb * block
-    win = torch.empty(B, L, device=rx.device)
-    with torch.cuda.device(rx.device):
-        launch("gf3x_gather_cut", _GATHER_ARGS, ptr(rx), ptr(q), ptr(win), B,
-               T, valid, L, block, stream_of(rx))
+    win = rx.new_empty(B, L)
+    launch("gf3x_gather_cut", dev, rx.data_ptr(), q.data_ptr(),
+           win.data_ptr(), B, T, valid, L, block)
     gather_cut.launches += 1
     return win
 
@@ -103,9 +103,8 @@ def gather_cut_group(rx: torch.Tensor, q: torch.Tensor, nb: int,
     B, T = rx.shape
     L = nb * block
     win = torch.empty(B, L, device=rx.device)
-    with torch.cuda.device(rx.device):
-        launch("gf3x_gather_cut_group", _GATHER_ARGS, ptr(rx), ptr(q),
-               ptr(win), B, T, (T // block) * block, L, block, stream_of(rx))
+    launch("gf3x_gather_cut_group", rx.device.index, rx.data_ptr(),
+           q.data_ptr(), win.data_ptr(), B, T, (T // block) * block, L, block)
     gather_cut_group.launches += 1
     return win
 
@@ -153,10 +152,6 @@ def cut_symbols_plain(rx: torch.Tensor, q: torch.Tensor, *, valid: int,
                           cp=cp, sc_off=sc_off)
 
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 7 \
-    + [ctypes.c_void_p]
-
-
 def cut_symbols(rx: torch.Tensor, q: torch.Tensor, *, valid: int,
                 block: int, S: int, n_fft: int, body_off: int, sym_len: int,
                 cp: int, sc_off: int):
@@ -178,10 +173,9 @@ def cut_symbols(rx: torch.Tensor, q: torch.Tensor, *, valid: int,
         raise ValueError(f"cut_symbols: valid={valid} outside [0, {T}]")
     syms = torch.empty(B, S, n_fft, device=rx.device)
     scw = torch.empty(B, n_fft if sc_off >= 0 else 0, device=rx.device)
-    with torch.cuda.device(rx.device):
-        launch("gf3x_cut_symbols", _ARGS, ptr(rx), ptr(q), ptr(syms),
-               ptr(scw), B, T, valid, block, S, n_fft, body_off, sym_len, cp,
-               sc_off, stream_of(rx))
+    launch("gf3x_cut_symbols", rx.device.index, rx.data_ptr(), q.data_ptr(),
+           syms.data_ptr(), scw.data_ptr(), B, T, valid, block, S, n_fft,
+           body_off, sym_len, cp, sc_off)
     cut_symbols.launches += 1
     return syms, (scw if sc_off >= 0 else None)
 

@@ -13,14 +13,13 @@ sweeps the codeword ran before it froze or hit `iters`)."""
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from ...fec.codes import N_BLOCK_COLS, block_rows, build_H_blocks
-from ...utils.device import launch, ptr, stream_of
+from ...utils.device import launch
 
 __all__ = ["minsum_totals", "minsum_totals_plain", "row_edges", "device_edges"]
 
@@ -95,10 +94,6 @@ def device_edges(z: int, rate: str, device) -> tuple:
     return tuple(torch.as_tensor(a, device=device) for a in (ptr, col, shf))
 
 
-_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 4 \
-    + [ctypes.c_void_p]
-
-
 def minsum_totals(lam: torch.Tensor, z: int, rate: str, iters: int,
                   edges: tuple | None = None):
     """`minsum_totals_plain` for a CPU tensor; the CUDA kernel otherwise.
@@ -119,10 +114,10 @@ def minsum_totals(lam: torch.Tensor, z: int, rate: str, iters: int,
     totals = torch.empty_like(lam)
     unsat = torch.empty(L, dtype=torch.int32, device=lam.device)
     passes = torch.empty(L, dtype=torch.int32, device=lam.device)
-    with torch.cuda.device(lam.device):
-        launch("gf3x_minsum_totals", _ARGS, ptr(lam), ptr(totals), ptr(unsat),
-               ptr(passes), ptr(row_ptr), ptr(col), ptr(shf), L,
-               block_rows(rate), col.numel(), z, iters, stream_of(lam))
+    launch("gf3x_minsum_totals", lam.device.index, lam.data_ptr(),
+           totals.data_ptr(), unsat.data_ptr(), passes.data_ptr(),
+           row_ptr.data_ptr(), col.data_ptr(), shf.data_ptr(), L,
+           block_rows(rate), col.numel(), z, iters)
     minsum_totals.launches += 1
     return totals, unsat.bool(), passes
 

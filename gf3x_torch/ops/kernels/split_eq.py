@@ -18,13 +18,13 @@ launches its kernel for CUDA tensors (or raises), and counts launches in
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from ...config import ModemConfig, layout
-from ...utils.device import launch, ptr, stream_of
+from ...utils.device import launch
 from ..chanest import equalize, pilot_phase_correct
 from ..constellation import (hard_bits, pam_label_levels, qam_demap_llr,
                              qam_map, qam_norm)
@@ -110,12 +110,6 @@ def check_track_inputs(name: str, cfg: ModemConfig, Y, H, noise_var):
                          "(B, n_used) complex64, noise_var (B,)")
 
 
-_TRACK_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong]
-               + [ctypes.c_int] * 7
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                  ctypes.c_float, ctypes.c_void_p])
-
-
 def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
              noise_var: torch.Tensor, pilot_vals: torch.Tensor | None = None):
     """`eq_track_plain` for CPU tensors; kernel A otherwise."""
@@ -134,12 +128,10 @@ def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
     eq = torch.empty(B, D, U, dtype=torch.complex64, device=dev)
     slope, cpe, nv_sym = torch.empty(3, B, D, device=dev)
     mean_dk, n_ladder, q0, b0, q1, b1 = track_constants(cfg)
-    with torch.cuda.device(dev):
-        launch("gf3x_eq_track", _TRACK_ARGS, ptr(y), ptr(h), ptr(nv),
-               ptr(pv), ptr(torch.view_as_real(eq)), ptr(slope), ptr(cpe),
-               ptr(nv_sym), B, S, cfg.n_known_symbols, U, cfg.n_pilots,
-               cfg.pilot_spacing, n_ladder, q0, b0, q1, b1, mean_dk,
-               stream_of(Y))
+    launch("gf3x_eq_track", dev.index, y.data_ptr(), h.data_ptr(),
+           nv.data_ptr(), pv.data_ptr(), eq.data_ptr(), slope.data_ptr(),
+           cpe.data_ptr(), nv_sym.data_ptr(), B, S, cfg.n_known_symbols, U,
+           cfg.n_pilots, cfg.pilot_spacing, n_ladder, q0, b0, q1, b1, mean_dk)
     eq_track.launches += 1
     return eq, slope, cpe, nv_sym
 
@@ -147,18 +139,14 @@ def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
 eq_track.launches = 0
 
 
-def _levels_by_order():
+@functools.lru_cache(maxsize=None)
+def _levels_by_order() -> tuple[np.ndarray, int]:
     """The PAM levels of QPSK, 16- and 64-QAM back to back (2 + 4 + 8
-    floats, order m at offset 2^m − 2), the values `qam_demap_llr` uses."""
+    float32, order m at offset 2^m − 2), the values `qam_demap_llr` uses,
+    and their host address."""
     lv = np.concatenate([pam_label_levels(m) * qam_norm(2 * m)
                          for m in (1, 2, 3)]).astype(np.float32)
-    return (ctypes.c_float * lv.size)(*lv.tolist())
-
-
-_DEMAP_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
-               + [ctypes.c_int] * 4
-               + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-                  ctypes.c_void_p])
+    return lv, lv.ctypes.data
 
 
 def demap_bins(cfg: ModemConfig, eq: torch.Tensor, H: torch.Tensor,
@@ -196,12 +184,11 @@ def demap_bins(cfg: ModemConfig, eq: torch.Tensor, H: torch.Tensor,
     R = cfg.bits_per_ofdm_symbol
     llr = torch.empty(B, D * R, device=dev)
     evm_p, abs_p = torch.empty(2, B, D, device=dev)
-    with torch.cuda.device(dev):
-        launch("gf3x_demap_bins", _DEMAP_ARGS, ptr(e), ptr(h), ptr(nv),
-               ptr(used), ptr(bits), ptr(off), ptr(llr), ptr(evm_p),
-               ptr(abs_p), B, D, U, nd, R, float(np.float32(1.0 / gain)),
-               float(np.float32(1.0 / gain ** 2)), _levels_by_order(),
-               stream_of(eq))
+    launch("gf3x_demap_bins", dev.index, e.data_ptr(), h.data_ptr(),
+           nv.data_ptr(), used.data_ptr(), bits.data_ptr(), off.data_ptr(),
+           llr.data_ptr(), evm_p.data_ptr(), abs_p.data_ptr(), B, D, U, nd, R,
+           float(np.float32(1.0 / gain)), float(np.float32(1.0 / gain ** 2)),
+           _levels_by_order()[1])
     demap_bins.launches += 1
     evm = evm_p.sum(dim=1) / np.float32(D * cfg.n_active_bins)
     mabs = abs_p.sum(dim=1) / np.float32(cfg.raw_bits_per_frame)

@@ -2,8 +2,9 @@
 
 Every `gf3x_torch/csrc/*.cu` source is compiled by `nvcc` for `sm_90a`
 (one `nvcc` per source, all started together) and linked into ONE shared
-library with a plain C interface, loaded with `ctypes`. The library lands
-in `gf3x_torch/_build/<hash of sources and flags>/` (ignored by git) and
+library: C entry points, one per kernel, and a CPython extension module
+(`csrc/binding.cu`) whose functions call them, loaded by path. It lands in
+`gf3x_torch/_build/<hash of sources and flags>/` (ignored by git) and
 is built at its first use, so a fresh checkout on a machine with the CUDA
 toolkit builds it by itself; nothing is built or loaded when the package
 is imported.
@@ -12,31 +13,39 @@ is imported.
 plain version's float32 roundings bit for bit, and nvcc otherwise contracts
 `α·p·m − c2v` into one fused multiply-add.
 
-Each C entry point launches on the stream it is handed and returns
-`cudaGetLastError()`; `launch` raises when that is not 0.
+Each C entry point takes the stream as its last argument, launches on it
+and returns `cudaGetLastError()`; `launch` raises when that is not 0.
+
+`launch` is the one call path of every wrapper, so its host cost is paid
+on every kernel launch: an entry is resolved once per process and converts
+its own arguments (no ctypes); it compares the tensors' device with the
+current one itself, and only where they differ does `launch` switch device
+and call again; the stream is read as a raw pointer, with no
+`torch.cuda.Stream` object.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import hashlib
+import importlib.util
 import os
 import subprocess
+import sysconfig
 import tempfile
 from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "NVCC_FLAGS", "kernel_lib", "library_path", "launch",
-           "stream_of", "ptr"]
+__all__ = ["CSRC", "NVCC_FLAGS", "kernel_lib", "library_path", "launch"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = CSRC.parent / "_build"
 _LIB_NAME = "libgf3x_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
+              "-I" + sysconfig.get_paths()["include"])
 
 
 def _sources() -> list[Path]:
@@ -88,33 +97,45 @@ def _build(out: Path) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_lib() -> ctypes.CDLL:
-    """The loaded kernel library, built first if this source set has none."""
+def kernel_lib():
+    """The kernel library as a loaded extension module, built first if this
+    source set has none."""
     path = library_path()
     if not path.exists():
         _build(path)
-    lib = ctypes.CDLL(str(path))
-    lib.gf3x_error_string.argtypes = [ctypes.c_int]
-    lib.gf3x_error_string.restype = ctypes.c_char_p
+    spec = importlib.util.spec_from_file_location("gf3x_kernels", path)
+    lib = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lib)
     return lib
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+# torch's own getter of a device's current cudaStream_t, called with no
+# Python frame around it; CUDA builds of torch have it, and only a launch,
+# which needs a card, calls it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_ENTRIES: dict = {}   # entry name → the library's function
+_OTHER_DEVICE = -1    # an entry's return when its device is not current
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def _entry(name: str):
+    fn = _ENTRIES[name] = getattr(kernel_lib(), name)
+    return fn
 
 
-def launch(name: str, argtypes: list, *args) -> None:
-    """Call C entry `name` (declaring its argument types) and raise on a
-    non-zero CUDA error code."""
-    lib = kernel_lib()
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    rc = fn(*args)
+def launch(name: str, index: int, *args) -> None:
+    """Call entry `name` on CUDA device `index` with `args` (addresses and
+    numbers) and that device's current stream (its last parameter); raise
+    on a non-zero CUDA error code. The entry launches nothing when `index`
+    is not the current device; then the device is switched for a second
+    call."""
+    fn = _ENTRIES.get(name) or _entry(name)
+    rc = fn(*args, _raw_stream(index), index)
+    if rc == _OTHER_DEVICE:
+        with torch.cuda.device(index):
+            rc = fn(*args, _raw_stream(index), index)
+        if rc == _OTHER_DEVICE:
+            raise RuntimeError(f"{name}: device {index} is not current "
+                               "after switching to it")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: "
-                           f"{lib.gf3x_error_string(rc).decode()}")
+                           f"{kernel_lib().gf3x_error_string(rc)}")

@@ -203,5 +203,5 @@ def test_kernel_build_recipe():
     assert "--fmad=false" in device.NVCC_FLAGS
     names = {p.name for p in device.CSRC.iterdir()}
     assert {"cut_symbols.cu", "gather_cut.cu", "cut_dft.cu", "fused_eq.cu",
-            "ldpc_bp.cu", "split_eq.cu", "eq_demap.cuh"} <= names
+            "ldpc_bp.cu", "split_eq.cu", "eq_demap.cuh", "binding.cu"} <= names
     assert device.kernel_lib.cache_info().currsize == 0
