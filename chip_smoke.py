@@ -44,7 +44,19 @@ Run from the repository root:  python3 chip_smoke.py
 
 Kernel 2 is also held bit for bit against the split pair (kernels A + B)
 at config 5 and gf3-turbo, and kernel 7's call against `torch.gather`'s in
-turns at the one-recording cut.
+turns at the one-recording cut. Kernel 3 (check pass, then decode pass
+over the codewords that fail it) is held bit for bit on four inputs — the
+20 dB codewords (nothing queued), the same codewords at σ = 0.8, a mixed
+batch and the loaded path's — and at two other lifts (z = 24 and 32), and
+its check pass against its own plain version; its time is read three
+ways (CUDA events, the profiler, a CUDA graph). Kernel A is held at
+B = 1024, 1 and 7.
+
+Two other modes time kernels 3 and A alone (`time_tree`):
+`python3 chip_smoke.py --time TREE` those of the port in the checkout
+TREE, and `python3 chip_smoke.py --against TREE` TREE's and this
+checkout's in turns on one card, each in its own process (for a before
+and after on one machine: unpack the parent commit into TREE).
 
 Phases print one line each. The last lines are a JSON object with every
 kernel's measurements (host-clock and CUDA-event times, the kernel's own
@@ -75,9 +87,10 @@ F32_FLOPS = 67e12   # H100 SXM float32 rate outside the tensor cores
 LONGCP = dict(n_fft=2048, cp=512, bin_lo=48, bin_hi=607)
 # the bit-loaded path's table: tools/tpu_parity.py's on-chip parity table
 LOADING_SEED, LOADING_P = 5, [0.1, 0.4, 0.35, 0.15]
+MINSUM_KERNELS = ["minsum_check_kernel", "minsum_decode_kernel"]
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
-# What the redesigns of kernels 2 and 7 were predicted to reach on an H100
-# 80GB HBM3 at 700 W, and what the designs before them measured there
+# What the redesigns of kernels 2, 7, 3 and A were predicted to reach on an
+# H100 80GB HBM3 at 700 W, and what the designs before them measured there
 # (PERF.md §6): printed beside this run's numbers
 EXPECTED = {
     "fused_eq_demap": "predicted 0.04-0.08 ms device; one block per symbol "
@@ -86,6 +99,13 @@ EXPECTED = {
                             "symbol took 0.463",
     "gather_cut": "predicted a host-clock call at or under torch.gather's; "
                   "the ctypes binding took 0.031 ms against 0.023",
+    "minsum_totals": "predicted 30-45 us of kernel time at 0 sweeps and "
+                     "0.35-0.6 ms at sigma 0.8, then with the syndrome in "
+                     "bit words a check pass of 27-31 us and a decode pass "
+                     "of 430-490 us at sigma 0.8; one block per codeword "
+                     "took 121.2-121.4 us and 0.99 ms",
+    "eq_track": "predicted 45-75 us of kernel time; one block per symbol "
+                "took 106.5-112.1 us",
 }
 
 
@@ -160,9 +180,13 @@ def graph_us(fn, runs: int = 50) -> float:
 def kernel_us(fn, names, runs: int = 20) -> dict:
     """The device time of the kernels fn() launches whose names contain
     one of `names`, per call, in µs: the kernels' own durations from
-    torch.profiler over `runs` calls after a warm-up. Where the profiler
-    records no device time, the CUDA-graph replay time of fn() instead.
-    Returns {"us": ..., "by": "profiler" | "graph"}."""
+    torch.profiler over `runs` calls after a warm-up, each kernel's mean
+    duration per record times its launches per call. The profiler can
+    drop records (seen as fewer records than launches); dividing by the
+    records kept, not by `runs`, leaves the mean unbiased. Where the
+    profiler records no device time, the CUDA-graph replay time of fn()
+    instead. Returns {"us", "by": "profiler" | "graph", "per_call": the
+    records kept per call, "by_name": µs per call of each name}."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -171,14 +195,21 @@ def kernel_us(fn, names, runs: int = 20) -> dict:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    tot, cnt = {}, {}
     for ev in prof.key_averages():
-        if any(n in ev.key for n in names):
-            total += float(getattr(ev, "self_device_time_total", None)
-                           or getattr(ev, "self_cuda_time_total", 0.0))
-    if total > 0.0:
-        return dict(us=total / runs, by="profiler")
-    return dict(us=graph_us(fn), by="graph")
+        for n in names:
+            if n in ev.key:
+                tot[n] = tot.get(n, 0.0) + float(
+                    getattr(ev, "self_device_time_total", None)
+                    or getattr(ev, "self_cuda_time_total", 0.0))
+                cnt[n] = cnt.get(n, 0) + int(ev.count)
+                break
+    by_name = {n: tot[n] / cnt[n] * max(1, round(cnt[n] / runs))
+               for n in tot if cnt[n] > 0 and tot[n] > 0.0}
+    if by_name:
+        return dict(us=sum(by_name.values()), by="profiler",
+                    per_call=sum(cnt.values()) / runs, by_name=by_name)
+    return dict(us=graph_us(fn), by="graph", per_call=None, by_name=None)
 
 
 def issue_us(fn, runs: int = 2000) -> float:
@@ -220,18 +251,21 @@ def gather_call(rx: torch.Tensor, idx: torch.Tensor):
 
 
 def timed(fn_k, fn_p, nbytes: float, flops: float = 0.0, lib=None, *,
-          kernel: str) -> dict:
+          kernel) -> dict:
     """A kernel's row of times: host-clock ms of the kernel and its plain
     version; the kernel's device time twice — `device_ms`, CUDA events over
     50 back-to-back calls (for a body of a few µs that is the host's issue
     rate), and `kernel_us`, the body alone (the profiler's durations of the
-    kernels whose names contain `kernel`); the library yardstick's
-    host-clock ms and, for a `torch.gather` yardstick, its kernel's µs
-    (None where no single call computes the function); and the bound."""
-    k_us = kernel_us(fn_k, [kernel])
+    kernels whose names contain `kernel`, a name or a list of names, summed
+    per call); the library yardstick's host-clock ms and, for a
+    `torch.gather` yardstick, its kernel's µs (None where no single call
+    computes the function); and the bound."""
+    k_us = kernel_us(fn_k, [kernel] if isinstance(kernel, str) else kernel)
     row = dict(ms=median_ms(fn_k), plain_ms=median_ms(fn_p),
                device_ms=event_ms(fn_k), kernel_us=k_us["us"],
                kernel_us_by=k_us["by"],
+               kernel_records_per_call=k_us["per_call"],
+               kernel_us_by_name=k_us["by_name"],
                library_ms=None if lib is None else median_ms(lib),
                **bound(nbytes, flops))
     if lib is not None:
@@ -310,6 +344,27 @@ def hold_fused(cfg, Y, H, nv, pv, label):
     return out_k, err, scale
 
 
+def hold_eq_track(cfg, Y, H, nv, pv, label):
+    """Kernel A against its plain version: slope and cpe within 1e-4 rad,
+    eq and nv_sym within 1e-4 of their mean magnitude. Returns the
+    kernel's outputs."""
+    from gf3x_torch.ops.kernels import split_eq
+
+    a_k = split_eq.eq_track(cfg, Y, H, nv, pv)
+    a_p = split_eq.eq_track_plain(cfg, Y, H, nv, pv)
+    d_slope = float((a_k[1] - a_p[1]).abs().max())
+    d_cpe = float((a_k[2] - a_p[2]).abs().max())
+    d_eq, d_nv = rel_err(a_k[0], a_p[0]), rel_err(a_k[3], a_p[3])
+    check(d_slope <= 1e-4 and d_cpe <= 1e-4, f"eq_track {label}: slope/cpe "
+          f"differ by {d_slope}/{d_cpe} rad")
+    check(d_eq <= 1e-4 and d_nv <= 1e-4, f"eq_track {label}: eq/nv_sym "
+          f"differ by {d_eq}/{d_nv} of their mean magnitude")
+    print(f"eq_track {label}: slope/cpe within {max(d_slope, d_cpe):.3g} "
+          f"rad, eq {d_eq:.3g} and nv_sym {d_nv:.3g} of mean magnitude",
+          flush=True)
+    return a_k
+
+
 def hold_split(modem, Y, H, nv, out_k, label):
     """Kernel 2's outputs `out_k` against the split pair (kernels A + B,
     `Modem._split_eq_demap`) on the same inputs: llr, slope and cpe
@@ -343,6 +398,37 @@ def hold_tail(out_k, out_p, what):
         d = float(((out_k[i] - out_p[i]).abs() / out_p[i].abs()).max())
         check(d <= 1e-4, f"{what}: {name} differs by {d} rel")
     return err, scale
+
+
+def hold_minsum(code, lam, iters, label) -> dict:
+    """Kernel 3 (`LdpcCode.decode_totals`: check pass, then decode pass)
+    against its plain version on one input: totals, unsat and passes
+    bit-identical; and the check pass alone against `minsum_check_plain`:
+    unsat mask equal, totals equal to lam. Both passes must launch. Returns
+    the codewords the check pass queued and the plain decode's passes and
+    unsat counts."""
+    from gf3x_torch.ops.kernels import ldpc_bp
+
+    out_k, counts = launch_counts(
+        {"check": ldpc_bp.minsum_check, "decode": ldpc_bp.minsum_decode},
+        lambda: code.decode_totals(lam, iters))
+    out_p = ldpc_bp.minsum_totals_plain(lam, code.z, code.rate, iters)
+    for a, b, name in zip(out_k, out_p, ("totals", "unsat", "passes")):
+        check(torch.equal(a, b), f"minsum_totals {name} differ from its "
+              f"plain version on {label}")
+    check(counts["check"] == 1 and counts["decode"] == 1,
+          f"minsum_totals on {label}: pass launches {counts}")
+    bad_k, tot_k = ldpc_bp.minsum_check(lam, code.z, code.rate)
+    bad_p, _ = ldpc_bp.minsum_check_plain(lam, code.z, code.rate)
+    check(torch.equal(bad_k, bad_p) and torch.equal(tot_k, lam),
+          f"minsum_check differs from its plain version on {label}")
+    held = dict(queued=int(bad_p.sum()) if iters > 0 else 0,
+                passes_sum=int(out_p[2].sum()), passes_max=int(out_p[2].max()),
+                unsat=int(out_p[1].sum()), pass_launches=counts)
+    print(f"minsum_totals on {label}: totals, unsat and passes bit-identical "
+          f"over {lam.shape[0]} codewords, check pass's mask equal; {held}",
+          flush=True)
+    return held
 
 
 def launch_counts(counters, fn):
@@ -886,64 +972,101 @@ def main() -> None:
           f"kernel {r2['kernel_us']:.1f} us, bound {r2['bound_ms']:.4f} ms "
           f"({EXPECTED['fused_eq_demap']})", flush=True)
 
-    # ---- kernel 3 vs plain on the path's codeword LLRs
+    # ---- kernel 3 vs plain: the path's codeword LLRs (20 dB, every
+    # codeword valid before the first sweep: nothing queued), the same
+    # codewords as BPSK LLRs at σ = 0.8 (nearly every codeword queued, a
+    # few left unsatisfied) and a mixed batch (every fourth codeword noisy:
+    # a partial work list); the loaded path's LLRs are held below
     lam = modem._codeword_llrs(llr_k).contiguous()
-    code = modem._code
-    tot_k, uns_k, pas_k = code.decode_totals(lam, cfg.ldpc_iters)
-    tot_p, uns_p, pas_p = ldpc_bp.minsum_totals_plain(lam, code.z, code.rate,
-                                                      cfg.ldpc_iters)
-    check(torch.equal(tot_k, tot_p), "minsum_totals totals are not "
-          "bit-identical to its plain version")
-    check(torch.equal(uns_k, uns_p) and torch.equal(pas_k, pas_p),
-          "minsum_totals unsat/passes differ from its plain version")
-    # bound: the LLRs in, the totals, unsat and passes out, and four
-    # operations per edge per sweep run (the loop ends early by data)
-    edges = sum(len(r) for r in ldpc_bp.row_edges(code.z, code.rate)) * code.z
-    rows["minsum_totals"] = dict(
-        name="minsum_totals", route="cuda",
-        source="gf3x_torch/csrc/ldpc_bp.cu",
-        replaces="gf3x/ops/pallas/ldpc_bp.py:158",
-        max_abs_err=float((tot_k - tot_p).abs().max()),
-        **timed(lambda: code.decode_totals(lam, cfg.ldpc_iters),
-                lambda: ldpc_bp.minsum_totals_plain(lam, code.z, code.rate,
-                                                    cfg.ldpc_iters),
-                4 * (2 * lam.numel() + 2 * lam.shape[0]),
-                4.0 * edges * float(pas_k.sum()), kernel="minsum_kernel"))
-    # at the batch's 20 dB every codeword is valid before the first sweep,
-    # so hold the message updates too: the same codewords as BPSK LLRs at
-    # σ = 0.8, which take several sweeps and leave some unsatisfied
+    code, iters = modem._code, cfg.ldpc_iters
     gen = torch.Generator(device=dev).manual_seed(1)
     noise = torch.randn(lam.shape, generator=gen, device=dev)
     noisy = (2.0 / 0.64) * (torch.sign(lam) + 0.8 * noise)
-    tot_k, uns_k, pas_k = code.decode_totals(noisy, cfg.ldpc_iters)
-    tot_p, uns_p, pas_p = ldpc_bp.minsum_totals_plain(
-        noisy, code.z, code.rate, cfg.ldpc_iters)
-    check(torch.equal(tot_k, tot_p) and torch.equal(uns_k, uns_p)
-          and torch.equal(pas_k, pas_p), "minsum_totals differs from its "
-          "plain version on noisy LLRs")
-    noisy_ms = median_ms(lambda: code.decode_totals(noisy, cfg.ldpc_iters))
-    noisy_dev_ms = event_ms(lambda: code.decode_totals(noisy,
-                                                       cfg.ldpc_iters))
-    noisy_us = kernel_us(lambda: code.decode_totals(noisy, cfg.ldpc_iters),
-                         ["minsum_kernel"])["us"]
-    noisy_bound = bound(4 * (2 * noisy.numel() + 2 * noisy.shape[0]),
-                        4.0 * edges * float(pas_k.sum()))
-    noisy_plain_ms = median_ms(lambda: ldpc_bp.minsum_totals_plain(
-        noisy, code.z, code.rate, cfg.ldpc_iters))
-    print(f"minsum_totals: totals bit-identical over {lam.shape[0]} "
-          f"codewords; {rows['minsum_totals']['ms']:.3f} ms vs plain "
-          f"{rows['minsum_totals']['plain_ms']:.3f} ms (0 sweeps); noisy: "
-          f"mean passes {float(pas_k.float().mean()):.2f}, max "
-          f"{int(pas_k.max())}, unsat {int(uns_k.sum())}, {noisy_ms:.3f} ms "
-          f"(device {noisy_dev_ms:.3f}, kernel {noisy_us:.1f} us, bound "
-          f"{noisy_bound['bound_ms']:.4f} "
-          f"by {noisy_bound['bound_by']}) vs plain {noisy_plain_ms:.3f} ms",
-          flush=True)
-    rows["minsum_totals"].update(noisy_ms=noisy_ms,
-                                 noisy_device_ms=noisy_dev_ms,
-                                 noisy_kernel_us=noisy_us,
-                                 noisy_plain_ms=noisy_plain_ms,
-                                 noisy_bound_ms=noisy_bound["bound_ms"])
+    mixed = lam.clone()
+    mixed[::4] = noisy[::4]
+    inputs3 = {"20 dB": lam, "sigma 0.8": noisy, "mixed": mixed}
+    held3 = {label: hold_minsum(code, x, iters, label)
+             for label, x in inputs3.items()}
+    check(held3["20 dB"]["queued"] == 0
+          and 0 < held3["mixed"]["queued"] < lam.shape[0],
+          f"minsum_totals: work lists {held3}")
+    # bound: the LLRs in, the totals, unsat (bool) and passes out, and four
+    # operations per edge per sweep run (the loop ends early by data); the
+    # decode pass's yardstick at σ = 0.8: its shared-memory traffic, 20
+    # bytes per edge per sweep (pass 1 reads the total and the message,
+    # pass 2 writes both, the check reads the total) at 128 bytes per
+    # clock per SM
+    E = sum(len(r) for r in ldpc_bp.row_edges(code.z, code.rate))
+    edges = E * code.z
+
+    def minsum_row(x, label):
+        return timed(lambda: code.decode_totals(x, iters),
+                     lambda: ldpc_bp.minsum_totals_plain(x, code.z, code.rate,
+                                                         iters),
+                     8 * x.numel() + 5 * x.shape[0],
+                     4.0 * edges * held3[label]["passes_sum"],
+                     kernel=MINSUM_KERNELS)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f_sm = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    smem_bytes = 20.0 * edges * held3["sigma 0.8"]["passes_sum"]
+    r3 = rows["minsum_totals"] = dict(
+        name="minsum_totals", route="cuda",
+        source="gf3x_torch/csrc/ldpc_bp.cu",
+        replaces="gf3x/ops/pallas/ldpc_bp.py:158", max_abs_err=0.0,
+        **minsum_row(lam, "20 dB"),
+        noisy=minsum_row(noisy, "sigma 0.8"),
+        mixed=minsum_row(mixed, "mixed"),
+        held=held3,
+        readings={"0_sweeps": readings(
+            lambda: code.decode_totals(lam, iters), MINSUM_KERNELS),
+            "sigma_0.8": readings(
+                lambda: code.decode_totals(noisy, iters), MINSUM_KERNELS)},
+        smem_yardstick=dict(
+            bytes=smem_bytes, edges_per_sweep=edges,
+            sweeps=held3["sigma 0.8"]["passes_sum"], sms=sms,
+            max_sm_mhz=f_sm,
+            ms=1e3 * smem_bytes / (sms * 128 * f_sm * 1e6)))
+    for label, key in (("0 sweeps", None), ("sigma 0.8", "noisy"),
+                       ("mixed", "mixed")):
+        t = r3 if key is None else r3[key]
+        print(f"minsum_totals {label}: {t['ms']:.3f} ms vs plain "
+              f"{t['plain_ms']:.3f} ms; device {t['device_ms']:.4f} ms, "
+              f"kernel {t['kernel_us']:.1f} us ({t['kernel_records_per_call']}"
+              f" kernel records per call; by kernel "
+              f"{t['kernel_us_by_name']}), bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']}", flush=True)
+    for label, rd in r3["readings"].items():
+        print(f"minsum_totals readings {label}: event_ms {rd['event_ms']}, "
+              f"kernel_us {rd['kernel_us']}, graph_us {rd['graph_us']}, "
+              f"SM clock / power {rd['smi']}", flush=True)
+    print(f"minsum_totals at sigma 0.8: shared-memory yardstick "
+          f"{r3['smem_yardstick']['ms']:.4f} ms ({smem_bytes:.4g} B = 20 B x "
+          f"{edges} edges x {held3['sigma 0.8']['passes_sum']} sweeps, at "
+          f"{sms} SMs x 128 B x {f_sm:.0f} MHz); "
+          f"({EXPECTED['minsum_totals']})", flush=True)
+
+    # ---- kernel 3 at two other lifts, whose syndrome takes the other code
+    # path (z = 24: one check per thread; z = 32: one bit word per column)
+    # and whose rows have other degrees: every other codeword at σ = 0.3,
+    # the rest at 0.7
+    from gf3x_torch.fec.ldpc import LdpcCode
+
+    for z3, rate3 in ((24, "1/2"), (32, "5/6")):
+        code3 = LdpcCode(z3, rate3)
+        g3 = torch.Generator(device=dev).manual_seed(z3)
+        u3 = torch.randint(0, 2, (2048, code3.k), generator=g3, device=dev,
+                           dtype=torch.uint8)
+        bpsk = 1.0 - 2.0 * code3.encode(u3).to(torch.float32)
+        sig = torch.where(torch.arange(2048, device=dev)[:, None] % 2 == 0,
+                          0.3, 0.7)
+        lam3 = (2.0 / sig ** 2) * (bpsk + sig * torch.randn(
+            bpsk.shape, generator=g3, device=dev))
+        r3["held"][f"z={z3} rate {rate3}"] = hold_minsum(
+            code3, lam3.contiguous(), iters, f"z = {z3}, rate {rate3}")
 
     # ---- the config-5 main path, once, through the user's entry point
     counters = {"cut_symbols": gather_cut.cut_symbols,
@@ -953,6 +1076,8 @@ def main() -> None:
                 "eq_track": split_eq.eq_track,
                 "demap_bins": split_eq.demap_bins,
                 "minsum_totals": ldpc_bp.minsum_totals,
+                "minsum_check": ldpc_bp.minsum_check,
+                "minsum_decode": ldpc_bp.minsum_decode,
                 "cut_dft": cut_dft.cut_dft}
     launches5, bits5, _, sync_err = run_path(modem, rx, payload, delays,
                                              counters, "config 5")
@@ -1071,6 +1196,7 @@ def main() -> None:
           f"{dbS:.1f} dB vs float64 (gate -80 dB), launches {launchesS}; "
           f"{sfo_ms:.3f} ms/step", flush=True)
     del modem, rx, syms_k, syms_p, Y, H, nv, lam, noisy, noise, syms_s
+    del mixed, inputs3
 
     # ---- kernel 2 at 16-QAM (gf3-fast) and 64-QAM (gf3-turbo), and on
     # gf3-turbo the split pair against it at the full batch
@@ -1104,21 +1230,20 @@ def main() -> None:
     _, _, _, _, Y, H, nv = path_inputs(modem, rx)
     pv = modem.pilot_vals
 
-    # ---- kernel A vs plain on the loaded batch's spectra
+    # ---- kernel A vs plain on the loaded batch's spectra, and at the
+    # batches of one recording and of an odd few, which take other launch
+    # geometries
     D_, U_ = cfg.n_data_symbols, cfg.n_used
-    a_k = split_eq.eq_track(cfg, Y, H, nv, pv)
+    a_k = hold_eq_track(cfg, Y, H, nv, pv, f"B = {B}")
+    for nbA in (1, 7):
+        hold_eq_track(cfg, Y[:nbA].contiguous(), H[:nbA].contiguous(),
+                      nv[:nbA].contiguous(), pv, f"B = {nbA}")
     a_p = split_eq.eq_track_plain(cfg, Y, H, nv, pv)
-    d_slope = float((a_k[1] - a_p[1]).abs().max())
-    d_cpe = float((a_k[2] - a_p[2]).abs().max())
-    d_eq, d_nv = rel_err(a_k[0], a_p[0]), rel_err(a_k[3], a_p[3])
-    check(d_slope <= 1e-4 and d_cpe <= 1e-4, f"eq_track slope/cpe differ "
-          f"by {d_slope}/{d_cpe} rad")
-    check(d_eq <= 1e-4 and d_nv <= 1e-4, f"eq_track eq/nv_sym differ by "
-          f"{d_eq}/{d_nv} of their mean magnitude")
-    rows["eq_track"] = dict(
+    rA = rows["eq_track"] = dict(
         name="eq_track", route="cuda", source="gf3x_torch/csrc/split_eq.cu",
         replaces="gf3x/ops/pallas/split_eq.py:140",
         max_abs_err=float((a_k[0] - a_p[0]).abs().max()),
+        geometry=str(fused_eq.fused_eq_geometry(cfg, B, sms, demap=False)),
         # bound: the data symbols' spectra, Ĥ and the noise floor in, the
         # derotated bins and three per-symbol rows out; 12 operations per
         # cell (EQ and derotation)
@@ -1126,10 +1251,10 @@ def main() -> None:
                 lambda: split_eq.eq_track_plain(cfg, Y, H, nv, pv),
                 8 * B * D_ * U_ * 2 + 8 * B * U_ + 4 * B + 3 * 4 * B * D_,
                 12.0 * B * D_ * U_, kernel="eq_track_kernel"))
-    print(f"eq_track: slope/cpe within {max(d_slope, d_cpe):.3g} rad, eq "
-          f"{d_eq:.3g} and nv_sym {d_nv:.3g} of mean magnitude; "
-          f"{rows['eq_track']['ms']:.3f} ms vs plain "
-          f"{rows['eq_track']['plain_ms']:.3f} ms", flush=True)
+    print(f"eq_track: held at B = {B}, 1 and 7; {rA['geometry']}; "
+          f"{rA['ms']:.3f} ms vs plain {rA['plain_ms']:.3f} ms; device "
+          f"{rA['device_ms']:.4f} ms, kernel {rA['kernel_us']:.1f} us, bound "
+          f"{rA['bound_ms']:.4f} ms ({EXPECTED['eq_track']})", flush=True)
 
     # ---- kernel B vs plain on kernel A's output
     eq, _, _, nv_sym = a_k
@@ -1164,18 +1289,14 @@ def main() -> None:
     # ---- kernel 3 on the loaded path's LLRs, which carry raw bit errors
     lam = modem._codeword_llrs(b_k[0]).contiguous()
     code = modem._code
-    tot_k, uns_k, pas_k = code.decode_totals(lam, cfg.ldpc_iters)
-    tot_p, uns_p, pas_p = ldpc_bp.minsum_totals_plain(lam, code.z, code.rate,
-                                                      cfg.ldpc_iters)
-    check(torch.equal(tot_k, tot_p) and torch.equal(uns_k, uns_p)
-          and torch.equal(pas_k, pas_p), "minsum_totals differs from its "
-          "plain version on the loaded path's LLRs")
+    held3L = hold_minsum(code, lam, cfg.ldpc_iters, "the loaded path's LLRs")
+    rows["minsum_totals"]["held"]["loaded"] = held3L
+    tot_k, _, _ = code.decode_totals(lam, cfg.ldpc_iters)
     raw_err = float(((lam < 0) != (tot_k < 0)).float().mean())
-    print(f"minsum_totals, loaded LLRs: bit-identical over {lam.shape[0]} "
-          f"codewords; raw bit error rate {raw_err:.3g}, passes mean "
-          f"{float(pas_k.float().mean()):.3f}, max {int(pas_k.max())}",
-          flush=True)
-    del a_k, a_p, b_k, b_p, eq, lam, tot_k, tot_p
+    print(f"minsum_totals, loaded LLRs: raw bit error rate {raw_err:.3g}, "
+          f"passes mean {held3L['passes_sum'] / lam.shape[0]:.3f}, max "
+          f"{held3L['passes_max']}", flush=True)
+    del a_k, a_p, b_k, b_p, eq, lam, tot_k
 
     # ---- the bit-loaded main path, once, through the user's entry point
     launchesL, _, diag, sync_err = run_path(modem, rx, payload, delays,
@@ -1230,6 +1351,12 @@ def main() -> None:
     for name, row in rows.items():
         row["launches"] = sum(c[name] for c in by_path.values())
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+    # kernel 3's two passes launch once each per call, on every path
+    for name in ("minsum_check", "minsum_decode"):
+        n = sum(c[name] for c in by_path.values())
+        check(n == rows["minsum_totals"]["launches"], f"{name} launched {n} "
+              f"times in {rows['minsum_totals']['launches']} calls")
+        rows["minsum_totals"][f"{name}_launches"] = n
     print(json.dumps({"kernels": list(rows.values()), "step_ms": step_ms,
                       "data_symbols_per_s": sps, "loaded_step_ms": stepL_ms,
                       "loaded_data_symbols_per_s": spsL,
@@ -1246,5 +1373,148 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def smi_sampler():
+    """Start nvidia-smi sampling the SM clock (MHz) and power draw (W)
+    every 20 ms; stop() ends it and returns [(clock, watts), ...]."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def stop():
+        proc.terminate()
+        vals = []
+        for ln in proc.communicate(timeout=30)[0].splitlines():
+            try:
+                vals.append(tuple(float(x) for x in ln.split(",")))
+            except ValueError:
+                continue
+        return vals
+    return stop
+
+
+def readings(fn, names) -> dict:
+    """fn's device time read three ways, twice in mirrored order (events,
+    profiler, graph, graph, profiler, events): `event_ms` (CUDA events
+    over back-to-back calls, the wrapper's allocations and any extra
+    launches included), `kernel_us` (torch.profiler's durations of the
+    kernels whose names contain one of `names`, None where it records
+    none; beside it the kernel records it kept per call) and `graph_us`
+    (the calls replayed from one CUDA graph), each with the SM clock and
+    power nvidia-smi sampled while it ran."""
+    kept = []
+
+    def prof_us():
+        k = kernel_us(fn, names, runs=100)
+        kept.append(k["per_call"])
+        return k["us"] if k["by"] == "profiler" else None
+
+    ways = {"event_ms": lambda: event_ms(fn, 200), "kernel_us": prof_us,
+            "graph_us": lambda: graph_us(fn)}
+    out = {k: [] for k in ways}
+    clocks = {k: [] for k in ways}
+    for k in list(ways) + list(ways)[::-1]:
+        stop = smi_sampler()
+        time.sleep(0.1)
+        out[k].append(ways[k]())
+        clocks[k] += stop()
+    return dict(out, kernel_records_per_call=kept, smi={k: dict(
+        sm_mhz=sorted({c for c, _ in v}), max_w=max((w for _, w in v),
+                                                    default=None))
+        for k, v in clocks.items()})
+
+
+def time_tree(tree: Path) -> dict:
+    """`--time TREE`: kernel 3 and kernel A of the gf3x_torch package in
+    TREE, on this run's card, through the calls every version of the port
+    has (`LdpcCode.decode_totals`, `split_eq.eq_track`): kernel 3 on the
+    config-5 batch's codeword LLRs (0 sweeps), on the same codewords as
+    BPSK LLRs at σ = 0.8 and on a mixed batch (every fourth codeword
+    noisy), kernel A on the bit-loaded batch's spectra, each read three
+    ways (`readings`); and kernel 3's passes checked equal over repeated
+    calls."""
+    sys.path.insert(0, str(tree))
+    import gf3x_torch
+    from gf3x_torch import GF3_STANDARD, Modem
+    from gf3x_torch.ops.kernels import fused_eq, split_eq
+    from gf3x_torch.utils.device import kernel_lib
+
+    check(Path(gf3x_torch.__file__).resolve().is_relative_to(tree.resolve()),
+          f"gf3x_torch imported from {gf3x_torch.__file__}, not {tree}")
+    dev = torch.device("cuda", 0)
+    kernel_lib()
+    out = {}
+    for cfg, label in ((GF3_STANDARD, "config5"), (GF3_STANDARD.replace(
+            bit_loading=tuple(int(x) for x in np.random.default_rng(
+                LOADING_SEED).choice([0, 2, 4, 6],
+                                     size=GF3_STANDARD.n_data_bins,
+                                     p=LOADING_P))), "bit_loaded")):
+        modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
+        rx, _, _ = build_batch(modem, B, MARGIN, np.random.default_rng(0))
+        _, _, _, _, Y, H, nv = path_inputs(modem, torch.as_tensor(rx,
+                                                                 device=dev))
+        pv = modem.pilot_vals
+        if label == "bit_loaded":
+            out["eq_track"] = readings(
+                lambda: split_eq.eq_track(cfg, Y, H, nv, pv),
+                ["eq_track_kernel"])
+            continue
+        llr = fused_eq.fused_eq_demap(cfg, Y, H, nv, pv)[0]
+        lam = modem._codeword_llrs(llr).contiguous()
+        gen = torch.Generator(device=dev).manual_seed(1)
+        noise = torch.randn(lam.shape, generator=gen, device=dev)
+        noisy = (2.0 / 0.64) * (torch.sign(lam) + 0.8 * noise)
+        mixed = lam.clone()
+        mixed[::4] = noisy[::4]
+        code = modem._code
+        for name, x in (("minsum_0_sweeps", lam), ("minsum_sigma_0.8", noisy),
+                        ("minsum_mixed", mixed)):
+            runs = [code.decode_totals(x, cfg.ldpc_iters) for _ in range(3)]
+            check(all(torch.equal(r[2], runs[0][2]) for r in runs),
+                  f"{name}: passes differ between calls")
+            out[name] = dict(readings(
+                lambda: code.decode_totals(x, cfg.ldpc_iters), ["minsum"]),
+                by_kernel=kernel_us(
+                    lambda: code.decode_totals(x, cfg.ldpc_iters),
+                    ["minsum_check", "minsum_decode", "minsum_kernel"],
+                    runs=100)["by_name"],
+                passes_sum=int(runs[0][2].sum()),
+                passes_max=int(runs[0][2].max()),
+                unsat=int(runs[0][1].sum()))
+        del rx, Y, H, nv, llr, lam, noise, noisy, mixed
+    return out
+
+
+def compare_trees(other: Path) -> None:
+    """`--against TREE`: `time_tree` of TREE and of this script's own tree
+    in turns (TREE, this, this, TREE), each in its own process on this
+    run's card; prints each run's numbers as one JSON line."""
+    here = Path(__file__).resolve().parent
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"device: {smi}", flush=True)
+    for label, tree in (("other", other), ("this", here), ("this", here),
+                        ("other", other)):
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--time", str(tree)], capture_output=True,
+                             text=True, timeout=600)
+        check(res.returncode == 0, f"--time {tree} failed:\n{res.stderr}")
+        print(json.dumps({"tree": label, "path": str(tree),
+                          **json.loads(res.stdout.splitlines()[-1])}),
+              flush=True)
+    print(smi, flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--time":
+        if not torch.cuda.is_available():
+            raise RuntimeError("chip_smoke needs a CUDA device")
+        print(json.dumps(time_tree(Path(sys.argv[2]))), flush=True)
+    elif len(sys.argv) == 3 and sys.argv[1] == "--against":
+        if not torch.cuda.is_available():
+            raise RuntimeError("chip_smoke needs a CUDA device")
+        compare_trees(Path(sys.argv[2]).resolve())
+    else:
+        main()

@@ -37,13 +37,17 @@ int gf3x_fused_eq_demap(const float*, const float*, const float*,
                         float, float, void*);
 int gf3x_eq_track(const float*, const float*, const float*, const float*,
                   float*, float*, float*, float*, long long, int, int, int,
-                  int, int, int, int, float, int, float, float, void*);
+                  int, int, int, int, float, int, float, float, int, int, int,
+                  void*);
 int gf3x_demap_bins(const float*, const float*, const float*, const int*,
                     const int*, const int*, float*, float*, float*, long long,
                     int, int, int, int, float, float, const float*, void*);
-int gf3x_minsum_totals(const float*, float*, int*, int*, const int*,
-                       const int*, const int*, long long, int, int, int, int,
-                       void*);
+int gf3x_minsum_check(const float*, float*, unsigned char*, int*, int*,
+                      const int*, const int*, const int*, long long, int, int,
+                      int, int, void*);
+int gf3x_minsum_decode(const float*, float*, unsigned char*, int*, int*,
+                       const int*, const int*, const int*, long long, int,
+                       int, int, int, void*);
 const char* gf3x_error_string(int);
 }
 
@@ -121,17 +125,20 @@ ENTRY(gf3x_fused_eq_demap, "ppppppppplllllllpllflfflllffp",
                           P(8), L(9), I(10), I(11), I(12), I(13), I(14),
                           I(15), P(16), I(17), I(18), F(19), I(20), F(21),
                           F(22), I(23), I(24), I(25), F(26), F(27), P(28)))
-ENTRY(gf3x_eq_track, "ppppppppllllllllflffp",
+ENTRY(gf3x_eq_track, "ppppppppllllllllflfflllp",
       gf3x_eq_track(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), L(8),
                     I(9), I(10), I(11), I(12), I(13), I(14), I(15), F(16),
-                    I(17), F(18), F(19), P(20)))
+                    I(17), F(18), F(19), I(20), I(21), I(22), P(23)))
 ENTRY(gf3x_demap_bins, "ppppppppplllllffpp",
       gf3x_demap_bins(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), P(8),
                       L(9), I(10), I(11), I(12), I(13), F(14), F(15), P(16),
                       P(17)))
-ENTRY(gf3x_minsum_totals, "ppppppplllllp",
-      gf3x_minsum_totals(P(0), P(1), P(2), P(3), P(4), P(5), P(6), L(7),
-                         I(8), I(9), I(10), I(11), P(12)))
+ENTRY(gf3x_minsum_check, "pppppppplllllp",
+      gf3x_minsum_check(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), L(8),
+                        I(9), I(10), I(11), I(12), P(13)))
+ENTRY(gf3x_minsum_decode, "pppppppplllllp",
+      gf3x_minsum_decode(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), L(8),
+                         I(9), I(10), I(11), I(12), P(13)))
 
 PyObject* py_gf3x_error_string(PyObject*, PyObject* const* a, Py_ssize_t n) {
     Val v[1];
@@ -148,8 +155,9 @@ PyMethodDef kMethods[] = {
     METHOD(gf3x_cut_symbols),    METHOD(gf3x_gather_cut),
     METHOD(gf3x_gather_cut_group), METHOD(gf3x_cut_dft),
     METHOD(gf3x_fused_eq_demap), METHOD(gf3x_eq_track),
-    METHOD(gf3x_demap_bins),     METHOD(gf3x_minsum_totals),
-    METHOD(gf3x_error_string),   {nullptr, nullptr, 0, nullptr}};
+    METHOD(gf3x_demap_bins),     METHOD(gf3x_minsum_check),
+    METHOD(gf3x_minsum_decode),  METHOD(gf3x_error_string),
+    {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "gf3x_kernels", nullptr, -1,
                        kMethods};

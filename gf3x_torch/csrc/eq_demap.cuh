@@ -13,13 +13,17 @@
 // - gf3x_fit_pilots_warp: the CSI-weighted pilot phase fit (coarse slope,
 //   baseline ladder, intercept) by ONE warp, pilot p on lane p mod 32,
 //   synchronised by __syncwarp alone;
-// - gf3x_noise_floor_warp: the per-symbol noise floor, likewise.
+// - gf3x_noise_floor_warp: the per-symbol noise floor, likewise;
+// - gf3x_track_symbol_warp: one data symbol's whole chain by one warp —
+//   EQ in place, the pilots' products, the fit, the residuals and the
+//   noise floor — on the symbol's bins in the warp's shared buffer
+//   (fetched there by gf3x_fetch_symbol with cp.async).
 //
-// Kernel A runs them through gf3x_eq_track_symbol (one block per (frame,
-// data symbol), thread k = used bin k, warp 0 fitting while the block
-// waits); kernel 2 runs them with one warp per symbol (fused_eq.cu). Both
-// call the same code in the same order, so slope, cpe, nv_sym and every
-// derotated bin agree bit for bit.
+// Kernels A and 2 have one layout: a block per frame, Ĥ and |Ĥ|² staged in
+// shared memory once, and each warp walking its data symbols through
+// gf3x_track_symbol_warp; A then derotates every used bin, 2 derotates and
+// demaps the data bins. Both run the same code in the same order, so
+// slope, cpe, nv_sym and every derotated bin agree bit for bit.
 #pragma once
 
 #include "common.cuh"
@@ -34,16 +38,6 @@ struct TrackArgs {
     int ladder_q[2];     // pilot lag of each stage
     float ladder_base[2];
     float mean_dk;       // mean pilot spacing in bins
-};
-
-// Dynamic shared memory gf3x_eq_track_symbol needs, in floats.
-inline int gf3x_track_smem_floats(int P) { return 4 * P + 3; }
-
-struct TrackedBin {
-    float xr, xi;        // derotated equalized bin (0 beyond U)
-    float h2;            // |Ĥ_k|²
-    float nv_sym;        // per-symbol noise floor σ̂² (same on every thread)
-    float slope, cpe;    // pilot phase fit a, b (same on every thread)
 };
 
 // Σ_p z[p+lag]·conj(z[p]) over p < n − lag, summed by one warp (all lanes
@@ -131,71 +125,72 @@ __device__ __forceinline__ float gf3x_noise_floor_warp(const float* r, int P,
     return fmaxf(nv, acc / static_cast<float>(P));
 }
 
-// One (frame, data symbol) per block, thread k = used bin k. Every thread
-// of the block must call this (it synchronises the block); `sm` is
-// gf3x_track_smem_floats(P) floats of shared scratch. The kernels declare
-// their argument struct __grid_constant__, so `a` refers to the parameter
-// bank itself and is not copied to a local stack frame.
-__device__ __forceinline__ TrackedBin gf3x_eq_track_symbol(
-        const TrackArgs& a, int b, int d, float* sm) {
-    float* zr = sm;             // (P,) CSI-weighted pilot products
-    float* zi = zr + a.P;
-    float* dr = zi + a.P;       // (P,) derotated copies for the ladder
-    float* di = dr + a.P;
-    float* s_abn = di + a.P;    // slope, intercept, noise floor
+__device__ __forceinline__ void gf3x_cp_async8(void* dst, const void* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(s), "l"(src) : "memory");
+}
 
-    const int k = threadIdx.x;
-    const int lane = k & 31, warp = k >> 5;
-    const bool bin = k < a.U;
-    const bool pilot = bin && (k % a.sp == 0);
+__device__ __forceinline__ void gf3x_cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-    float2 x = make_float2(0.0f, 0.0f);
-    float h2 = 0.0f;
-    if (bin) {
-        const float2 h = a.h[static_cast<long long>(b) * a.U + k];
-        h2 = h.x * h.x + h.y * h.y;
-        x = gf3x_eq_bin(a.y[(static_cast<long long>(b) * a.S + a.K + d) * a.U + k],
-                        h, h2);
+// Waits for all but the newest group: the current symbol's copy.
+__device__ __forceinline__ void gf3x_cp_async_wait_all_but_newest() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Lane `lane`'s share (bins lane, lane + 32, ...) of data symbol d's bins
+// into buf, as one cp.async group; an empty group when d ≥ D.
+__device__ __forceinline__ void gf3x_fetch_symbol(const TrackArgs& a, int b,
+                                                  int d, float2* buf,
+                                                  int lane) {
+    if (d < a.D) {
+        const float2* src =
+            a.y + (static_cast<long long>(b) * a.S + a.K + d) * a.U;
+        for (int k = lane; k < a.U; k += 32) gf3x_cp_async8(buf + k, src + k);
     }
-    if (pilot) {
-        const int p = k / a.sp;
-        const float2 z = gf3x_pilot_product(x, a.pv[p], h2);
+    gf3x_cp_async_commit();
+}
+
+struct SymbolFit {
+    float slope, cpe;    // pilot phase fit a, b
+    float nv_sym;        // per-symbol noise floor σ̂²
+};
+
+// One data symbol of frame b by one warp: `cur` holds its U bins (the
+// warp's own shared buffer, whose copy has landed) and is equalized in
+// place; hs and h2s are the frame's Ĥ and |Ĥ|² in shared memory, zr, zi,
+// dr, di P floats each of the warp's scratch. Synchronised by __syncwarp
+// alone; every lane gets the fit and the noise floor, and `cur` stays
+// equalized but not derotated (the caller derotates the bins it needs).
+__device__ __forceinline__ SymbolFit gf3x_track_symbol_warp(
+        const TrackArgs& a, int b, float2* cur, const float2* hs,
+        const float* h2s, float* zr, float* zi, float* dr, float* di,
+        int lane) {
+    for (int k = lane; k < a.U; k += 32) cur[k] = gf3x_eq_bin(cur[k], hs[k], h2s[k]);
+    __syncwarp();
+    for (int p = lane; p < a.P; p += 32) {
+        const int k = p * a.sp;
+        const float2 z = gf3x_pilot_product(cur[k], a.pv[p], h2s[k]);
         zr[p] = z.x;
         zi[p] = z.y;
     }
-    __syncthreads();
-    if (warp == 0) {
-        const float2 fit = gf3x_fit_pilots_warp(a, zr, zi, dr, di, lane);
-        if (lane == 0) {
-            s_abn[0] = fit.x;
-            s_abn[1] = fit.y;
-        }
+    __syncwarp();
+    const float2 fit = gf3x_fit_pilots_warp(a, zr, zi, dr, di, lane);
+    __syncwarp();
+    // noise floor from the derotated pilots
+    for (int p = lane; p < a.P; p += 32) {
+        const int k = p * a.sp;
+        zr[p] = gf3x_pilot_residual(gf3x_derotate(cur[k], fit.x, k, fit.y),
+                                    a.pv[p], h2s[k]);
     }
-    __syncthreads();
-
-    TrackedBin t;
-    t.slope = s_abn[0];
-    t.cpe = s_abn[1];
-    t.h2 = h2;
-    t.xr = 0.0f;
-    t.xi = 0.0f;
-    if (bin) {
-        const float2 r = gf3x_derotate(x, t.slope, k, t.cpe);
-        t.xr = r.x;
-        t.xi = r.y;
-    }
-    if (pilot) {
-        const int p = k / a.sp;
-        zr[p] = gf3x_pilot_residual(make_float2(t.xr, t.xi), a.pv[p], h2);
-    }
-    __syncthreads();
-    if (warp == 0) {
-        const float nv_sym = gf3x_noise_floor_warp(zr, a.P, a.nv[b], lane);
-        if (lane == 0) s_abn[2] = nv_sym;
-    }
-    __syncthreads();
-    t.nv_sym = s_abn[2];
-    return t;
+    __syncwarp();
+    SymbolFit f;
+    f.slope = fit.x;
+    f.cpe = fit.y;
+    f.nv_sym = gf3x_noise_floor_warp(zr, a.P, a.nv[b], lane);
+    return f;
 }
 
 // Max-log LLRs of one PAM axis with 2^m levels `lv` (indexed by Gray

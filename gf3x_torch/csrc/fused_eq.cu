@@ -59,33 +59,6 @@ struct FusedArgs {
     float lv[kMaxLevels];   // PAM level of each Gray label
 };
 
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
-                 :: "r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits for all but the newest group: the current symbol's copy.
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Lane `lane`'s share (bins lane, lane + 32, ...) of data symbol d's bins
-// into buf, as one cp.async group; an empty group when d ≥ D.
-__device__ __forceinline__ void fetch_symbol(const TrackArgs& a, int b, int d,
-                                             float2* buf, int lane) {
-    if (d < a.D) {
-        const float2* src =
-            a.y + (static_cast<long long>(b) * a.S + a.K + d) * a.U;
-        for (int k = lane; k < a.U; k += 32) cp_async8(buf + k, src + k);
-    }
-    cp_async_commit();
-}
-
 // A data bin's 2m LLRs as vector stores (`out` is 8-byte aligned; 16 when
 // m = 2).
 template <int m>
@@ -126,7 +99,7 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     float* red = inv_csi + U + 4 * P * W;
 
     // the warp's first symbol is in flight while the block stages Ĥ
-    fetch_symbol(t, b, w, buf, lane);
+    gf3x_fetch_symbol(t, b, w, buf, lane);
     for (int k = threadIdx.x; k < U; k += blockDim.x) {
         const float2 h = t.h[static_cast<long long>(b) * U + k];
         const float h2 = h.x * h.x + h.y * h.y;
@@ -139,7 +112,6 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     float lv[kMaxLevels];
 #pragma unroll
     for (int i = 0; i < kMaxLevels; ++i) lv[i] = a.lv[i];
-    const float nv = t.nv[b];
     // data bin j is used bin j + g + 1 with g = j / (sp − 1) (strided
     // pilots at k ≡ 0 mod sp): lane's first g and remainder, and their
     // steps for j += 32
@@ -150,33 +122,12 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     float md_sum = 0.0f, abs_sum = 0.0f;
     for (int d = w, i = 0; d < D; d += W, ++i) {
         float2* cur = buf + (i & (a.nbuf - 1)) * U;
-        fetch_symbol(t, b, d + W, buf + ((i + 1) & (a.nbuf - 1)) * U, lane);
-        cp_async_wait_all_but_newest();
+        gf3x_fetch_symbol(t, b, d + W, buf + ((i + 1) & (a.nbuf - 1)) * U,
+                          lane);
+        gf3x_cp_async_wait_all_but_newest();
         __syncwarp();
-
-        // one-tap EQ in place, then the pilots' CSI-weighted products
-        for (int k = lane; k < U; k += 32) {
-            cur[k] = gf3x_eq_bin(cur[k], hs[k], h2s[k]);
-        }
-        __syncwarp();
-        for (int p = lane; p < P; p += 32) {
-            const int k = p * sp;
-            const float2 z = gf3x_pilot_product(cur[k], t.pv[p], h2s[k]);
-            zr[p] = z.x;
-            zi[p] = z.y;
-        }
-        __syncwarp();
-        const float2 fit = gf3x_fit_pilots_warp(t, zr, zi, dr, di, lane);
-        __syncwarp();
-
-        // noise floor from the derotated pilots
-        for (int p = lane; p < P; p += 32) {
-            const int k = p * sp;
-            zr[p] = gf3x_pilot_residual(gf3x_derotate(cur[k], fit.x, k, fit.y),
-                                        t.pv[p], h2s[k]);
-        }
-        __syncwarp();
-        const float nv_sym = gf3x_noise_floor_warp(zr, P, nv, lane);
+        const SymbolFit f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, zr, zi,
+                                                   dr, di, lane);
 
         // derotate and demap the data bins
         const long long o = static_cast<long long>(b) * D + d;
@@ -189,8 +140,8 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
                 r -= spm1;
                 ++g;
             }
-            const float2 x = gf3x_derotate(cur[k], fit.x, k, fit.y);
-            const float nv_eff = nv_sym * inv_csi[k];
+            const float2 x = gf3x_derotate(cur[k], f.slope, k, f.cpe);
+            const float nv_eff = f.nv_sym * inv_csi[k];
             const float nvc = fmaxf(nv_eff, 1e-12f);
             float l[2 * m];
             gf3x_demap_axis<m>(x.x, lv, nvc, l, md_sum, abs_sum);
@@ -198,8 +149,8 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
             store_llrs<m>(row + 2 * m * j, l);
         }
         if (lane == 0) {
-            a.slope[o] = fit.x;
-            a.cpe[o] = fit.y;
+            a.slope[o] = f.slope;
+            a.cpe[o] = f.cpe;
         }
         __syncwarp();   // cur and the scratch are rewritten next
     }

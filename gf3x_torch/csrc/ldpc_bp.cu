@@ -1,5 +1,6 @@
 // Layered normalised min-sum decoding of the QC-LDPC family (24 block
-// columns, rates 1/2 to 5/6), one codeword per block.
+// columns, rates 1/2 to 5/6) in two passes: a check pass over every
+// codeword, then a decode pass over the codewords that fail it.
 //
 // Replaces gf3x/ops/pallas/ldpc_bp.py:minsum_totals_tpu. It must be
 // bit-identical to LdpcCode._minsum_xla (gf3x/fec/ldpc.py:301) and to the
@@ -11,140 +12,471 @@
 // rounding is written out with __fmul_rn/__fadd_rn/__fsub_rn, and the
 // library is built with --fmad=false, so no multiply-add is contracted.
 //
-// What bounds it on the card: the serial layer schedule. Each block row
-// depends on the totals the previous row wrote, so a sweep is mb rounds of
-// shared-memory traffic separated by __syncthreads(); device memory sees
-// the LLRs once in and the totals once out. Design: one block per
-// codeword, one thread per check of a block row (z threads); the c2v
-// messages (E·z floats, 29 KB at rate 1/2, z = 96) and the column totals
-// (24·z floats, 9.2 KB) stay in shared memory for all iterations. Within a
-// block row each circulant column appears once, so thread c reads and
-// writes total (c + s) mod z of each column it touches and no two threads
-// of a row collide.
+// The split rests on the freeze rule: each codeword decodes independently
+// of the rest of the batch, so decoding only the codewords that fail the
+// first check, and writing their results in place, gives the same totals,
+// unsat flags and passes as decoding the whole batch.
+//
+// Check pass (minsum_check_kernel), a warp per codeword. What bounds it:
+// bytes, the LLRs once in and the totals (a copy of the LLRs) once out,
+// 75.5 MB at 4096 × 2304 (0.0225 ms at 3.35 TB/s). The lanes move them as
+// 16-byte vectors and keep only the hard decisions, a byte each (2.3 KB a
+// codeword), in shared memory, so many codewords are resident per SM.
+// Where z % 32 = 0 it packs them into bit words and finds a block row's 32
+// checks at once (row_word_bad): one check per lane left about 10 µs of
+// unhidden syndrome work at 4096 codewords. A codeword that satisfies
+// every check is final (passes 0, unsat 0); one that fails is appended to
+// a device work list, or, with iters = 0, is final with unsat 1. At 20 dB,
+// the main paths' case, that is the whole function.
+//
+// Decode pass (minsum_decode_kernel), a persistent grid of resident blocks
+// that pull codewords from the work list through a device counter, so the
+// call needs no host synchronisation and an empty list costs one wave of
+// blocks that exit. A block decodes one codeword at a time with one thread
+// per check of a block row (z threads); the c2v messages (E·z floats, 29
+// KB at rate 1/2, z = 96) and the column totals (24·z floats) stay in
+// shared memory for all sweeps. What bounds it: the serial layer schedule.
+// Each block row depends on the totals the previous row wrote, so a sweep
+// is mb rounds separated by __syncthreads(), and their shared-memory
+// traffic and instruction issue (about 15 warps fit an SM, by shared
+// memory). A row's update is compiled for its exact degree (a switch over
+// 1 ≤ d ≤ kMaxDeg): a thread issues all of its d total and message loads
+// before the min search, keeps them and their addresses in registers for
+// the update, finds (min, first argmin, second min) by a tree of pairwise
+// combines (the same values as the sequential scan, in log2 d steps) and
+// takes the sign product as a parity of sign bits (exact: a product of
+// ±1). The edge tables (block column × z, shift) sit in the kernels'
+// parameter bank, where the constant cache broadcasts the entry every
+// thread reads, not in shared memory; the first check is the check pass's,
+// and the check after each sweep packs the totals' signs by ballots and
+// takes a block row's 32 checks per thread where z % 32 = 0.
+// Within a block row each circulant column appears once, so thread c reads
+// and writes total (c + s) mod z of each column it touches and no two
+// threads of a row collide.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBlockCols = 24;
+constexpr int kMaxRows = 12;     // block rows at rate 1/2
+constexpr int kMaxEdges = 96;    // edges of a base matrix: 76 at most
+constexpr int kMaxDeg = 18;      // the largest block-row degree over RATES
+constexpr int kCheckWarps = 8;   // codewords per block of the check pass
+constexpr int kChunk = 18;       // 16-byte loads a lane keeps in flight
+constexpr int kLaneChecks = 3;   // checks of a block row per lane, in turn
+constexpr int kMaxZ = 512;       // the decode pass's block: z threads
 constexpr float kAlpha = 0.8f;
 constexpr float kBig = 1e30f;
 
+// The lifted code's edges, row-major as build_H_blocks orders them, passed
+// by value into the kernels' parameter bank.
 struct Code {
-    const int* row_ptr;   // (mb + 1,) first edge of each block row
-    const int* col;       // (E,) block column of each edge
-    const int* shift;     // (E,) circulant shift of each edge
     int mb, E, z;
+    int row_ptr[kMaxRows + 1];   // first edge of each block row
+    int colz[kMaxEdges];         // block column × z of each edge
+    int shift[kMaxEdges];        // circulant shift of each edge
 };
 
-__device__ __forceinline__ int wrap(int v, int z) { return v >= z ? v - z : v; }
+// The work list: work[0] counts the queued codewords, work[1] is the
+// decode pass's next index into them, work[2 ...] are their indices.
+
+// v mod z for 0 ≤ v < 2z
+__device__ __forceinline__ int wrap(int v, int z) {
+    return static_cast<int>(min(static_cast<unsigned>(v),
+                                static_cast<unsigned>(v - z)));
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Four hard-decision bytes (each 0 or 1, little-endian in x) as bits 0-3:
+// the multiply puts byte k at bit 21 + k with no carry into bits 21-24.
+__device__ __forceinline__ unsigned pack4(unsigned x) {
+    return ((x * 0x00204081u) >> 21) & 0xFu;
+}
+
+// Sixteen hard-decision bytes as bits 0-15.
+__device__ __forceinline__ unsigned pack16(uint4 q) {
+    return pack4(q.x) | pack4(q.y) << 4 | pack4(q.z) << 8 | pack4(q.w) << 12;
+}
+
+// Where z % 32 = 0 the hard decisions are also kept as bit words, word k
+// holding variables 32k ... 32k + 31, and block row i's checks c0 ...
+// c0 + 31 (c0 a multiple of 32) are one word: the XOR over its edges of
+// the column's bits from (c0 + s) mod z on, which a funnel shift of two
+// neighbouring words gives (the column's last word wraps to its first).
+// True where any of the 32 checks is violated.
+__device__ __forceinline__ bool row_word_bad(const unsigned* words,
+                                             const Code& code, int i, int c0,
+                                             int z) {
+    const int cw_words = z >> 5;
+    unsigned par = 0;
+    for (int e = code.row_ptr[i]; e < code.row_ptr[i + 1]; ++e) {
+        const int p = wrap(c0 + code.shift[e], z), q = p >> 5;
+        const unsigned* col = words + (code.colz[e] >> 5);
+        par ^= __funnelshift_r(col[q], col[q + 1 == cw_words ? 0 : q + 1],
+                               p & 31);
+    }
+    return par != 0;
+}
+
+// Shared memory per warp of the check pass: the hard decisions as bytes
+// (24·z), then as bit words (3·z bytes), rounded up to 16 bytes.
+__host__ __device__ __forceinline__ int check_stride(int z) {
+    return (27 * z + 15) & ~15;
+}
+
+__global__ void __launch_bounds__(32 * kCheckWarps)
+minsum_check_kernel(const float* __restrict__ lam, float* __restrict__ totals,
+                    unsigned char* __restrict__ unsat,
+                    int* __restrict__ passes, int* __restrict__ work,
+                    const __grid_constant__ Code code, long long L,
+                    int iters) {
+    extern __shared__ __align__(16) unsigned char hard_sm[];
+    const int z = code.z, n = kBlockCols * z, n4 = n / 4;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const long long cw = static_cast<long long>(blockIdx.x) * kCheckWarps + w;
+    if (cw >= L) return;   // the whole warp
+    // the warp's hard decisions: n bytes, then n / 32 bit words
+    unsigned char* hard = hard_sm + static_cast<size_t>(w) * check_stride(z);
+    const float* src = lam + cw * n;
+    float* dst = totals + cw * n;   // rows of 96·z bytes: 16-byte aligned
+    if (aligned16(lam)) {
+        const float4* s4 = reinterpret_cast<const float4*>(src);
+        float4* d4 = reinterpret_cast<float4*>(dst);
+        uchar4* h4 = reinterpret_cast<uchar4*>(hard);
+        for (int base = 0; base < n4; base += 32 * kChunk) {
+            float4 v[kChunk];
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j) {
+                const int i = base + 32 * j + lane;
+                if (i < n4) v[j] = s4[i];
+            }
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j) {
+                const int i = base + 32 * j + lane;
+                if (i < n4) {
+                    d4[i] = v[j];
+                    h4[i] = make_uchar4(v[j].x < 0.0f, v[j].y < 0.0f,
+                                        v[j].z < 0.0f, v[j].w < 0.0f);
+                }
+            }
+        }
+    } else {
+        for (int i = lane; i < n; i += 32) {
+            const float v = src[i];
+            dst[i] = v;
+            hard[i] = v < 0.0f;
+        }
+    }
+    __syncwarp();
+    // check c of block row i reads variable (c + s) mod z of each column
+    int bad = 0;
+    if ((z & 31) == 0) {
+        unsigned* words = reinterpret_cast<unsigned*>(hard + n);
+        for (int k = lane; k < n / 32; k += 32) {
+            const uint4* b = reinterpret_cast<const uint4*>(hard + 32 * k);
+            words[k] = pack16(b[0]) | pack16(b[1]) << 16;
+        }
+        __syncwarp();
+        const int items = code.mb * (z >> 5);   // (row, 32 checks)
+        for (int t = lane; t < items; t += 32) {
+            const int i = t / (z >> 5);
+            bad |= row_word_bad(words, code, i, 32 * (t - i * (z >> 5)), z);
+        }
+    } else {
+        // a lane takes checks lane, lane + 32, lane + 64 of a row at a time
+        for (int c0 = lane; c0 < z; c0 += 32 * kLaneChecks) {
+            for (int i = 0; i < code.mb; ++i) {
+                int par[kLaneChecks] = {};
+                for (int e = code.row_ptr[i]; e < code.row_ptr[i + 1]; ++e) {
+                    const unsigned char* hc = hard + code.colz[e];
+                    const int s = code.shift[e];
+#pragma unroll
+                    for (int t = 0; t < kLaneChecks; ++t) {
+                        const int c = c0 + 32 * t;
+                        if (c < z) par[t] ^= hc[wrap(c + s, z)];
+                    }
+                }
+#pragma unroll
+                for (int t = 0; t < kLaneChecks; ++t) bad |= par[t];
+            }
+        }
+    }
+    bad = __any_sync(0xffffffffu, bad);
+    if (lane == 0) {
+        unsat[cw] = bad ? 1 : 0;
+        passes[cw] = 0;
+        if (bad && iters > 0) work[2 + atomicAdd(work, 1)] = static_cast<int>(cw);
+    }
+}
 
 // True for every thread of the block when any parity check of the current
-// hard decisions is violated.
-__device__ bool unsatisfied(const float* tot, const int* rp, const int* col,
-                            const int* shf, int mb, int z) {
+// hard decisions is violated. Where z % 32 = 0 each warp packs its share
+// of the totals' signs into bit words by ballots, and a thread takes a
+// (row, 32 checks) word; otherwise thread c takes check c of every row.
+__device__ __forceinline__ bool unsatisfied(const float* tot, unsigned* words,
+                                            const Code& code, int z) {
     const int c = threadIdx.x;
     int bad = 0;
-    for (int i = 0; i < mb; ++i) {
-        int par = 0;
-        for (int e = rp[i]; e < rp[i + 1]; ++e)
-            par ^= tot[col[e] * z + wrap(c + shf[e], z)] < 0.0f ? 1 : 0;
-        bad |= par;
+    if ((z & 31) == 0) {
+        const int lane = c & 31, nk = kBlockCols * z / 32;
+        for (int k = c >> 5; k < nk; k += blockDim.x >> 5) {
+            const unsigned b = __ballot_sync(0xffffffffu,
+                                             tot[32 * k + lane] < 0.0f);
+            if (lane == 0) words[k] = b;
+        }
+        __syncthreads();
+        const int items = code.mb * (z >> 5);
+        for (int t = c; t < items; t += blockDim.x) {
+            const int i = t / (z >> 5);
+            bad |= row_word_bad(words, code, i, 32 * (t - i * (z >> 5)), z);
+        }
+    } else {
+        for (int i = 0; i < code.mb; ++i) {
+            int par = 0;
+            for (int e = code.row_ptr[i]; e < code.row_ptr[i + 1]; ++e)
+                par ^= tot[code.colz[e] + wrap(c + code.shift[e], z)] < 0.0f ? 1 : 0;
+            bad |= par;
+        }
     }
     return __syncthreads_or(bad) != 0;
 }
 
-__global__ void minsum_kernel(const float* __restrict__ lam,
-                              float* __restrict__ totals,
-                              int* __restrict__ unsat_out,
-                              int* __restrict__ passes_out, Code code,
-                              int iters) {
-    extern __shared__ float sm[];
-    const int z = code.z, E = code.E, mb = code.mb;
-    const int n = kBlockCols * z;
-    float* c2v = sm;                          // (E, z)
-    float* tot = c2v + E * z;                 // (24, z)
-    int* rp = reinterpret_cast<int*>(tot + n);
-    int* col = rp + mb + 1;
-    int* shf = col + E;
+// The sequential scan's (min, first argmin, min over the others) of
+// mag[LO, LO + N), by a tree: a pair (a, b), b after a, combines to b's
+// minimum only where it is strictly smaller, so ties keep the first edge,
+// and every value is one of the inputs.
+struct MinSearch {
+    float m1, m2;
+    int am;
+};
 
-    const int c = threadIdx.x;
-    const long long cw = blockIdx.x;
-    for (int i = c; i < n; i += blockDim.x) tot[i] = lam[cw * n + i];
-    for (int i = c; i < E * z; i += blockDim.x) c2v[i] = 0.0f;
-    for (int i = c; i <= mb; i += blockDim.x) rp[i] = code.row_ptr[i];
-    for (int i = c; i < E; i += blockDim.x) {
-        col[i] = code.col[i];
-        shf[i] = code.shift[i];
+template <int LO, int N>
+__device__ __forceinline__ MinSearch min_search(const float* mag) {
+    if constexpr (N == 1) {
+        return MinSearch{mag[LO], kBig, LO};
+    } else {
+        const MinSearch a = min_search<LO, N / 2>(mag);
+        const MinSearch b = min_search<LO + N / 2, N - N / 2>(mag);
+        return b.m1 < a.m1 ? MinSearch{b.m1, fminf(a.m1, b.m2), b.am}
+                           : MinSearch{a.m1, fminf(a.m2, b.m1), a.am};
     }
-    __syncthreads();
+}
 
-    int passes = 0;
-    bool bad = unsatisfied(tot, rp, col, shf, mb, z);
-    while (bad && passes < iters) {
-        for (int i = 0; i < mb; ++i) {
-            const int e0 = rp[i], e1 = rp[i + 1];
-            // pass 1: sign product, min, first argmin, min over the others
-            float prod = 1.0f, m1 = 0.0f, m2 = kBig;
-            int am = e0;
-            for (int e = e0; e < e1; ++e) {
-                const float v = __fsub_rn(tot[col[e] * z + wrap(c + shf[e], z)],
-                                          c2v[e * z + c]);
-                const float mag = fabsf(v);
-                prod = __fmul_rn(prod, v < 0.0f ? -1.0f : 1.0f);
-                if (e == e0) {
-                    m1 = mag;
-                } else if (mag < m1) {
-                    m2 = m1;
-                    m1 = mag;
-                    am = e;
-                } else {
-                    m2 = fminf(m2, mag);
-                }
-            }
-            // pass 2: new messages; the totals this thread read are its own
-            for (int e = e0; e < e1; ++e) {
-                const int t = col[e] * z + wrap(c + shf[e], z);
-                const float old = c2v[e * z + c];
-                const float v = __fsub_rn(tot[t], old);
-                const float sgn = v < 0.0f ? -1.0f : 1.0f;
-                const float mins = e == am ? m2 : m1;
-                const float nw = __fmul_rn(__fmul_rn(kAlpha, __fmul_rn(prod, sgn)), mins);
-                const float delta = __fsub_rn(nw, old);
-                c2v[e * z + c] = __fadd_rn(old, delta);
-                tot[t] = __fadd_rn(tot[t], delta);
-            }
-            __syncthreads();
+// One block row of degree D, edges e0 ..., updated by thread c: the
+// loads first, then the min search and the update on registers. The
+// message is (α·(prod·sgn))·mins; prod·sgn is ±1, so it equals
+// (±α)·mins with the sign taken from the parity of the negative v2c.
+template <int D>
+__device__ __forceinline__ void update_row(float* tot, float* c2v,
+                                           const Code& code, int e0, int c,
+                                           int z) {
+    int ti[D];
+    float tt[D], old[D], mag[D];
+    float* cv = c2v + e0 * z + c;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+        ti[k] = code.colz[e0 + k] + wrap(c + code.shift[e0 + k], z);
+        tt[k] = tot[ti[k]];
+        old[k] = cv[k * z];
+    }
+    unsigned neg = 0;   // bit k: v2c k < 0
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+        const float v = __fsub_rn(tt[k], old[k]);
+        mag[k] = fabsf(v);
+        neg |= (v < 0.0f ? 1u : 0u) << k;
+    }
+    const MinSearch ms = min_search<0, D>(mag);
+    const unsigned prod_neg = __popc(neg) & 1u;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+        const float mins = k == ms.am ? ms.m2 : ms.m1;
+        const float a = ((neg >> k) & 1u) != prod_neg ? -kAlpha : kAlpha;
+        const float delta = __fsub_rn(__fmul_rn(a, mins), old[k]);
+        cv[k * z] = __fadd_rn(old[k], delta);
+        tot[ti[k]] = __fadd_rn(tt[k], delta);
+    }
+}
+
+#define GF3X_ROW(D)                                     \
+    case D:                                             \
+        update_row<D>(tot, c2v, code, e0, c, z);        \
+        break;
+
+// One sweep's block rows, each compiled for its degree.
+__device__ __forceinline__ void sweep(float* tot, float* c2v, const Code& code,
+                                      int c, int z) {
+    for (int i = 0; i < code.mb; ++i) {
+        const int e0 = code.row_ptr[i];
+        switch (code.row_ptr[i + 1] - e0) {
+            GF3X_ROW(1) GF3X_ROW(2) GF3X_ROW(3) GF3X_ROW(4) GF3X_ROW(5)
+            GF3X_ROW(6) GF3X_ROW(7) GF3X_ROW(8) GF3X_ROW(9) GF3X_ROW(10)
+            GF3X_ROW(11) GF3X_ROW(12) GF3X_ROW(13) GF3X_ROW(14)
+            GF3X_ROW(15) GF3X_ROW(16) GF3X_ROW(17) GF3X_ROW(18)
+            default: break;   // make_code refuses a degree above kMaxDeg
         }
-        ++passes;
-        bad = unsatisfied(tot, rp, col, shf, mb, z);
+        __syncthreads();
     }
-    for (int i = c; i < n; i += blockDim.x) totals[cw * n + i] = tot[i];
-    if (c == 0) {
-        unsat_out[cw] = bad ? 1 : 0;
-        passes_out[cw] = passes;
+}
+
+#undef GF3X_ROW
+
+// Dynamic shared memory: the totals (24·z floats), c2v (E·z), then the
+// hard decisions' bit words (24·z / 32, used where z % 32 = 0).
+__global__ void __launch_bounds__(kMaxZ)
+minsum_decode_kernel(const float* __restrict__ lam, float* __restrict__ totals,
+                     unsigned char* __restrict__ unsat,
+                     int* __restrict__ passes_out, int* __restrict__ work,
+                     const __grid_constant__ Code code, int iters) {
+    extern __shared__ __align__(16) float sm[];
+    __shared__ int s_cw;
+    const int z = code.z, n = kBlockCols * z, n4 = n / 4, ez = code.E * z;
+    float* tot = sm;
+    float* c2v = sm + n;
+    unsigned* words = reinterpret_cast<unsigned*>(c2v + ez);
+    const int c = threadIdx.x;
+    const bool vec = aligned16(lam);
+    for (;;) {
+        if (c == 0) {
+            const int i = atomicAdd(work + 1, 1);
+            s_cw = i < work[0] ? work[2 + i] : -1;
+        }
+        __syncthreads();
+        const long long cw = s_cw;
+        if (cw < 0) return;   // every thread read the same s_cw
+        if (vec) {
+            const float4* s4 = reinterpret_cast<const float4*>(lam + cw * n);
+            for (int i = c; i < n4; i += blockDim.x)
+                reinterpret_cast<float4*>(tot)[i] = s4[i];
+        } else {
+            for (int i = c; i < n; i += blockDim.x) tot[i] = lam[cw * n + i];
+        }
+        for (int i = c; i < ez; i += blockDim.x) c2v[i] = 0.0f;
+        __syncthreads();
+
+        // the check pass found this codeword unsatisfied, and iters > 0
+        int passes = 0;
+        bool bad = true;
+        while (bad && passes < iters) {
+            sweep(tot, c2v, code, c, z);
+            ++passes;
+            bad = unsatisfied(tot, words, code, z);
+        }
+        float4* d4 = reinterpret_cast<float4*>(totals + cw * n);
+        for (int i = c; i < n4; i += blockDim.x)
+            d4[i] = reinterpret_cast<const float4*>(tot)[i];
+        if (c == 0) {
+            unsat[cw] = bad ? 1 : 0;
+            passes_out[cw] = passes;
+        }
+        // tot is rewritten only after the next pull's barrier
     }
+}
+
+// The code from the host's edge tables; false where it exceeds the
+// parameter bank's arrays, a block-row degree is outside 1 ... kMaxDeg or
+// z is outside 1 ... kMaxZ.
+bool make_code(const int* row_ptr, const int* col, const int* shift, int mb,
+               int E, int z, Code* code) {
+    if (mb < 1 || mb > kMaxRows || E < 1 || E > kMaxEdges || z < 1
+        || z > kMaxZ || row_ptr[0] != 0 || row_ptr[mb] != E)
+        return false;
+    code->mb = mb;
+    code->E = E;
+    code->z = z;
+    for (int i = 0; i <= mb; ++i) {
+        code->row_ptr[i] = row_ptr[i];
+        const int d = i > 0 ? row_ptr[i] - row_ptr[i - 1] : 1;
+        if (d < 1 || d > kMaxDeg) return false;
+    }
+    for (int e = 0; e < E; ++e) {
+        code->colz[e] = col[e] * z;
+        code->shift[e] = shift[e];
+    }
+    return true;
+}
+
+// Blocks of the decode kernel resident on the current device at once,
+// computed once per (device, block size, shared memory).
+int decode_grid(int z, size_t smem, long long L) {
+    static int dev_k = -1, z_k = -1, blocks = 0;
+    static size_t smem_k = 0;
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+    if (dev != dev_k || z != z_k || smem != smem_k) {
+        int sms = 0, per_sm = 0;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, minsum_decode_kernel, z, smem);
+        blocks = sms * (per_sm > 0 ? per_sm : 1);
+        dev_k = dev;
+        z_k = z;
+        smem_k = smem;
+    }
+    return static_cast<int>(L < blocks ? L : blocks);
 }
 
 }  // namespace
 
-GF3X_EXPORT int gf3x_minsum_totals(const float* lam, float* totals,
-                                   int* unsat, int* passes,
-                                   const int* row_ptr, const int* col,
-                                   const int* shift, long long L, int mb,
-                                   int E, int z, int iters, void* stream) {
-    Code code{row_ptr, col, shift, mb, E, z};
-    const size_t smem = (static_cast<size_t>(E) * z + kBlockCols * z) * sizeof(float) +
-                        (mb + 1 + 2 * static_cast<size_t>(E)) * sizeof(int);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            minsum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
+GF3X_EXPORT int gf3x_minsum_check(const float* lam, float* totals,
+                                  unsigned char* unsat, int* passes,
+                                  int* work, const int* row_ptr,
+                                  const int* col, const int* shift,
+                                  long long L, int mb, int E, int z,
+                                  int iters, void* stream) {
+    Code code;
+    if (!make_code(row_ptr, col, shift, mb, E, z, &code))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaMemsetAsync(work, 0, 2 * sizeof(int), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = static_cast<size_t>(kCheckWarps) * check_stride(z);
+    static size_t smem_set = 48 * 1024;
+    if (smem > smem_set) {
+        err = cudaFuncSetAttribute(minsum_check_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
+        smem_set = smem;
     }
     if (L > 0) {
-        minsum_kernel<<<static_cast<unsigned>(L), z, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-            lam, totals, unsat, passes, code, iters);
+        const long long blocks = (L + kCheckWarps - 1) / kCheckWarps;
+        minsum_check_kernel<<<static_cast<unsigned>(blocks), 32 * kCheckWarps,
+                              smem, s>>>(lam, totals, unsat, passes, work,
+                                         code, L, iters);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+GF3X_EXPORT int gf3x_minsum_decode(const float* lam, float* totals,
+                                   unsigned char* unsat, int* passes,
+                                   int* work, const int* row_ptr,
+                                   const int* col, const int* shift,
+                                   long long L, int mb, int E, int z,
+                                   int iters, void* stream) {
+    Code code;
+    if (!make_code(row_ptr, col, shift, mb, E, z, &code))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = ((static_cast<size_t>(E) + kBlockCols) * z +
+                         kBlockCols * z / 32) * sizeof(float);
+    static size_t smem_set = 48 * 1024;   // the largest size allowed so far
+    if (smem > smem_set) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            minsum_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        smem_set = smem;
+    }
+    const int grid = decode_grid(z, smem, L);
+    if (grid > 0) {
+        minsum_decode_kernel<<<grid, z, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+            lam, totals, unsat, passes, work, code, iters);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -26,28 +26,77 @@
 // data symbol; B reads them back and writes R LLRs. The intermediate eq is
 // B·D·U·8 bytes (45.9 MB at B = 1024 and GF3 geometry), written once and
 // read once: that round trip is the split's price against the fused
-// kernel. Design: one block per (frame, data symbol) for both; in A one
-// thread per used bin, in B one thread per data bin, with the PAM levels
-// of the three orders staged from the kernel's parameter (constant) bank
-// into shared memory.
+// kernel.
+//
+// Kernel A has kernel 2's layout (fused_eq.cu): a block takes one frame and
+// stages Ĥ and |Ĥ|² in shared memory once; each of its W warps walks data
+// symbols w, w + W, ..., copying the next one's bins into its second
+// buffer with cp.async while it runs the current one through
+// gf3x_track_symbol_warp, then derotates every used bin and stores the eq
+// row as coalesced 8-byte stores. W and the shared memory come from the
+// wrapper (fused_eq_geometry with demap=False). Kernel B is one block per
+// (frame, data symbol), one thread per data bin, with the PAM levels of
+// the three orders staged from the kernel's parameter (constant) bank into
+// shared memory.
 #include "eq_demap.cuh"
 
 namespace {
 
-__global__ void eq_track_kernel(const __grid_constant__ TrackArgs a,
-                                float2* eq, float* slope, float* cpe,
-                                float* nv_sym) {
-    extern __shared__ float sm[];
-    const int b = blockIdx.x / a.D;
-    const int d = blockIdx.x % a.D;
-    const int k = threadIdx.x;
-    const TrackedBin t = gf3x_eq_track_symbol(a, b, d, sm);
-    const long long o = static_cast<long long>(b) * a.D + d;
-    if (k < a.U) eq[o * a.U + k] = make_float2(t.xr, t.xi);
-    if (k == 0) {
-        slope[o] = t.slope;
-        cpe[o] = t.cpe;
-        nv_sym[o] = t.nv_sym;
+struct TrackOut {
+    TrackArgs t;
+    float2* eq;          // (B, D, U) derotated equalized bins
+    float* slope;        // (B, D)
+    float* cpe;          // (B, D)
+    float* nv_sym;       // (B, D)
+    int warps;           // W: warp w takes data symbols w, w + W, ...
+    int nbuf;            // symbol buffers per warp: 2 when W < D, else 1
+};
+
+// Dynamic shared memory, in floats (the wrapper's fused_eq_geometry with
+// demap=False computes the same): Ĥ (2U) | W·nbuf symbol buffers (2U
+// each) | |Ĥ|² (U) | W pilot scratches (4P each).
+__global__ void __launch_bounds__(1024)
+eq_track_kernel(const __grid_constant__ TrackOut a) {
+    extern __shared__ __align__(16) float sm[];
+    const TrackArgs& t = a.t;
+    const int U = t.U, P = t.P, D = t.D, W = a.warps;
+    const int b = blockIdx.x;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    float2* hs = reinterpret_cast<float2*>(sm);
+    float2* buf = hs + U + static_cast<size_t>(w) * a.nbuf * U;
+    float* h2s = sm + 2 * U + 2 * U * W * a.nbuf;
+    float* zr = h2s + U + 4 * P * w;
+    float* zi = zr + P;
+    float* dr = zi + P;
+    float* di = dr + P;
+
+    // the warp's first symbol is in flight while the block stages Ĥ
+    gf3x_fetch_symbol(t, b, w, buf, lane);
+    for (int k = threadIdx.x; k < U; k += blockDim.x) {
+        const float2 h = t.h[static_cast<long long>(b) * U + k];
+        hs[k] = h;
+        h2s[k] = h.x * h.x + h.y * h.y;
+    }
+    __syncthreads();
+
+    for (int d = w, i = 0; d < D; d += W, ++i) {
+        float2* cur = buf + (i & (a.nbuf - 1)) * U;
+        gf3x_fetch_symbol(t, b, d + W, buf + ((i + 1) & (a.nbuf - 1)) * U,
+                          lane);
+        gf3x_cp_async_wait_all_but_newest();
+        __syncwarp();
+        const SymbolFit f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, zr, zi,
+                                                   dr, di, lane);
+        const long long o = static_cast<long long>(b) * D + d;
+        float2* row = a.eq + o * U;
+        for (int k = lane; k < U; k += 32)
+            row[k] = gf3x_derotate(cur[k], f.slope, k, f.cpe);
+        if (lane == 0) {
+            a.slope[o] = f.slope;
+            a.cpe[o] = f.cpe;
+            a.nv_sym[o] = f.nv_sym;
+        }
+        __syncwarp();   // cur and the scratch are rewritten next
     }
 }
 
@@ -106,31 +155,39 @@ GF3X_EXPORT int gf3x_eq_track(
         const float* y, const float* h, const float* nv, const float* pv,
         float* eq, float* slope, float* cpe, float* nv_sym, long long B,
         int S, int K, int U, int P, int sp, int n_ladder, int q0,
-        float base0, int q1, float base1, float mean_dk, void* stream) {
-    TrackArgs a;
-    a.y = reinterpret_cast<const float2*>(y);
-    a.h = reinterpret_cast<const float2*>(h);
-    a.nv = nv;
-    a.pv = reinterpret_cast<const float2*>(pv);
-    a.S = S;
-    a.K = K;
-    a.D = S - K;
-    a.U = U;
-    a.P = P;
-    a.sp = sp;
-    a.n_ladder = n_ladder;
-    a.ladder_q[0] = q0;
-    a.ladder_q[1] = q1;
-    a.ladder_base[0] = base0;
-    a.ladder_base[1] = base1;
-    a.mean_dk = mean_dk;
-    const long long nblocks = B * a.D;
-    const int threads = ((U + 31) / 32) * 32;
-    const size_t smem = gf3x_track_smem_floats(P) * sizeof(float);
-    if (nblocks > 0) {
-        eq_track_kernel<<<static_cast<unsigned>(nblocks), threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-            a, reinterpret_cast<float2*>(eq), slope, cpe, nv_sym);
+        float base0, int q1, float base1, float mean_dk, int warps, int nbuf,
+        int smem, void* stream) {
+    TrackOut a;
+    a.t.y = reinterpret_cast<const float2*>(y);
+    a.t.h = reinterpret_cast<const float2*>(h);
+    a.t.nv = nv;
+    a.t.pv = reinterpret_cast<const float2*>(pv);
+    a.t.S = S;
+    a.t.K = K;
+    a.t.D = S - K;
+    a.t.U = U;
+    a.t.P = P;
+    a.t.sp = sp;
+    a.t.n_ladder = n_ladder;
+    a.t.ladder_q[0] = q0;
+    a.t.ladder_q[1] = q1;
+    a.t.ladder_base[0] = base0;
+    a.t.ladder_base[1] = base1;
+    a.t.mean_dk = mean_dk;
+    a.eq = reinterpret_cast<float2*>(eq);
+    a.slope = slope;
+    a.cpe = cpe;
+    a.nv_sym = nv_sym;
+    a.warps = warps;
+    a.nbuf = nbuf;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            eq_track_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    if (B > 0) {
+        eq_track_kernel<<<static_cast<unsigned>(B), 32 * warps, smem,
+                          static_cast<cudaStream_t>(stream)>>>(a);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -27,7 +27,6 @@ class LdpcCode:
         self.m = self.mb * z
         self.k = self.n - self.m
         self.P = gf2_solve_parity(z, rate)          # (m, k) uint8
-        self._edges = {}                             # device → kernel tables
 
     @classmethod
     @functools.lru_cache(maxsize=None)
@@ -64,10 +63,4 @@ class LdpcCode:
     def decode_totals(self, lam: torch.Tensor, iters: int):
         """lam (L, n) f32 → (totals (L, n), unsat (L,) bool, passes (L,)
         int32) through `ops.kernels.ldpc_bp.minsum_totals`."""
-        edges = None
-        if lam.device.type == "cuda":
-            if lam.device not in self._edges:
-                self._edges[lam.device] = ldpc_bp.device_edges(
-                    self.z, self.rate, lam.device)
-            edges = self._edges[lam.device]
-        return ldpc_bp.minsum_totals(lam, self.z, self.rate, iters, edges)
+        return ldpc_bp.minsum_totals(lam, self.z, self.rate, iters)

@@ -15,8 +15,8 @@ launches. Both return
     mabs  (B,) f32 — mean |llr|.
 
 The kernel takes one frame per block and one data symbol per warp at a
-time; `fused_eq_geometry` chooses the warps per block and the shared
-memory for a batch, and the CPU tests reach it.
+time, as kernel A does; `fused_eq_geometry` chooses the warps per block
+and the shared memory of either for a batch, and the CPU tests reach it.
 """
 
 from __future__ import annotations
@@ -58,11 +58,12 @@ def fused_eq_demap_plain(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
 
 @dataclass(frozen=True)
 class FusedGeometry:
-    """Kernel 2's launch: one block per frame with `warps` warps; warp w
-    takes data symbols w, w + warps, ... (`passes` of them at most), each
-    through `nbuf` shared-memory symbol buffers (2: the next symbol's copy
-    overlaps the current one's work); `smem` bytes of dynamic shared
-    memory per block."""
+    """The launch of kernel 2, or of kernel A (`split_eq.eq_track`), which
+    has its layout: one block per frame with `warps` warps; warp w takes
+    data symbols w, w + warps, ... (`passes` of them at most), each through
+    `nbuf` shared-memory symbol buffers (2: the next symbol's copy overlaps
+    the current one's work); `smem` bytes of dynamic shared memory per
+    block."""
 
     warps: int
     passes: int
@@ -74,21 +75,25 @@ class FusedGeometry:
         return range(warp, D, self.warps)
 
 
-def _smem_bytes(U: int, P: int, warps: int, nbuf: int) -> int:
-    """fused_eq.cu's layout: Ĥ (2U floats), the warps' symbol buffers (2U
-    each), |Ĥ|² and its clamped inverse (U each), the warps' pilot scratch
-    (4P each) and sums (2)."""
-    return 4 * (4 * U + warps * (2 * U * nbuf + 4 * P + 2))
+def _smem_bytes(U: int, P: int, warps: int, nbuf: int,
+                demap: bool = True) -> int:
+    """The kernels' layout: Ĥ (2U floats), the warps' symbol buffers (2U
+    each), |Ĥ|² (U) and the warps' pilot scratch (4P each); kernel 2
+    (`demap`) adds the clamped inverse of |Ĥ|² (U) and the warps' two
+    sums."""
+    if demap:
+        return 4 * (4 * U + warps * (2 * U * nbuf + 4 * P + 2))
+    return 4 * (3 * U + warps * (2 * U * nbuf + 4 * P))
 
 
 @functools.lru_cache(maxsize=None)
-def fused_eq_geometry(cfg: ModemConfig, B: int,
-                      sms: int = H100_SMS) -> FusedGeometry:
-    """Warps per block for a batch of B frames on `sms` SMs: of the warp
-    counts whose shared memory fits a block, the one with the fewest
-    symbols in a row per warp slot (waves of resident blocks × symbols per
-    warp), then the most resident warps, then the fewest warps. Raises if
-    no count fits."""
+def fused_eq_geometry(cfg: ModemConfig, B: int, sms: int = H100_SMS,
+                      demap: bool = True) -> FusedGeometry:
+    """Warps per block for a batch of B frames on `sms` SMs, for kernel 2
+    (`demap`) or kernel A: of the warp counts whose shared memory fits a
+    block, the one with the fewest symbols in a row per warp slot (waves
+    of resident blocks × symbols per warp), then the most resident warps,
+    then the fewest warps. Raises if no count fits."""
     D, U, P = cfg.n_data_symbols, cfg.n_used, cfg.n_pilots
     best, best_key = None, None
     for warps in range(1, min(D, 32) + 1):
@@ -96,7 +101,7 @@ def fused_eq_geometry(cfg: ModemConfig, B: int,
         if -(-D // passes) != warps:    # the same passes with fewer warps
             continue
         nbuf = 2 if passes > 1 else 1
-        smem = _smem_bytes(U, P, warps, nbuf)
+        smem = _smem_bytes(U, P, warps, nbuf, demap)
         if smem > SMEM_BLOCK:
             continue
         resident = min(WARPS_SM // warps, BLOCKS_SM,
@@ -106,8 +111,8 @@ def fused_eq_geometry(cfg: ModemConfig, B: int,
         if best_key is None or key < best_key:
             best, best_key = FusedGeometry(warps, passes, nbuf, smem), key
     if best is None:
-        raise ValueError(f"fused_eq_demap: no warp count fits U={U}, P={P} "
-                         f"in {SMEM_BLOCK} bytes of shared memory")
+        raise ValueError(f"fused_eq_geometry: no warp count fits U={U}, "
+                         f"P={P} in {SMEM_BLOCK} bytes of shared memory")
     return best
 
 

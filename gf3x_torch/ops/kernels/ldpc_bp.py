@@ -4,12 +4,17 @@ gf3x/ops/pallas/ldpc_bp.py:minsum_totals_tpu), with its plain PyTorch
 version: LdpcCode._minsum_xla (gf3x/fec/ldpc.py:301), op for op, so that
 the two agree bit for bit.
 
-`minsum_totals` runs the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor (or raises); `minsum_totals.launches` counts the
-launches. Both map lam (L, 24·z) f32 LLRs (positive ⇒ bit 0), one codeword
-per row, to (totals (L, 24·z) f32, unsat (L,) bool — a parity check of the
-final hard decisions is still violated —, passes (L,) int32 — message
-sweeps the codeword ran before it froze or hit `iters`)."""
+`minsum_totals` runs the plain version for a CPU tensor and for a CUDA
+tensor launches the kernel's two passes (or raises): the check pass over
+every codeword (`minsum_check`), then the decode pass over the codewords
+that fail it (`minsum_decode`), each with its plain version and its count
+of launches in `.launches`; `minsum_totals.launches` counts the calls.
+Both map lam (L, 24·z) f32 LLRs (positive ⇒ bit 0), one codeword per row,
+to (totals (L, 24·z) f32, unsat (L,) bool — a parity check of the final
+hard decisions is still violated —, passes (L,) int32 — message sweeps the
+codeword ran before it froze or hit `iters`). With the freeze rule each
+codeword decodes independently of the batch, so decoding the failing ones
+alone gives the whole batch's result."""
 
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ import torch
 from ...fec.codes import N_BLOCK_COLS, block_rows, build_H_blocks
 from ...utils.device import launch
 
-__all__ = ["minsum_totals", "minsum_totals_plain", "row_edges", "device_edges"]
+__all__ = ["minsum_totals", "minsum_totals_plain", "minsum_check",
+           "minsum_check_plain", "minsum_decode", "minsum_decode_plain",
+           "row_edges", "kernel_edges"]
 
 _ALPHA = 0.8
 _BIG = 1e30
@@ -84,42 +91,118 @@ def minsum_totals_plain(lam: torch.Tensor, z: int, rate: str, iters: int):
     return tot.reshape(L, -1), _unsat(tot, rows), passes
 
 
-def device_edges(z: int, rate: str, device) -> tuple:
-    """(row_ptr, col, shift) int32 on `device`: the edge list for the
-    kernel, row-major as `build_H_blocks` orders it."""
+def minsum_check_plain(lam: torch.Tensor, z: int, rate: str):
+    """The check pass's plain version: lam (L, 24·z) → (unsat (L,) bool —
+    a parity check of lam's hard decisions is violated —, totals = a copy
+    of lam)."""
+    tot = lam.reshape(lam.shape[0], N_BLOCK_COLS, z)
+    return _unsat(tot, row_edges(z, rate)), lam.clone()
+
+
+def minsum_decode_plain(lam: torch.Tensor, totals: torch.Tensor,
+                        unsat: torch.Tensor, passes: torch.Tensor, z: int,
+                        rate: str, iters: int):
+    """The decode pass's plain version: `minsum_totals_plain` of the
+    codewords the check pass left unsatisfied (none when iters is 0),
+    written in place into the check pass's totals, unsat and passes."""
+    idx = torch.nonzero(unsat).flatten() if iters > 0 else unsat[:0]
+    if idx.numel():
+        totals[idx], unsat[idx], passes[idx] = minsum_totals_plain(
+            lam[idx], z, rate, iters)
+    return totals, unsat, passes
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_edges(z: int, rate: str) -> tuple:
+    """The edge list the kernels copy into their parameter bank at each
+    launch: ((row_ptr, col, shift) int32 host arrays, row-major as
+    `build_H_blocks` orders them, and their addresses)."""
     rows = row_edges(z, rate)
     ptr = np.cumsum([0] + [len(r) for r in rows]).astype(np.int32)
     col = np.array([j for r in rows for _, j, _ in r], np.int32)
     shf = np.array([s for r in rows for _, _, s in r], np.int32)
-    return tuple(torch.as_tensor(a, device=device) for a in (ptr, col, shf))
+    return (ptr, col, shf), tuple(a.ctypes.data for a in (ptr, col, shf))
 
 
-def minsum_totals(lam: torch.Tensor, z: int, rate: str, iters: int,
-                  edges: tuple | None = None):
-    """`minsum_totals_plain` for a CPU tensor; the CUDA kernel otherwise.
-    `edges` is `(row_ptr, col, shift)` already on the card (a caller that
-    decodes often keeps it; built here otherwise)."""
+def _check_lam(name: str, lam: torch.Tensor, z: int) -> None:
+    if lam.device.type != "cuda":
+        raise ValueError(f"{name}: lam on {lam.device}")
+    if lam.dtype != torch.float32 or lam.dim() != 2 \
+            or lam.shape[1] != N_BLOCK_COLS * z \
+            or not lam.is_contiguous() or not 1 <= z <= 512:
+        raise ValueError(f"{name}: needs contiguous lam (L, 24·z) float32 "
+                         "with 1 ≤ z ≤ 512 (the decode pass's block)")
+
+
+def _check_pass(lam: torch.Tensor, z: int, rate: str, iters: int):
+    """Launch the check pass: (totals, unsat, passes, work) — work is the
+    device list of the codewords queued for the decode pass (none when
+    iters is 0)."""
+    L = lam.shape[0]
+    (_, col, _), (ptr_a, col_a, shf_a) = kernel_edges(z, rate)
+    totals = torch.empty_like(lam)
+    unsat = torch.empty(L, dtype=torch.bool, device=lam.device)
+    pw = torch.empty(2 * L + 2, dtype=torch.int32, device=lam.device)
+    passes, work = pw[:L], pw[L:]
+    launch("gf3x_minsum_check", lam.device.index, lam.data_ptr(),
+           totals.data_ptr(), unsat.data_ptr(), passes.data_ptr(),
+           work.data_ptr(), ptr_a, col_a, shf_a, L, block_rows(rate),
+           col.size, z, iters)
+    minsum_check.launches += 1
+    return totals, unsat, passes, work
+
+
+def minsum_check(lam: torch.Tensor, z: int, rate: str):
+    """`minsum_check_plain` for a CPU tensor; the check pass's kernel alone
+    otherwise (nothing queued)."""
+    if lam.device.type == "cpu":
+        return minsum_check_plain(lam, z, rate)
+    _check_lam("minsum_check", lam, z)
+    totals, unsat, _, _ = _check_pass(lam, z, rate, 0)
+    return unsat, totals
+
+
+minsum_check.launches = 0
+
+
+def minsum_decode(lam: torch.Tensor, totals: torch.Tensor,
+                  unsat: torch.Tensor, passes: torch.Tensor,
+                  work: torch.Tensor | None, z: int, rate: str, iters: int):
+    """`minsum_decode_plain` for CPU tensors (`work` is not read: the
+    queued codewords are the unsatisfied ones); otherwise the decode
+    pass's kernel over the check pass's device work list `work`, which
+    completes totals, unsat and passes in place."""
+    if lam.device.type == "cpu":
+        return minsum_decode_plain(lam, totals, unsat, passes, z, rate, iters)
+    _check_lam("minsum_decode", lam, z)
+    L = lam.shape[0]
+    if (work is None or work.shape != (L + 2,) or totals.shape != lam.shape
+            or unsat.shape != (L,) or passes.shape != (L,)):
+        raise ValueError("minsum_decode: needs the check pass's totals, "
+                         "unsat, passes and work list")
+    (_, col, _), (ptr_a, col_a, shf_a) = kernel_edges(z, rate)
+    launch("gf3x_minsum_decode", lam.device.index, lam.data_ptr(),
+           totals.data_ptr(), unsat.data_ptr(), passes.data_ptr(),
+           work.data_ptr(), ptr_a, col_a, shf_a, L, block_rows(rate),
+           col.size, z, iters)
+    minsum_decode.launches += 1
+    return totals, unsat, passes
+
+
+minsum_decode.launches = 0
+
+
+def minsum_totals(lam: torch.Tensor, z: int, rate: str, iters: int):
+    """`minsum_totals_plain` for a CPU tensor; otherwise the check pass,
+    then the decode pass over the codewords it queued (no host
+    synchronisation between them)."""
     if lam.device.type == "cpu":
         return minsum_totals_plain(lam, z, rate, iters)
-    if lam.device.type != "cuda":
-        raise ValueError(f"minsum_totals: lam on {lam.device}")
-    L, n = lam.shape
-    if lam.dtype != torch.float32 or n != N_BLOCK_COLS * z \
-            or not lam.is_contiguous() or not 1 <= z <= 1024:
-        raise ValueError("minsum_totals: needs contiguous lam (L, 24·z) "
-                         "float32 with 1 ≤ z ≤ 1024")
-    if edges is None:
-        edges = device_edges(z, rate, lam.device)
-    row_ptr, col, shf = edges
-    totals = torch.empty_like(lam)
-    unsat = torch.empty(L, dtype=torch.int32, device=lam.device)
-    passes = torch.empty(L, dtype=torch.int32, device=lam.device)
-    launch("gf3x_minsum_totals", lam.device.index, lam.data_ptr(),
-           totals.data_ptr(), unsat.data_ptr(), passes.data_ptr(),
-           row_ptr.data_ptr(), col.data_ptr(), shf.data_ptr(), L,
-           block_rows(rate), col.numel(), z, iters)
+    _check_lam("minsum_totals", lam, z)
+    totals, unsat, passes, work = _check_pass(lam, z, rate, iters)
+    minsum_decode(lam, totals, unsat, passes, work, z, rate, iters)
     minsum_totals.launches += 1
-    return totals, unsat.bool(), passes
+    return totals, unsat, passes
 
 
 minsum_totals.launches = 0

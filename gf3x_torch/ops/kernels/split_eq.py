@@ -112,26 +112,34 @@ def check_track_inputs(name: str, cfg: ModemConfig, Y, H, noise_var):
 
 def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
              noise_var: torch.Tensor, pilot_vals: torch.Tensor | None = None):
-    """`eq_track_plain` for CPU tensors; kernel A otherwise."""
+    """`eq_track_plain` for CPU tensors; kernel A otherwise, launched with
+    kernel 2's per-config constants and its layout
+    (`fused_eq.fused_eq_geometry(..., demap=False)`)."""
     if Y.device.type == "cpu":
         return eq_track_plain(cfg, Y, H, noise_var, pilot_vals)
+    from .fused_eq import (_pilot_floats, _sm_count, fused_eq_geometry,
+                           launch_constants)
+
     check_track_inputs("eq_track", cfg, Y, H, noise_var)
     dev = Y.device
     B, S, U = Y.shape
     D = cfg.n_data_symbols
-    if pilot_vals is None:
-        pilot_vals = torch.as_tensor(layout(cfg).pilot_vals, device=dev)
-    y = torch.view_as_real(Y.contiguous())
-    h = torch.view_as_real(H.contiguous())
+    pv = (_pilot_floats(cfg, dev) if pilot_vals is None else
+          torch.view_as_real(pilot_vals.to(dev, torch.complex64)
+                             .contiguous()))
+    mean_dk, n_ladder, q0, b0, q1, b1 = launch_constants(cfg)[0]
+    geo = fused_eq_geometry(cfg, B, _sm_count(dev.index), demap=False)
+    # the inputs stay bound until the launch: a temporary's memory could be
+    # handed to the next allocation before the kernel reads it
+    y, h = Y.contiguous(), H.contiguous()
     nv = noise_var.to(torch.float32).contiguous()
-    pv = torch.view_as_real(pilot_vals.to(dev, torch.complex64).contiguous())
     eq = torch.empty(B, D, U, dtype=torch.complex64, device=dev)
     slope, cpe, nv_sym = torch.empty(3, B, D, device=dev)
-    mean_dk, n_ladder, q0, b0, q1, b1 = track_constants(cfg)
     launch("gf3x_eq_track", dev.index, y.data_ptr(), h.data_ptr(),
            nv.data_ptr(), pv.data_ptr(), eq.data_ptr(), slope.data_ptr(),
            cpe.data_ptr(), nv_sym.data_ptr(), B, S, cfg.n_known_symbols, U,
-           cfg.n_pilots, cfg.pilot_spacing, n_ladder, q0, b0, q1, b1, mean_dk)
+           cfg.n_pilots, cfg.pilot_spacing, n_ladder, q0, b0, q1, b1, mean_dk,
+           geo.warps, geo.nbuf, geo.smem)
     eq_track.launches += 1
     return eq, slope, cpe, nv_sym
 

@@ -1,6 +1,7 @@
-"""The plain versions of gf3x_torch's three CUDA kernels, against the gf3x
-functions they replace, on the CPU (where every kernel wrapper runs its
-plain version); plus the wrappers' dispatch rule and the build recipe.
+"""The plain versions of gf3x_torch's first three CUDA kernels, against the
+gf3x functions they replace (kernel 2's against its XLA twin and its Pallas
+kernel), on the CPU (where every kernel wrapper runs its plain version);
+plus the wrappers' dispatch rule and the build recipe.
 
 The kernels themselves run only on the card: `chip_smoke.py` compares each
 with its plain version there."""
@@ -56,6 +57,46 @@ def test_fused_eq_demap_plain_matches_xla_twin(bps):
     # and the LLRs decode: hard bits match the transmitted channel bits
     coded = np.asarray(jm.fec_encode(jnp.asarray(info)))
     assert np.mean((llr_t < 0) != coded) < 1e-3
+
+
+@pytest.mark.parametrize("bps", [2, 4])
+def test_fused_eq_demap_plain_matches_pallas_interpret(bps):
+    """Kernel 2's plain version against gf3x's Pallas kernel itself
+    (`Modem._fused_eq_demap(interpret=True)`) on the same Y, H and noise
+    floor, compared in the canonical `coded_stream_llr` order: hard
+    decisions exact, slope/cpe ≤ 1e-4 rad, and soft values within
+    1e-4·mean|LLR|, inside gf3x's own bound for that kernel against its
+    twin, 0.02·mean|LLR| + 1e-3 (tests/test_pallas_kernels.py). The
+    Pallas kernel takes its angles from a polynomial and the port from
+    atan2f; the gaps observed here are 1.0e-5·mean|LLR| at QPSK and
+    2.7e-5·mean|LLR| at 16-QAM."""
+    from gf3x.ops.chanest import estimate_channel
+    from gf3x.ops.ofdm import ofdm_demodulate
+
+    cfg = GF3_STANDARD.replace(bits_per_symbol=bps, fec="none",
+                               n_data_symbols=6)
+    jm, tm = JModem(cfg), TModem(cfg, device="cpu")
+    rng = np.random.default_rng(10 + bps)
+    info = rng.integers(0, 2, (3, cfg.payload_bits_per_frame), dtype=np.uint8)
+    wav = np.asarray(jm.modulate_frames(jnp.asarray(info)))
+    a = cfg.preamble_len - cfg.cp // 4
+    need = (cfg.n_known_symbols + cfg.n_data_symbols) * cfg.symbol_len
+    body = jnp.asarray((wav[:, a: a + need] + rng.normal(0, 3e-3, (3, need)))
+                       .astype(np.float32))
+    Y = ofdm_demodulate(cfg, body)
+    H, nv = estimate_channel(cfg, Y[..., : cfg.n_known_symbols, :])
+    fused, (_, _, sl_p, cp_p, _, _) = jm._fused_eq_demap(Y, H, nv, (3,),
+                                                         interpret=True)
+    ref = np.asarray(jm.coded_stream_llr(fused, (3,)))
+    llr, slope, cpe, _, _ = fused_eq.fused_eq_demap_plain(
+        cfg, *(torch.as_tensor(np.array(x)) for x in (Y, H, nv)))
+    got = tm.coded_stream_llr(llr).numpy()
+    assert got.shape == ref.shape == (3, cfg.raw_bits_per_frame)
+    assert np.array_equal(got < 0, ref < 0)
+    scale = np.mean(np.abs(ref))
+    assert np.max(np.abs(got - ref)) <= 1e-4 * scale
+    assert np.max(np.abs(slope.numpy() - np.asarray(sl_p))) <= 1e-4
+    assert np.max(np.abs(cpe.numpy() - np.asarray(cp_p))) <= 1e-4
 
 
 def _noisy_codewords(code, L, seed, sigma=0.8):
@@ -161,11 +202,11 @@ def test_cut_symbols_wrapper_dispatch():
 
 
 @pytest.mark.parametrize("which", ["fused_eq", "ldpc", "eq_track",
-                                   "demap_bins"])
+                                   "demap_bins", "ldpc_check", "ldpc_decode"])
 def test_other_wrappers_refuse_non_cpu_tensors(which):
-    """Kernels 2 and 3, and the split tail's kernels A and B, likewise
-    refuse a tensor that is neither on the CPU nor on a CUDA device, and
-    count no launch."""
+    """Kernels 2 and 3 (and each of kernel 3's two passes), and the split
+    tail's kernels A and B, likewise refuse a tensor that is neither on the
+    CPU nor on a CUDA device, and count no launch."""
     cfg = GF3_STANDARD
     Y = torch.zeros(1, 24, cfg.n_used, dtype=torch.complex64, device="meta")
     H = torch.zeros(1, cfg.n_used, dtype=torch.complex64, device="meta")
@@ -182,6 +223,17 @@ def test_other_wrappers_refuse_non_cpu_tensors(which):
         call = lambda: split_eq.demap_bins(  # noqa: E731
             cfg, Y[:, 4:], H, torch.zeros(1, 20, device="meta"), tables)
         fn = split_eq.demap_bins
+    elif which == "ldpc_check":
+        lam = torch.zeros(4, 24 * 96, device="meta")
+        call = lambda: ldpc_bp.minsum_check(lam, 96, "1/2")  # noqa: E731
+        fn = ldpc_bp.minsum_check
+    elif which == "ldpc_decode":
+        lam = torch.zeros(4, 24 * 96, device="meta")
+        call = lambda: ldpc_bp.minsum_decode(  # noqa: E731
+            lam, lam, lam[:, 0] < 0, torch.zeros(4, dtype=torch.int32,
+                                                 device="meta"),
+            None, 96, "1/2", 5)
+        fn = ldpc_bp.minsum_decode
     else:
         lam = torch.zeros(4, 24 * 96, device="meta")
         call = lambda: ldpc_bp.minsum_totals(lam, 96, "1/2", 5)  # noqa: E731

@@ -178,28 +178,36 @@ CONFIGS = {"config5": GF3_STANDARD, "gf3-fast": GF3_FAST,
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_fused_eq_geometry_covers_every_symbol_once(name):
-    """Kernel 2's launch (one block per frame, warp w taking data symbols
-    w, w + W, ...) covers every (frame, data symbol) exactly once, gives
-    every warp a symbol, and keeps a block within 227 KB of shared memory,
-    at the batches the port runs (one recording, odd batches, 1024)."""
+    """Kernel 2's launch and kernel A's, which has its layout (one block
+    per frame, warp w taking data symbols w, w + W, ...), each cover every
+    (frame, data symbol) exactly once, give every warp a symbol, and keep a
+    block within 227 KB of shared memory, at the batches the port runs
+    (one recording, odd batches, 1024)."""
     cfg = CONFIGS[name]
     D, U, P = cfg.n_data_symbols, cfg.n_used, cfg.n_pilots
     assert name != "n_used-1024" or U == 1024
-    for B in (1, 7, 8, 64, 1023, 1024, 4096):
-        geo = fused_eq.fused_eq_geometry(cfg, B)
-        per_warp = [list(geo.symbols(w, D)) for w in range(geo.warps)]
-        seen = Counter((b, d) for b in range(B) for syms in per_warp
-                       for d in syms)
-        assert len(seen) == B * D and set(seen.values()) == {1}
-        assert all(1 <= len(s) <= geo.passes for s in per_warp)
-        assert 1 <= geo.warps <= 32
-        assert geo.nbuf == (2 if geo.passes > 1 else 1)
-        # fused_eq.cu's layout, in floats: Ĥ, the symbol buffers, |Ĥ|² and
-        # its inverse, the pilot scratch and the warps' sums
-        floats = (2 * U + 2 * U * geo.warps * geo.nbuf + 2 * U
-                  + 4 * P * geo.warps + 2 * geo.warps)
-        assert geo.smem == 4 * floats <= 232_448
-    assert fused_eq.fused_eq_geometry(cfg, 1).passes == 1
+    for demap in (True, False):
+        for B in (1, 7, 8, 64, 1023, 1024, 4096):
+            geo = fused_eq.fused_eq_geometry(cfg, B, demap=demap)
+            per_warp = [list(geo.symbols(w, D)) for w in range(geo.warps)]
+            seen = Counter((b, d) for b in range(B) for syms in per_warp
+                           for d in syms)
+            assert len(seen) == B * D and set(seen.values()) == {1}
+            assert all(1 <= len(s) <= geo.passes for s in per_warp)
+            assert 1 <= geo.warps <= 32
+            assert geo.nbuf == (2 if geo.passes > 1 else 1)
+            # the kernels' layouts, in floats: Ĥ, the symbol buffers, |Ĥ|²
+            # and the pilot scratch; kernel 2 adds 1/max(|Ĥ|², 1e-12) and
+            # the warps' sums (fused_eq.cu, split_eq.cu)
+            floats = (2 * U + 2 * U * geo.warps * geo.nbuf + U
+                      + 4 * P * geo.warps)
+            if demap:
+                floats += U + 2 * geo.warps
+            assert geo.smem == 4 * floats <= 232_448
+        assert fused_eq.fused_eq_geometry(cfg, 1, demap=demap).passes == 1
+    # without the demap's rows a block of kernel A needs less
+    geoA = fused_eq.fused_eq_geometry(cfg, 1024, demap=False)
+    assert geoA.smem < fused_eq._smem_bytes(U, P, geoA.warps, geoA.nbuf)
 
 
 @pytest.mark.parametrize("cfg", [GF3_STANDARD, GF3_FAST, GF3_TURBO, LONGCP],
