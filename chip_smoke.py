@@ -52,11 +52,16 @@ its check pass against its own plain version; its time is read three
 ways (CUDA events, the profiler, a CUDA graph). Kernel A is held at
 B = 1024, 1 and 7.
 
-Two other modes time kernels 3 and A alone (`time_tree`):
+Kernel 8 is also held at n_fft = 128, 1024, 2048 and 4096 on synthetic
+rows (every 16-byte alignment, windows across and past `valid`, with and
+without the SC window).
+
+Two other modes time kernels 3, A, B and 8 alone (`time_tree`):
 `python3 chip_smoke.py --time TREE` those of the port in the checkout
 TREE, and `python3 chip_smoke.py --against TREE` TREE's and this
 checkout's in turns on one card, each in its own process (for a before
-and after on one machine: unpack the parent commit into TREE).
+and after on one machine: unpack the parent commit into TREE); kernel B's
+LLRs must hash the same in every run.
 
 Phases print one line each. The last lines are a JSON object with every
 kernel's measurements (host-clock and CUDA-event times, the kernel's own
@@ -89,9 +94,9 @@ LONGCP = dict(n_fft=2048, cp=512, bin_lo=48, bin_hi=607)
 LOADING_SEED, LOADING_P = 5, [0.1, 0.4, 0.35, 0.15]
 MINSUM_KERNELS = ["minsum_check_kernel", "minsum_decode_kernel"]
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
-# What the redesigns of kernels 2, 7, 3 and A were predicted to reach on an
-# H100 80GB HBM3 at 700 W, and what the designs before them measured there
-# (PERF.md §6): printed beside this run's numbers
+# What the redesigns of kernels 2, 7, 3, A, 8 and B were predicted to reach
+# on an H100 80GB HBM3 at 700 W, and what the designs before them measured
+# there (PERF.md §6): printed beside this run's numbers
 EXPECTED = {
     "fused_eq_demap": "predicted 0.04-0.08 ms device; one block per symbol "
                       "took 0.195",
@@ -106,7 +111,17 @@ EXPECTED = {
                      "took 121.2-121.4 us and 0.99 ms",
     "eq_track": "predicted 45-75 us of kernel time; one block per symbol "
                 "took 106.5-112.1 us",
+    "cut_dft": "predicted 60-100 us of kernel time (goal <= 98, half the "
+               "bound); a block per symbol with nine radix-2 stages took "
+               "212.7 us",
+    "demap_bins": "predicted 40-60 us of kernel time (goal <= 62, half the "
+                  "bound); a block per symbol took 93.4 us",
 }
+# kernel 8 on synthetic rows at other FFT sizes: (n_fft, cp, bin_lo,
+# bin_hi), each a valid GF3_STANDARD geometry (config 5's n_fft = 1024 is
+# held on its path and here)
+CUT_DFT_SHAPES = ((128, 32, 4, 60), (1024, 256, 24, 303),
+                  (2048, 512, 48, 607), (4096, 512, 96, 1214))
 
 
 def build_batch(modem, B: int, margin: int, rng):
@@ -540,6 +555,63 @@ def hold_gather_cut(rx, q, nb, block, valid):
         2 * rx.shape[0] * L * 4 + q.numel() * 4,
         lib=gather_call(rx, cut_index(q, block, torch.arange(
             L, device=rx.device))), kernel="gather_cut_kernel"))
+
+
+def hold_cut_dft_shapes(dev, rows: int = 8, S: int = 24) -> dict:
+    """Kernel 8 against its plain version on synthetic rows at each of
+    CUT_DFT_SHAPES, with the SC window (sc_off >= 0) and without: T odd, so
+    the rows' windows start on every 16-byte alignment; q in 0..4 blocks
+    and valid = T − sym_len − block, so some windows cross `valid` and some
+    lie past it. Spectra within 1e-5 of their mean magnitude, −80 dB
+    against a float64 DFT of kernel 1's cut, and the SC window equal to
+    kernel 1's. Returns {n_fft: {sc_off: (max |ΔY| / mean |Y|, dB)}}."""
+    from gf3x_torch import GF3_STANDARD
+    from gf3x_torch.ops.kernels import cut_dft, gather_cut
+
+    out = {}
+    for n_fft, cp, lo, hi in CUT_DFT_SHAPES:
+        cfg = GF3_STANDARD.replace(n_fft=n_fft, cp=cp, bin_lo=lo, bin_hi=hi,
+                                   fec="none")
+        block, body_off = 128, cfg.sc_len + 3
+        T = body_off + S * cfg.symbol_len + 4 * block + 1
+        T += 1 - T % 2
+        rng = np.random.default_rng(n_fft)
+        rx = torch.as_tensor(rng.standard_normal((rows, T)).astype(
+            np.float32), device=dev)
+        q = torch.as_tensor(np.arange(rows) % 5, dtype=torch.int32,
+                            device=dev)
+        roll = torch.as_tensor(rng.integers(0, block, rows), dtype=torch.int32,
+                               device=dev)
+        valid = T - cfg.symbol_len - block
+        k = np.arange(lo, hi + 1)
+        ramp = np.exp(2j * np.pi * k * roll.cpu().numpy()[:, None, None]
+                      / n_fft)
+        out[n_fft] = {}
+        for sc_off in (cp + cp // 4 + 64, -1):
+            kw = dict(valid=valid, block=block, S=S, body_off=body_off,
+                      sc_off=sc_off)
+            Yk, sk = cut_dft.cut_dft(cfg, rx, q, roll, **kw)
+            Yp, _ = cut_dft.cut_dft_plain(cfg, rx, q, roll, **kw)
+            rel = float((Yk - Yp).abs().max() / Yp.abs().mean())
+            syms, s1 = gather_cut.cut_symbols(
+                rx, q, n_fft=n_fft, sym_len=cfg.symbol_len, cp=cp, **kw)
+            ref = (np.fft.rfft(syms.cpu().numpy().astype(np.float64))
+                   [..., lo: hi + 1] / cfg.ofdm_scale * ramp)
+            got = Yk.cpu().numpy().astype(np.complex128)
+            db = 10 * np.log10(np.sum(np.abs(got - ref) ** 2)
+                               / np.sum(np.abs(ref) ** 2))
+            what = f"cut_dft n_fft {n_fft}, sc_off {sc_off}"
+            check(rel <= 1e-5, f"{what}: spectra differ from the plain "
+                  f"version by {rel} of their mean magnitude")
+            check(db <= -80.0, f"{what}: {db:.1f} dB > -80 dB")
+            check(sk is None if sc_off < 0 else torch.equal(sk, s1),
+                  f"{what}: SC window differs from kernel 1's")
+            out[n_fft][sc_off] = (rel, float(db))
+        print(f"cut_dft on {rows} synthetic rows at n_fft {n_fft} "
+              f"({cut_dft.cut_dft_geometry(n_fft, S + 1)}): (max |dY| "
+              f"/ mean |Y|, dB vs float64) by sc_off {out[n_fft]}; SC window "
+              "equal to kernel 1's", flush=True)
+    return out
 
 
 def run_routes(dev, counters):
@@ -1138,10 +1210,16 @@ def main() -> None:
                 kernel="cut_dft_kernel"),
         rfft_chain_ms=median_ms(lambda: deroll(cfg, torch.fft.rfft(
             syms_k, dim=-1)[..., cfg.bin_lo: cfg.bin_hi + 1], roll)))
+    r8 = rows["cut_dft"]
+    r8["geometry"] = str(cut_dft.cut_dft_geometry(
+        n_fft, S8 + (kw["sc_off"] >= 0)))
     print(f"cut_dft: max |dY| {err8:.3g} (mean |Y| {scale8:.3g}), SC window "
           f"equal to kernel 1's, {db8:.1f} dB vs float64 (gate -80 dB); "
-          f"{rows['cut_dft']['ms']:.3f} ms vs plain "
-          f"{rows['cut_dft']['plain_ms']:.3f} ms", flush=True)
+          f"{r8['geometry']}; {r8['ms']:.3f} ms vs plain "
+          f"{r8['plain_ms']:.3f} ms; device {r8['device_ms']:.4f} ms, kernel "
+          f"{r8['kernel_us']:.1f} us, bound {r8['bound_ms']:.4f} ms "
+          f"({EXPECTED['cut_dft']})", flush=True)
+    r8["shapes"] = hold_cut_dft_shapes(dev)
     del Y8, Y8p, scw8, got8, ref8, ref, got
 
     # ---- the fused cut+DFT route, once, then both routes' steps in turns
@@ -1282,9 +1360,13 @@ def main() -> None:
                 + 4 * B * D_ + 4 * B * cfg.raw_bits_per_frame
                 + 2 * 4 * B * D_,
                 4.0 * B * cfg.raw_bits_per_frame, kernel="demap_bins_kernel"))
+    rB = rows["demap_bins"]
+    rB["geometry"] = str(split_eq.demap_geometry(cfg, B, sms))
     print(f"demap_bins: hard decisions equal, max |dLLR| {err:.3g} (mean "
-          f"|LLR| {scale:.3g}); {rows['demap_bins']['ms']:.3f} ms vs plain "
-          f"{rows['demap_bins']['plain_ms']:.3f} ms", flush=True)
+          f"|LLR| {scale:.3g}); {rB['geometry']}; {rB['ms']:.3f} ms vs plain "
+          f"{rB['plain_ms']:.3f} ms; device {rB['device_ms']:.4f} ms, kernel "
+          f"{rB['kernel_us']:.1f} us, bound {rB['bound_ms']:.4f} ms "
+          f"({EXPECTED['demap_bins']})", flush=True)
 
     # ---- kernel 3 on the loaded path's LLRs, which carry raw bit errors
     lam = modem._codeword_llrs(b_k[0]).contiguous()
@@ -1425,18 +1507,20 @@ def readings(fn, names) -> dict:
 
 
 def time_tree(tree: Path) -> dict:
-    """`--time TREE`: kernel 3 and kernel A of the gf3x_torch package in
+    """`--time TREE`: kernels 3, A, B and 8 of the gf3x_torch package in
     TREE, on this run's card, through the calls every version of the port
-    has (`LdpcCode.decode_totals`, `split_eq.eq_track`): kernel 3 on the
-    config-5 batch's codeword LLRs (0 sweeps), on the same codewords as
-    BPSK LLRs at σ = 0.8 and on a mixed batch (every fourth codeword
-    noisy), kernel A on the bit-loaded batch's spectra, each read three
-    ways (`readings`); and kernel 3's passes checked equal over repeated
-    calls."""
+    has (`LdpcCode.decode_totals`, `split_eq.eq_track`,
+    `split_eq.demap_bins`, `cut_dft.cut_dft`): kernel 3 on the config-5
+    batch's codeword LLRs (0 sweeps), on the same codewords as BPSK LLRs at
+    σ = 0.8 and on a mixed batch (every fourth codeword noisy), kernel 8 on
+    the config-5 batch's cut, kernels A and B on the bit-loaded batch
+    (B on A's output), each read three ways (`readings`); kernel 3's passes
+    checked equal over repeated calls, and the sha256 of kernel B's LLR
+    bytes."""
     sys.path.insert(0, str(tree))
     import gf3x_torch
     from gf3x_torch import GF3_STANDARD, Modem
-    from gf3x_torch.ops.kernels import fused_eq, split_eq
+    from gf3x_torch.ops.kernels import cut_dft, fused_eq, split_eq
     from gf3x_torch.utils.device import kernel_lib
 
     check(Path(gf3x_torch.__file__).resolve().is_relative_to(tree.resolve()),
@@ -1451,14 +1535,25 @@ def time_tree(tree: Path) -> dict:
                                      p=LOADING_P))), "bit_loaded")):
         modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
         rx, _, _ = build_batch(modem, B, MARGIN, np.random.default_rng(0))
-        _, _, _, _, Y, H, nv = path_inputs(modem, torch.as_tensor(rx,
-                                                                 device=dev))
+        rx = torch.as_tensor(rx, device=dev)
+        q, roll, kw, _, Y, H, nv = path_inputs(modem, rx)
         pv = modem.pilot_vals
         if label == "bit_loaded":
             out["eq_track"] = readings(
                 lambda: split_eq.eq_track(cfg, Y, H, nv, pv),
                 ["eq_track_kernel"])
+            eq, _, _, nv_sym = split_eq.eq_track(cfg, Y, H, nv, pv)
+            tables = (modem.demap_used, modem.demap_bits, modem.demap_off)
+            llr = split_eq.demap_bins(cfg, eq, H, nv_sym, tables)[0]
+            out["demap_bins"] = dict(readings(
+                lambda: split_eq.demap_bins(cfg, eq, H, nv_sym, tables),
+                ["demap_bins"]), llr_sha256=hashlib.sha256(
+                    llr.cpu().numpy().tobytes()).hexdigest())
             continue
+        kw8 = {k: kw[k] for k in ("valid", "block", "S", "body_off",
+                                  "sc_off")}
+        out["cut_dft"] = readings(
+            lambda: cut_dft.cut_dft(cfg, rx, q, roll, **kw8), ["cut_dft"])
         llr = fused_eq.fused_eq_demap(cfg, Y, H, nv, pv)[0]
         lam = modem._codeword_llrs(llr).contiguous()
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -1488,22 +1583,28 @@ def time_tree(tree: Path) -> dict:
 def compare_trees(other: Path) -> None:
     """`--against TREE`: `time_tree` of TREE and of this script's own tree
     in turns (TREE, this, this, TREE), each in its own process on this
-    run's card; prints each run's numbers as one JSON line."""
+    run's card; prints each run's numbers as one JSON line, and fails
+    unless kernel B's LLR bytes hash the same in all four."""
     here = Path(__file__).resolve().parent
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {smi}", flush=True)
+    sha = set()
     for label, tree in (("other", other), ("this", here), ("this", here),
                         ("other", other)):
         res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                               "--time", str(tree)], capture_output=True,
                              text=True, timeout=600)
         check(res.returncode == 0, f"--time {tree} failed:\n{res.stderr}")
-        print(json.dumps({"tree": label, "path": str(tree),
-                          **json.loads(res.stdout.splitlines()[-1])}),
+        got = json.loads(res.stdout.splitlines()[-1])
+        sha.add(got["demap_bins"]["llr_sha256"])
+        print(json.dumps({"tree": label, "path": str(tree), **got}),
               flush=True)
+    check(len(sha) == 1, f"kernel B's LLRs differ between the trees: {sha}")
+    print(f"demap_bins LLR sha256 equal in all four runs: {sha.pop()}",
+          flush=True)
     print(smi, flush=True)
 
 

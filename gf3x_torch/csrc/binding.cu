@@ -29,7 +29,8 @@ int gf3x_gather_cut_group(const float*, const int*, float*, long long,
                           long long, long long, long long, int, void*);
 int gf3x_cut_dft(const float*, const int*, const int*, const float*, float*,
                  float*, long long, long long, long long, int, int, int, int,
-                 int, int, int, int, int, float, void*);
+                 int, int, int, int, int, float, int, int, int, int, int, int,
+                 int, void*);
 int gf3x_fused_eq_demap(const float*, const float*, const float*,
                         const float*, float*, float*, float*, float*, float*,
                         long long, int, int, int, int, int, int, const float*,
@@ -40,8 +41,8 @@ int gf3x_eq_track(const float*, const float*, const float*, const float*,
                   int, int, int, int, float, int, float, float, int, int, int,
                   void*);
 int gf3x_demap_bins(const float*, const float*, const float*, const int*,
-                    const int*, const int*, float*, float*, float*, long long,
-                    int, int, int, int, float, float, const float*, void*);
+                    float*, float*, float*, long long, int, int, int, int,
+                    float, float, const float*, int, int, int, void*);
 int gf3x_minsum_check(const float*, float*, unsigned char*, int*, int*,
                       const int*, const int*, const int*, long long, int, int,
                       int, int, void*);
@@ -116,10 +117,11 @@ ENTRY(gf3x_gather_cut, "ppplllllp",
 ENTRY(gf3x_gather_cut_group, "ppplllllp",
       gf3x_gather_cut_group(P(0), P(1), P(2), L(3), L(4), L(5), L(6), I(7),
                             P(8)))
-ENTRY(gf3x_cut_dft, "ppppppllllllllllllfp",
+ENTRY(gf3x_cut_dft, "ppppppllllllllllllflllllllp",
       gf3x_cut_dft(P(0), P(1), P(2), P(3), P(4), P(5), L(6), L(7), L(8),
                    I(9), I(10), I(11), I(12), I(13), I(14), I(15), I(16),
-                   I(17), F(18), P(19)))
+                   I(17), F(18), I(19), I(20), I(21), I(22), I(23), I(24),
+                   I(25), P(26)))
 ENTRY(gf3x_fused_eq_demap, "ppppppppplllllllpllflfflllffp",
       gf3x_fused_eq_demap(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7),
                           P(8), L(9), I(10), I(11), I(12), I(13), I(14),
@@ -129,10 +131,10 @@ ENTRY(gf3x_eq_track, "ppppppppllllllllflfflllp",
       gf3x_eq_track(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), L(8),
                     I(9), I(10), I(11), I(12), I(13), I(14), I(15), F(16),
                     I(17), F(18), F(19), I(20), I(21), I(22), P(23)))
-ENTRY(gf3x_demap_bins, "ppppppppplllllffpp",
-      gf3x_demap_bins(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), P(8),
-                      L(9), I(10), I(11), I(12), I(13), F(14), F(15), P(16),
-                      P(17)))
+ENTRY(gf3x_demap_bins, "ppppppplllllffplllp",
+      gf3x_demap_bins(P(0), P(1), P(2), P(3), P(4), P(5), P(6), L(7), I(8),
+                      I(9), I(10), I(11), F(12), F(13), P(14), I(15), I(16),
+                      I(17), P(18)))
 ENTRY(gf3x_minsum_check, "pppppppplllllp",
       gf3x_minsum_check(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), L(8),
                         I(9), I(10), I(11), I(12), P(13)))

@@ -14,3 +14,25 @@ __device__ __forceinline__ float gf3x_warp_sum(float v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
 }
+
+// cp.async copies into shared memory: 8 bytes (through L1) or 16 (L2 only).
+__device__ __forceinline__ void gf3x_cp_async8(void* dst, const void* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void gf3x_cp_async16(void* dst, const void* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void gf3x_cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for all but the newest group: the current buffer's copy.
+__device__ __forceinline__ void gf3x_cp_async_wait_all_but_newest() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}

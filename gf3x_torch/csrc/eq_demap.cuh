@@ -125,21 +125,6 @@ __device__ __forceinline__ float gf3x_noise_floor_warp(const float* r, int P,
     return fmaxf(nv, acc / static_cast<float>(P));
 }
 
-__device__ __forceinline__ void gf3x_cp_async8(void* dst, const void* src) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
-                 :: "r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void gf3x_cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits for all but the newest group: the current symbol's copy.
-__device__ __forceinline__ void gf3x_cp_async_wait_all_but_newest() {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // Lane `lane`'s share (bins lane, lane + 32, ...) of data symbol d's bins
 // into buf, as one cp.async group; an empty group when d ≥ D.
 __device__ __forceinline__ void gf3x_fetch_symbol(const TrackArgs& a, int b,
@@ -243,24 +228,5 @@ __device__ __forceinline__ void gf3x_demap_bin(int m, float xr, float xi,
         gf3x_demap_axis<3>(xr, lv, nvc, out, md_sum, abs_sum);
         gf3x_demap_axis<3>(xi, lv, nvc, out + 3, md_sum, abs_sum);
         break;
-    }
-}
-
-// Block sums of two per-thread values into (e, s) on thread 0; `red` is
-// 64 floats of shared memory.
-__device__ __forceinline__ void gf3x_block_sum2(float& e, float& s,
-                                                float* red) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    e = gf3x_warp_sum(e);
-    s = gf3x_warp_sum(s);
-    if (lane == 0) {
-        red[warp] = e;
-        red[32 + warp] = s;
-    }
-    __syncthreads();
-    if (warp == 0) {
-        const int nw = (blockDim.x + 31) >> 5;
-        e = gf3x_warp_sum(lane < nw ? red[lane] : 0.0f);
-        s = gf3x_warp_sum(lane < nw ? red[32 + lane] : 0.0f);
     }
 }

@@ -14,19 +14,21 @@
 // its bins equal the fused kernel's internal ones bit for bit. It writes
 // eq (B, D, U) complex64 and slope, cpe, nv_sym (B, D).
 //
-// Kernel B takes static per-data-bin tables (used-bin index, bits 0/2/4/6,
-// offset of the bin's first bit within a symbol's R wire bits) and writes
-// the twin's layout: scrambled, wire-order LLRs (B, D·R), plus per-(frame,
-// symbol) partial sums of the EVM distances and of |llr|. One launch
-// covers every loading group; a uniform config is one group with gain 1.
-// The TPU kernel's bin chunking, per-group launches and plane-major sign
-// rows are layouts of the TPU and are not carried over.
+// Kernel B takes the wire-order slot table (the active data bins in the
+// order their bits go on the wire, each packed as its used-bin index, its
+// order m and the offset of its first bit within a symbol's R wire bits,
+// the running sum of 2m) and writes the twin's layout: scrambled,
+// wire-order LLRs (B, D·R), plus per-(frame, symbol) partial sums of the
+// EVM distances and of |llr|. One launch covers every loading group; a
+// uniform config is one group with gain 1. The TPU kernel's bin chunking,
+// per-group launches and plane-major sign rows are layouts of the TPU and
+// are not carried over.
 //
 // What bounds them on the card: bytes. A reads U bins and writes U bins per
-// data symbol; B reads them back and writes R LLRs. The intermediate eq is
-// B·D·U·8 bytes (45.9 MB at B = 1024 and GF3 geometry), written once and
-// read once: that round trip is the split's price against the fused
-// kernel.
+// data symbol; B reads them back and writes R LLRs (102.7 MB at the
+// bit-loaded shape, 31 µs at 3.35 TB/s). The intermediate eq is B·D·U·8
+// bytes (45.9 MB at B = 1024 and GF3 geometry), written once and read
+// once: that round trip is the split's price against the fused kernel.
 //
 // Kernel A has kernel 2's layout (fused_eq.cu): a block takes one frame and
 // stages Ĥ and |Ĥ|² in shared memory once; each of its W warps walks data
@@ -34,10 +36,23 @@
 // buffer with cp.async while it runs the current one through
 // gf3x_track_symbol_warp, then derotates every used bin and stores the eq
 // row as coalesced 8-byte stores. W and the shared memory come from the
-// wrapper (fused_eq_geometry with demap=False). Kernel B is one block per
-// (frame, data symbol), one thread per data bin, with the PAM levels of
-// the three orders staged from the kernel's parameter (constant) bank into
-// shared memory.
+// wrapper (fused_eq_geometry with demap=False).
+//
+// Kernel B's first design (a block per (frame, symbol), a thread per data
+// bin reading three table entries, a switch over orders that diverged in
+// every warp of a random loading, scalar stores scattered over the row's
+// three group regions, a block barrier to sum) ran at a third of its
+// bound. Now it has the same layout as A: a block per frame stages the
+// slot table and each slot's 1/max(|Ĥ|², 1e-12) once; each warp copies
+// its next eq row (cp.async, 16-byte chunks where aligned) while lane l
+// demaps slots l, l + 32, ... of the current one, which are group-sorted,
+// so a warp runs one order except at a group boundary. The LLRs go to the
+// warp's row in shared memory and leave as coalesced 16-byte stores (8-byte
+// where R % 4 ≠ 0); the sums are warp sums with no block barrier. The
+// demap arithmetic is the first design's, so the LLRs are bit for bit the
+// same. W and the shared memory come from the wrapper (demap_geometry).
+#include <cstdint>
+
 #include "eq_demap.cuh"
 
 namespace {
@@ -101,51 +116,119 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
 }
 
 constexpr int kLevels = 2 + 4 + 8;   // PAM levels of QPSK, 16- and 64-QAM
+constexpr int kSlotBitsK = 10;       // a slot: used bin | m << 10 | off << 12
+constexpr int kSlotBitsM = 2;
 
 struct DemapArgs {
     const float2* eq;    // (B, D, U) derotated equalized bins
     const float2* h;     // (B, U) channel estimate
     const float* nv_sym; // (B, D) per-symbol noise floor
-    const int* used;     // (NB,) used-bin index of each data bin
-    const int* bits;     // (NB,) 0, 2, 4 or 6
-    const int* off;      // (NB,) first wire bit of the bin within R
+    const int* slots;    // (NS,) the active bins in wire order, packed
     float* llr;          // (B, D·R)
     float* evm_part;     // (B, D) Σ over active bins of the min distances
     float* abs_part;     // (B, D) Σ |llr|
-    int D, U, NB, R;
+    int D, U, NS, R;
     float inv_gain, inv_gain2;   // 1/g and 1/g² of the loading boost
+    int warps;           // W: warp w takes data symbols w, w + W, ...
+    int nbuf;            // eq rows per warp: 2 when W < D, else 1
     float lv[kLevels];   // levels of order m at lv[2^m − 2 ...]
 };
 
-__global__ void demap_bins_kernel(DemapArgs a) {
-    __shared__ float s_lv[kLevels];
-    __shared__ float s_red[64];
-    const int b = blockIdx.x / a.D;
-    const int d = blockIdx.x % a.D;
-    const int j = threadIdx.x;
-    if (j < kLevels) s_lv[j] = a.lv[j];
+__device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+// Data symbol d's eq row of frame b into buf by one warp (16-byte copies
+// where the row is 16-byte aligned, else 8-byte ones), as one cp.async
+// group; an empty group when d ≥ D.
+__device__ __forceinline__ void fetch_eq_row(const DemapArgs& a, int b, int d,
+                                             float2* buf, int lane) {
+    if (d < a.D) {
+        const float2* src = a.eq + (static_cast<long long>(b) * a.D + d) * a.U;
+        if (((reinterpret_cast<uintptr_t>(src) & 15) == 0) && !(a.U & 1)) {
+            for (int c = lane; c < a.U / 2; c += 32)
+                gf3x_cp_async16(buf + 2 * c, src + 2 * c);
+        } else {
+            for (int k = lane; k < a.U; k += 32)
+                gf3x_cp_async8(buf + k, src + k);
+        }
+    }
+    gf3x_cp_async_commit();
+}
+
+// Dynamic shared memory, in floats (the wrapper's demap_smem_bytes computes
+// the same): per warp, nbuf eq rows (2U, rounded up to 4) and an LLR row
+// (R, rounded up to 4) | the slot table (NS ints) | 1/max(|Ĥ|², 1e-12) per
+// slot (NS) | the PAM levels (16).
+__global__ void __launch_bounds__(1024)
+demap_bins_kernel(const __grid_constant__ DemapArgs a) {
+    extern __shared__ __align__(16) float sm[];
+    const int U = a.U, D = a.D, NS = a.NS, R = a.R, W = a.warps;
+    const int b = blockIdx.x;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int per_warp = a.nbuf * round4(2 * U) + round4(R);
+    float* mine = sm + static_cast<size_t>(w) * per_warp;
+    float* row = mine + a.nbuf * round4(2 * U);
+    int* s_slot = reinterpret_cast<int*>(sm + static_cast<size_t>(W) * per_warp);
+    float* s_inv = reinterpret_cast<float*>(s_slot + NS);
+    float* s_lv = s_inv + NS;
+
+    // the warp's first row is in flight while the block stages the slots
+    fetch_eq_row(a, b, w, reinterpret_cast<float2*>(mine), lane);
+    for (int i = threadIdx.x; i < NS; i += blockDim.x) {
+        const int sl = a.slots[i];
+        const float2 h =
+            a.h[static_cast<long long>(b) * U + (sl & ((1 << kSlotBitsK) - 1))];
+        const float h2 = h.x * h.x + h.y * h.y;
+        s_slot[i] = sl;
+        s_inv[i] = 1.0f / fmaxf(h2, 1e-12f);
+    }
+    if (threadIdx.x < kLevels) s_lv[threadIdx.x] = a.lv[threadIdx.x];
     __syncthreads();
 
-    const long long o = static_cast<long long>(b) * a.D + d;
-    float md_sum = 0.0f, abs_sum = 0.0f;
-    const int nbits = j < a.NB ? a.bits[j] : 0;
-    if (nbits > 0) {
-        const int k = a.used[j];
-        const int m = nbits >> 1;
-        const float2 e = a.eq[o * a.U + k];
-        const float2 h = a.h[static_cast<long long>(b) * a.U + k];
-        const float h2 = h.x * h.x + h.y * h.y;
-        // loading: demap y/g with noise nv/g² (g = 1 when uniform)
-        const float nv_eff = a.nv_sym[o] * (1.0f / fmaxf(h2, 1e-12f));
-        const float nvc = fmaxf(nv_eff * a.inv_gain2, 1e-12f);
-        gf3x_demap_bin(m, e.x * a.inv_gain, e.y * a.inv_gain,
-                       s_lv + (1 << m) - 2, nvc, a.llr + o * a.R + a.off[j],
-                       md_sum, abs_sum);
-    }
-    gf3x_block_sum2(md_sum, abs_sum, s_red);
-    if (j == 0) {
-        a.evm_part[o] = md_sum;
-        a.abs_part[o] = abs_sum;
+    const bool vec4 = !(R & 3);
+    for (int d = w, i = 0; d < D; d += W, ++i) {
+        const float2* cur =
+            reinterpret_cast<const float2*>(mine + (i & (a.nbuf - 1)) *
+                                                       round4(2 * U));
+        fetch_eq_row(a, b, d + W,
+                     reinterpret_cast<float2*>(
+                         mine + ((i + 1) & (a.nbuf - 1)) * round4(2 * U)),
+                     lane);
+        gf3x_cp_async_wait_all_but_newest();
+        __syncwarp();
+        const long long o = static_cast<long long>(b) * D + d;
+        const float nvs = a.nv_sym[o];
+        float md_sum = 0.0f, abs_sum = 0.0f;
+        for (int j = lane; j < NS; j += 32) {
+            const int sl = s_slot[j];
+            const int k = sl & ((1 << kSlotBitsK) - 1);
+            const int m = (sl >> kSlotBitsK) & ((1 << kSlotBitsM) - 1);
+            const float2 e = cur[k];
+            // loading: demap y/g with noise nv/g² (g = 1 when uniform)
+            const float nv_eff = nvs * s_inv[j];
+            const float nvc = fmaxf(nv_eff * a.inv_gain2, 1e-12f);
+            gf3x_demap_bin(m, e.x * a.inv_gain, e.y * a.inv_gain,
+                           s_lv + (1 << m) - 2, nvc,
+                           row + (sl >> (kSlotBitsK + kSlotBitsM)), md_sum,
+                           abs_sum);
+        }
+        __syncwarp();
+        float* dst = a.llr + o * R;
+        if (vec4 && !(reinterpret_cast<uintptr_t>(dst) & 15)) {
+            for (int c = lane; c < R / 4; c += 32)
+                reinterpret_cast<float4*>(dst)[c] =
+                    reinterpret_cast<const float4*>(row)[c];
+        } else {
+            for (int c = lane; c < R / 2; c += 32)
+                reinterpret_cast<float2*>(dst)[c] =
+                    reinterpret_cast<const float2*>(row)[c];
+        }
+        md_sum = gf3x_warp_sum(md_sum);
+        abs_sum = gf3x_warp_sum(abs_sum);
+        if (lane == 0) {
+            a.evm_part[o] = md_sum;
+            a.abs_part[o] = abs_sum;
+        }
+        __syncwarp();   // cur and the row are rewritten next
     }
 }
 
@@ -193,31 +276,37 @@ GF3X_EXPORT int gf3x_eq_track(
 }
 
 GF3X_EXPORT int gf3x_demap_bins(
-        const float* eq, const float* h, const float* nv_sym, const int* used,
-        const int* bits, const int* off, float* llr, float* evm_part,
-        float* abs_part, long long B, int D, int U, int NB, int R,
-        float inv_gain, float inv_gain2, const float* levels, void* stream) {
+        const float* eq, const float* h, const float* nv_sym, const int* slots,
+        float* llr, float* evm_part, float* abs_part, long long B, int D,
+        int U, int NS, int R, float inv_gain, float inv_gain2,
+        const float* levels, int warps, int nbuf, int smem, void* stream) {
     DemapArgs a;
     a.eq = reinterpret_cast<const float2*>(eq);
     a.h = reinterpret_cast<const float2*>(h);
     a.nv_sym = nv_sym;
-    a.used = used;
-    a.bits = bits;
-    a.off = off;
+    a.slots = slots;
     a.llr = llr;
     a.evm_part = evm_part;
     a.abs_part = abs_part;
     a.D = D;
     a.U = U;
-    a.NB = NB;
+    a.NS = NS;
     a.R = R;
     a.inv_gain = inv_gain;
     a.inv_gain2 = inv_gain2;
+    a.warps = warps;
+    a.nbuf = nbuf;
     for (int i = 0; i < kLevels; ++i) a.lv[i] = levels[i];
-    const long long nblocks = B * D;
-    const int threads = ((NB + 31) / 32) * 32;
-    if (nblocks > 0) {
-        demap_bins_kernel<<<static_cast<unsigned>(nblocks), threads, 0,
+    static int smem_set = 48 * 1024;   // the largest size allowed so far
+    if (smem > smem_set) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            demap_bins_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            smem);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        smem_set = smem;
+    }
+    if (B > 0) {
+        demap_bins_kernel<<<static_cast<unsigned>(B), 32 * warps, smem,
                             static_cast<cudaStream_t>(stream)>>>(a);
     }
     return static_cast<int>(cudaGetLastError());

@@ -34,7 +34,7 @@ from .split_eq import (check_track_inputs, demap_bins_plain, eq_track_plain,
                        track_constants)
 
 __all__ = ["fused_eq_demap", "fused_eq_demap_plain", "fused_eq_geometry",
-           "FusedGeometry", "launch_constants"]
+           "FusedGeometry", "launch_constants", "pick_warps"]
 
 SMEM_BLOCK = 232_448     # dynamic shared memory one block may use (227 KB)
 SMEM_SM = 233_472        # shared memory of one SM (228 KB)
@@ -58,9 +58,10 @@ def fused_eq_demap_plain(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
 
 @dataclass(frozen=True)
 class FusedGeometry:
-    """The launch of kernel 2, or of kernel A (`split_eq.eq_track`), which
-    has its layout: one block per frame with `warps` warps; warp w takes
-    data symbols w, w + warps, ... (`passes` of them at most), each through
+    """The launch of kernel 2, or of kernels A and B (`split_eq.eq_track`,
+    `split_eq.demap_bins`), which have its layout: one block per frame
+    with `warps` warps; warp w takes data symbols w, w + warps, ...
+    (`passes` of them at most), each through
     `nbuf` shared-memory symbol buffers (2: the next symbol's copy overlaps
     the current one's work); `smem` bytes of dynamic shared memory per
     block."""
@@ -86,22 +87,20 @@ def _smem_bytes(U: int, P: int, warps: int, nbuf: int,
     return 4 * (3 * U + warps * (2 * U * nbuf + 4 * P))
 
 
-@functools.lru_cache(maxsize=None)
-def fused_eq_geometry(cfg: ModemConfig, B: int, sms: int = H100_SMS,
-                      demap: bool = True) -> FusedGeometry:
-    """Warps per block for a batch of B frames on `sms` SMs, for kernel 2
-    (`demap`) or kernel A: of the warp counts whose shared memory fits a
-    block, the one with the fewest symbols in a row per warp slot (waves
-    of resident blocks × symbols per warp), then the most resident warps,
-    then the fewest warps. Raises if no count fits."""
-    D, U, P = cfg.n_data_symbols, cfg.n_used, cfg.n_pilots
+def pick_warps(D: int, B: int, sms: int, smem_of) -> FusedGeometry | None:
+    """The warp count for a block per frame whose warps walk D symbols, for
+    a batch of B frames on `sms` SMs, `smem_of(warps, nbuf)` giving a
+    block's shared memory: of the counts whose shared memory fits a block,
+    the one with the fewest symbols in a row per warp slot (waves of
+    resident blocks × symbols per warp), then the most resident warps, then
+    the fewest warps; None if no count fits."""
     best, best_key = None, None
     for warps in range(1, min(D, 32) + 1):
         passes = -(-D // warps)
         if -(-D // passes) != warps:    # the same passes with fewer warps
             continue
         nbuf = 2 if passes > 1 else 1
-        smem = _smem_bytes(U, P, warps, nbuf, demap)
+        smem = smem_of(warps, nbuf)
         if smem > SMEM_BLOCK:
             continue
         resident = min(WARPS_SM // warps, BLOCKS_SM,
@@ -110,6 +109,18 @@ def fused_eq_geometry(cfg: ModemConfig, B: int, sms: int = H100_SMS,
         key = (waves * passes, -resident * warps, warps)
         if best_key is None or key < best_key:
             best, best_key = FusedGeometry(warps, passes, nbuf, smem), key
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def fused_eq_geometry(cfg: ModemConfig, B: int, sms: int = H100_SMS,
+                      demap: bool = True) -> FusedGeometry:
+    """Warps per block for a batch of B frames on `sms` SMs, for kernel 2
+    (`demap`) or kernel A (`pick_warps`). Raises if no count fits."""
+    U, P = cfg.n_used, cfg.n_pilots
+    best = pick_warps(cfg.n_data_symbols, B, sms,
+                      lambda warps, nbuf: _smem_bytes(U, P, warps, nbuf,
+                                                      demap))
     if best is None:
         raise ValueError(f"fused_eq_geometry: no warp count fits U={U}, "
                          f"P={P} in {SMEM_BLOCK} bytes of shared memory")

@@ -7,7 +7,8 @@ PyTorch version:
 - kernel B, `demap_bins` (replacing :demap_bins_tpu): max-log demap of
   every data bin at its loaded order → llr (B, D·R) f32, scrambled and in
   wire order (group-sorted when bit-loaded), evm (B,) over the active bins
-  and mean |llr| (B,).
+  and mean |llr| (B,). The kernel walks the wire-order slot table
+  (`slot_table`) with one warp per data symbol (`demap_geometry`).
 
 The plain versions are the XLA twin's math (Modem._eq_tail,
 loaded_demap_llr / qam_demap_llr); `fused_eq_demap_plain` is the two run
@@ -30,7 +31,7 @@ from ..constellation import (hard_bits, pam_label_levels, qam_demap_llr,
                              qam_map, qam_norm)
 
 __all__ = ["eq_track", "eq_track_plain", "demap_bins", "demap_bins_plain",
-           "track_constants"]
+           "demap_geometry", "slot_table", "unpack_slots", "track_constants"]
 
 
 def eq_track_plain(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
@@ -157,50 +158,138 @@ def _levels_by_order() -> tuple[np.ndarray, int]:
     return lv, lv.ctypes.data
 
 
+SLOT_BITS_K = 10         # a slot packs its used-bin index (10 bits),
+SLOT_BITS_M = 2          # its order m (2 bits) and its wire offset above
+
+
+def slot_table(used, bits, off) -> np.ndarray:
+    """Kernel B's wire-order slot table from the per-data-bin tables (used-
+    bin index, bits 0/2/4/6, wire offset): slot i is the i-th active bin in
+    wire order (ascending offset; group-sorted when bit-loaded), packed as
+    its used-bin index | m << 10 | its offset << 12, the offset being the
+    running sum of 2m over the slots before it. Bins with 0 bits have no
+    slot. int32 (n_active,)."""
+    used, bits, off = (np.asarray(t, dtype=np.int64) for t in (used, bits,
+                                                                off))
+    active = np.nonzero(bits > 0)[0]
+    order = active[np.argsort(off[active], kind="stable")]
+    m = bits[order] // 2
+    offs = np.concatenate([[0], np.cumsum(2 * m)[:-1]]).astype(np.int64)
+    return (used[order] | (m << SLOT_BITS_K)
+            | (offs << (SLOT_BITS_K + SLOT_BITS_M))).astype(np.int32)
+
+
+def unpack_slots(slots) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(used-bin index, m, wire offset) of each slot of `slot_table`."""
+    s = np.asarray(slots, dtype=np.int64)
+    return (s & ((1 << SLOT_BITS_K) - 1),
+            (s >> SLOT_BITS_K) & ((1 << SLOT_BITS_M) - 1),
+            s >> (SLOT_BITS_K + SLOT_BITS_M))
+
+
+_LAUNCH: dict = {}       # (config, device) → `_demap_constants`
+
+
+def _demap_constants(cfg: ModemConfig, tables, dev: torch.device):
+    """Kernel B's per-config launch constants, derived once per (config,
+    device): (`slot_table` of `tables` on `dev`, 1/g and 1/g² of the
+    loading gain as float32, R, the divisors of evm and mean |llr|)."""
+    c = _LAUNCH.get((cfg, dev))
+    if c is None:
+        used, bits, off = (torch.as_tensor(x).cpu().numpy() for x in tables)
+        if not used.shape == bits.shape == off.shape == (cfg.n_data_bins,):
+            raise ValueError("demap_bins: each table needs n_data_bins "
+                             "entries")
+        slots = slot_table(used, bits, off)
+        k, m, _ = unpack_slots(slots)
+        if (not np.isin(bits, (0, 2, 4, 6)).all()
+                or 2 * int(m.sum()) != cfg.bits_per_ofdm_symbol
+                or not np.all((k >= 0) & (k < cfg.n_used))):
+            raise ValueError("demap_bins: the tables' bins must carry 0, 2, "
+                             "4 or 6 bits, the config's bits per symbol in "
+                             "all, at used bins below n_used")
+        gain = 1.0
+        if cfg.bit_loading is not None:
+            from ...models.frame import loading_tables
+            gain = loading_tables(cfg).gain
+        c = _LAUNCH[(cfg, dev)] = (
+            torch.as_tensor(slots, device=dev),
+            float(np.float32(1.0 / gain)), float(np.float32(1.0 / gain ** 2)),
+            cfg.bits_per_ofdm_symbol,
+            np.float32(cfg.n_data_symbols * cfg.n_active_bins),
+            np.float32(cfg.raw_bits_per_frame))
+    return c
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def demap_smem_bytes(U: int, R: int, NS: int, warps: int, nbuf: int) -> int:
+    """Kernel B's shared memory: per warp, nbuf eq rows (2U floats each) and
+    its LLR row (R floats), each rounded up to 16 bytes; then the slot
+    table (NS ints), 1/max(|Ĥ|², 1e-12) per slot (NS) and the PAM levels
+    (16 floats)."""
+    return 4 * (warps * (nbuf * _round4(2 * U) + _round4(R)) + 2 * NS + 16)
+
+
+@functools.lru_cache(maxsize=None)
+def demap_geometry(cfg: ModemConfig, B: int, sms: int = 132):
+    """Kernel B's launch for a batch of B frames on `sms` SMs: one block per
+    frame, warp w taking data symbols w, w + warps, ...
+    (`fused_eq.pick_warps` on `demap_smem_bytes`)."""
+    from .fused_eq import pick_warps
+
+    U, R, NS = cfg.n_used, cfg.bits_per_ofdm_symbol, cfg.n_active_bins
+    geo = pick_warps(cfg.n_data_symbols, B, sms,
+                     lambda warps, nbuf: demap_smem_bytes(U, R, NS, warps,
+                                                          nbuf))
+    if geo is None:
+        raise ValueError(f"demap_geometry: no warp count fits U={U}, R={R}")
+    return geo
+
+
 def demap_bins(cfg: ModemConfig, eq: torch.Tensor, H: torch.Tensor,
                nv_sym: torch.Tensor, tables):
     """`demap_bins_plain` for CPU tensors; kernel B otherwise. `tables` is
     (used-bin index, bits, wire offset) per data bin, int32 —
-    `models.frame.demap_bin_tables(cfg)`, which a Modem keeps as buffers.
-    The plain version derives the same layout from the config itself, so
-    the two agree only if the tables are right."""
+    `models.frame.demap_bin_tables(cfg)`, which a Modem keeps as buffers;
+    the kernel takes their wire-order slot table (`slot_table`, derived
+    once per config and device by `_demap_constants`). The plain version
+    derives the same layout from the config itself, so the two agree only
+    if the tables are right."""
     if eq.device.type == "cpu":
         return demap_bins_plain(cfg, eq, H, nv_sym)
+    from .fused_eq import _sm_count
+
     dev = eq.device
     if dev.type != "cuda" or H.device != dev or nv_sym.device != dev:
         raise ValueError("demap_bins: eq, H and nv_sym must be on one CUDA "
                          "device")
     B, D, U = eq.shape
-    nd = cfg.n_data_bins
     if (D != cfg.n_data_symbols or U != cfg.n_used
             or eq.dtype != torch.complex64 or H.shape != (B, U)
             or H.dtype != torch.complex64 or nv_sym.shape != (B, D)
-            or nd > 1024):
+            or U > 1 << SLOT_BITS_K):
         raise ValueError("demap_bins: needs eq (B, D, n_used) and H "
                          "(B, n_used) complex64, nv_sym (B, D), "
-                         "n_data_bins ≤ 1024")
-    used, bits, off = (t.to(dev, torch.int32).contiguous() for t in tables)
-    if not used.shape == bits.shape == off.shape == (nd,):
-        raise ValueError("demap_bins: each table needs n_data_bins entries")
-    gain = 1.0
-    if cfg.bit_loading is not None:
-        from ...models.frame import loading_tables
-        gain = loading_tables(cfg).gain
+                         "n_used ≤ 1024")
+    slots, inv_g, inv_g2, R, evm_div, abs_div = _demap_constants(cfg, tables,
+                                                                 dev)
+    geo = demap_geometry(cfg, B, _sm_count(dev.index))
+    # the inputs stay bound until the launch: a temporary's memory could be
+    # handed to the next allocation before the kernel reads it
     e = torch.view_as_real(eq.contiguous())
     h = torch.view_as_real(H.contiguous())
     nv = nv_sym.to(torch.float32).contiguous()
-    R = cfg.bits_per_ofdm_symbol
     llr = torch.empty(B, D * R, device=dev)
     evm_p, abs_p = torch.empty(2, B, D, device=dev)
     launch("gf3x_demap_bins", dev.index, e.data_ptr(), h.data_ptr(),
-           nv.data_ptr(), used.data_ptr(), bits.data_ptr(), off.data_ptr(),
-           llr.data_ptr(), evm_p.data_ptr(), abs_p.data_ptr(), B, D, U, nd, R,
-           float(np.float32(1.0 / gain)), float(np.float32(1.0 / gain ** 2)),
-           _levels_by_order()[1])
+           nv.data_ptr(), slots.data_ptr(), llr.data_ptr(), evm_p.data_ptr(),
+           abs_p.data_ptr(), B, D, U, slots.numel(), R, inv_g, inv_g2,
+           _levels_by_order()[1], geo.warps, geo.nbuf, geo.smem)
     demap_bins.launches += 1
-    evm = evm_p.sum(dim=1) / np.float32(D * cfg.n_active_bins)
-    mabs = abs_p.sum(dim=1) / np.float32(cfg.raw_bits_per_frame)
-    return llr, evm, mabs
+    return llr, evm_p.sum(dim=1) / evm_div, abs_p.sum(dim=1) / abs_div
 
 
 demap_bins.launches = 0

@@ -182,3 +182,118 @@ def test_use_cut_dft_routes_only_the_plain_decode(monkeypatch):
         res = m._result(bits.numpy(), None)
         assert res.crc_ok and res.payload == b"route"
         assert len(cuts) == n_cuts, fn.__name__
+
+
+# ---- kernel 8's launch plan (`cut_dft_geometry`), checked here because the
+# kernel itself runs only on the card
+
+N_FFTS = [128, 256, 512, 1024, 2048, 4096]
+
+
+@pytest.mark.parametrize("n_fft", N_FFTS)
+def test_cut_dft_geometry_is_legal(n_fft):
+    """Every n_fft the wrapper accepts gets a launch the kernel can run, at
+    the segment counts the port gives it: the radices are 8s
+    then at most one 2 or 4 and multiply to M = n_fft/2, each divides the
+    points a thread holds, a team is 8-32 lanes of one warp or a pair of
+    warps, a team walks at most SEGMENTS_PER_TEAM segments where the block
+    fits, a block has at most 512 threads (15 pairs, one named barrier each) and its shared
+    memory is the kernel's layout within 227 KB; a
+    window buffer holds the pass exchange (one pad slot per 8 points) and
+    the aligned 16-byte chunks covering n_fft samples; the butterflies a
+    team's threads run cover each of a pass's M/R butterflies once."""
+    M = n_fft // 2
+    for nseg in (1, 2, 7, 24, 25, 41):
+        geo = tcut.cut_dft_geometry(n_fft, nseg)
+        assert int(np.prod(geo.radices)) == M
+        assert all(r == 8 for r in geo.radices[:-1])
+        assert geo.radices[-1] in (2, 4, 8) and geo.radices[0] == 8
+        assert geo.tail == (1 if geo.radices[-1] == 8 else geo.radices[-1])
+        assert all(geo.points % r == 0 for r in geo.radices)
+        assert geo.points * geo.team == M
+        assert geo.team in (8, 16, 32, 64)
+        assert geo.threads <= 512 and 1 <= geo.teams <= nseg
+        assert geo.team <= 32 or geo.teams <= 15
+        passes = -(-nseg // geo.teams)
+        buf = tcut.buffer_floats(n_fft)
+        # more segments a team only where the teams for one fewer would
+        # not fit
+        more = -(-nseg // (passes - 1)) if passes > 1 else geo.teams
+        assert (passes <= tcut.SEGMENTS_PER_TEAM
+                or 8 * n_fft + more * 2 * 4 * buf > 232_448
+                or more * geo.team > 512)
+        assert geo.nbuf == (2 if passes > 1 else 1)
+        assert geo.smem == 8 * n_fft + geo.teams * geo.nbuf * 4 * buf
+        assert geo.smem <= 232_448
+        slots = np.arange(M) + np.arange(M) // 8
+        assert np.unique(slots).size == M and 2 * (slots.max() + 1) <= buf
+        assert n_fft + 4 <= buf
+        for R in geo.radices:
+            js = [tl + b * geo.team for tl in range(geo.team)
+                  for b in range(geo.points // R)]
+            assert sorted(js) == list(range(M // R))
+    with pytest.raises(ValueError):
+        tcut.cut_dft_geometry(8192, 25)
+
+
+def _dft_small(v, R):
+    """The kernel's in-register DFT of R = 2, 4 or 8 points (radix-8 as two
+    DFT-4s and the exactly rounded e^{−2πik/8}), natural order, float32."""
+    if R == 2:
+        return [v[0] + v[1], v[0] - v[1]]
+    if R == 4:
+        t0, t1 = v[0] + v[2], v[0] - v[2]
+        t2, t3 = v[1] + v[3], (v[1] - v[3]) * -1j
+        return [t0 + t2, t1 + t3, t0 - t2, t1 - t3]
+    c = np.float32(np.sqrt(0.5))
+    E, O = _dft_small(v[0::2], 4), _dft_small(v[1::2], 4)
+    O = [O[0], O[1] * complex(c, -c), O[2] * -1j, O[3] * complex(-c, -c)]
+    return [E[i] + O[i] for i in range(4)] + [E[i] - O[i] for i in range(4)]
+
+
+def emulate_cut_dft_passes(x, n_fft, bin_lo, n_used, roll):
+    """The kernel's FFT in float32 torch, pass by pass with the twiddle
+    table and its integer indices: x (B, n_fft) samples → derolled used
+    bins (B, n_used), unscaled."""
+    N, M = n_fft, n_fft // 2
+    cs, sn = tcut.twiddles(N, torch.device("cpu"))
+    z = torch.complex(x[:, 0::2], x[:, 1::2])
+    Ns = 1
+    for R in tcut.cut_dft_geometry(N, 1).radices:
+        j = torch.arange(M // R)
+        k = j & (Ns - 1)
+        v = [z[:, j + r * (M // R)] for r in range(R)]
+        if Ns > 1:
+            for r in range(1, R):
+                idx = k * r * (N // (Ns * R))
+                v[r] = v[r] * torch.complex(cs[idx], -sn[idx])
+        out = torch.empty_like(z)
+        d = (j - k) * R + k
+        for r, X in enumerate(_dft_small(v, R)):
+            out[:, d + r * Ns] = X
+        z, Ns = out, Ns * R
+    kk = bin_lo + torch.arange(n_used)
+    za, zb = z[:, kk & (M - 1)], z[:, (M - kk) & (M - 1)].conj()
+    X = 0.5 * (za + zb) + torch.complex(cs[kk], -sn[kk]) * (-0.5j) * (za - zb)
+    ridx = (kk[None] * roll[:, None]) & (N - 1)
+    return X * torch.complex(cs[ridx], sn[ridx])
+
+
+@pytest.mark.parametrize("n_fft", [128, 256, 1024, 2048, 4096])
+def test_cut_dft_passes_emulated_match_float64(n_fft):
+    """The kernel's passes emulated in float32 (same radices, butterflies,
+    twiddle indices, unpacking and deroll) against a float64 NumPy rfft
+    with the exact deroll ramp: ≤ −120 dB (the card's gate is −80 dB; float32
+    lands near −138 dB)."""
+    rng = np.random.default_rng(n_fft)
+    x = rng.standard_normal((4, n_fft)).astype(np.float32)
+    roll = rng.integers(0, 128, 4)
+    lo, hi = n_fft // 32, n_fft // 2
+    got = emulate_cut_dft_passes(torch.as_tensor(x), n_fft, lo, hi - lo + 1,
+                                 torch.as_tensor(roll)).numpy()
+    k = np.arange(lo, hi + 1)
+    ref = (np.fft.rfft(x.astype(np.float64))[:, lo: hi + 1]
+           * np.exp(2j * np.pi * k * roll[:, None] / n_fft))
+    db = 10 * np.log10(np.sum(np.abs(got - ref) ** 2)
+                       / np.sum(np.abs(ref) ** 2))
+    assert db <= -120.0, db

@@ -210,6 +210,33 @@ def test_fused_eq_geometry_covers_every_symbol_once(name):
     assert geoA.smem < fused_eq._smem_bytes(U, P, geoA.warps, geoA.nbuf)
 
 
+LOADED = GF3_STANDARD.replace(bit_loading=tuple(
+    int(x) for x in np.random.default_rng(chip_smoke.LOADING_SEED).choice(
+        [0, 2, 4, 6], size=GF3_STANDARD.n_data_bins, p=chip_smoke.LOADING_P)))
+
+
+@pytest.mark.parametrize("name", list(CONFIGS) + ["bit-loaded"])
+def test_demap_geometry_covers_every_symbol_once(name):
+    """Kernel B's launch (kernel 2's layout over the wire-order slots):
+    every (frame, data symbol) once, every warp a symbol, and a block's
+    shared memory — per warp its eq rows and LLR row, each rounded up to
+    16 bytes, then the slot table, a float per slot and the levels
+    (split_eq.cu) — within 227 KB, at the batches the port runs."""
+    cfg = LOADED if name == "bit-loaded" else CONFIGS[name]
+    D, U = cfg.n_data_symbols, cfg.n_used
+    R, NS = cfg.bits_per_ofdm_symbol, cfg.n_active_bins
+    for B in (1, 7, 1024, 4096):
+        geo = split_eq.demap_geometry(cfg, B)
+        seen = Counter((b, d) for b in range(B) for w in range(geo.warps)
+                       for d in geo.symbols(w, D))
+        assert len(seen) == B * D and set(seen.values()) == {1}
+        assert all(geo.symbols(w, D) for w in range(geo.warps))
+        assert geo.nbuf == (2 if geo.passes > 1 else 1)
+        per_warp = (geo.nbuf * -(-2 * U // 4) * 4) + -(-R // 4) * 4
+        assert geo.smem == 4 * (geo.warps * per_warp + 2 * NS + 16)
+        assert geo.smem <= 232_448
+
+
 @pytest.mark.parametrize("cfg", [GF3_STANDARD, GF3_FAST, GF3_TURBO, LONGCP],
                          ids=["qpsk", "16qam", "64qam", "longcp"])
 def test_launch_constants_are_the_configs(cfg):

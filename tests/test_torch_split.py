@@ -26,6 +26,7 @@ from gf3x.ops.ofdm import ofdm_demodulate
 from gf3x_torch import Modem as TModem
 from gf3x_torch.models import frame as tframe
 from gf3x_torch.ops import adapt as tadapt
+from gf3x_torch.ops.constellation import qam_demap_llr as t_demap
 from gf3x_torch.ops.kernels import fused_eq, split_eq
 
 # the slice's table: the reference's own on-chip parity table
@@ -299,3 +300,85 @@ def test_tail_route_by_config():
     H = torch.ones(1, cfg.n_used, dtype=torch.complex64)
     with pytest.raises(ValueError, match="split"):
         fused_eq.fused_eq_demap(cfg, Y, H, torch.ones(1))
+
+
+# ---- kernel B's wire-order slot table (`split_eq.slot_table`), checked
+# here because the kernel runs only on the card
+
+ZEROED = GF3_STANDARD.replace(bit_loading=tuple(
+    (0, 6, 2, 0, 4, 0, 0, 2)[j % 8] for j in range(GF3_STANDARD.n_data_bins)))
+SLOT_CONFIGS = {"config5": GF3_STANDARD, "gf3-turbo": GF3_TURBO,
+                "loaded": LOADED, "zero-bit bins": ZEROED}
+
+
+@pytest.mark.parametrize("name", list(SLOT_CONFIGS))
+def test_slot_table_is_the_wire_order(name):
+    """The slot table kernel B walks, from the Modem's per-bin tables: its
+    slots are a permutation of the active bins (0-bit bins have none), each
+    order's slots are contiguous (group-sorted, so a warp runs one order
+    but at a boundary), the offsets are the running sum of 2m and end at R
+    (the `off` table's values); and scattering each bin's LLRs (the plain
+    demap of that bin alone at its order) through the table gives
+    `demap_bins_plain`'s wire-order LLRs exactly."""
+    cfg = small(SLOT_CONFIGS[name])
+    used, bits, off = tframe.demap_bin_tables(cfg)
+    slots = split_eq.slot_table(used, bits, off)
+    k, m, offs = split_eq.unpack_slots(slots)
+    active = np.nonzero(bits)[0]
+    assert slots.dtype == np.int32 and slots.size == cfg.n_active_bins
+    assert sorted(k.tolist()) == sorted(used[active].tolist())
+    for order in np.unique(m):
+        at = np.nonzero(m == order)[0]
+        assert np.array_equal(at, np.arange(at[0], at[-1] + 1))
+    assert np.all(np.diff(m) >= 0)
+    assert offs[0] == 0 and np.array_equal(offs[1:], np.cumsum(2 * m)[:-1])
+    assert offs[-1] + 2 * m[-1] == cfg.bits_per_ofdm_symbol
+    data_of_used = {int(u): j for j, u in enumerate(used)}
+    assert np.array_equal(offs, off[[data_of_used[int(u)] for u in k]])
+
+    rng = np.random.default_rng(11)
+    B, D, U = 3, cfg.n_data_symbols, cfg.n_used
+    eq = torch.as_tensor((rng.normal(0, 0.7, (B, D, U))
+                          + 1j * rng.normal(0, 0.7, (B, D, U)))
+                         .astype(np.complex64))
+    H = torch.as_tensor((rng.normal(0, 1, (B, U))
+                         + 1j * rng.normal(0, 1, (B, U))).astype(np.complex64))
+    nv_sym = torch.as_tensor(rng.uniform(0.01, 0.2, (B, D))
+                             .astype(np.float32))
+    llr, _, _ = split_eq.demap_bins_plain(cfg, eq, H, nv_sym)
+    _, data = tframe.split_pilots(cfg, eq)
+    _, inv_csi = tframe.split_pilots(
+        cfg, 1.0 / torch.clamp(torch.abs(H) ** 2, min=1e-12))
+    nv_eff = nv_sym[..., None] * inv_csi[:, None, :]
+    g = (tframe.loading_tables(cfg).gain if cfg.bit_loading is not None
+         else 1.0)
+    got = torch.full((B, D, cfg.bits_per_ofdm_symbol), float("nan"))
+    for u, mm, o in zip(k, m, offs):
+        j = data_of_used[int(u)]
+        got[..., o: o + 2 * mm] = t_demap(
+            data[..., j] * np.float32(1.0 / g),
+            nv_eff[..., j] * np.float32(1.0 / g ** 2), 2 * int(mm))
+    assert torch.equal(got.reshape(B, -1), llr)
+
+
+def test_demap_constants_refuse_tables_off_the_config():
+    """Kernel B's launch constants refuse tables whose bins would carry
+    other than 0/2/4/6 bits, other than R bits in all, or a used bin past
+    n_used: the kernel writes each slot's LLRs at its offset in an R-float
+    row."""
+    cfg = small(LOADED)
+    used, bits, off = tframe.demap_bin_tables(cfg)
+    cpu = torch.device("cpu")
+    slots, inv_g, inv_g2, R, _, _ = split_eq._demap_constants(
+        cfg, (used, bits, off), cpu)
+    assert R == cfg.bits_per_ofdm_symbol and slots.numel() == cfg.n_active_bins
+    assert inv_g == np.float32(1.0 / tframe.loading_tables(cfg).gain)
+    split_eq._LAUNCH.clear()
+    wide, heavy = used.copy(), bits.copy()
+    wide[np.nonzero(bits)[0][0]] = cfg.n_used
+    heavy[np.nonzero(bits == 0)[0][0]] = 8
+    for bad in ((wide, bits, off), (used, heavy, off),
+                (used, np.where(bits == 2, 4, bits), off)):
+        with pytest.raises(ValueError):
+            split_eq._demap_constants(cfg, bad, cpu)
+
