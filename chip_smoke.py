@@ -8,8 +8,8 @@ drives the receive paths once each through the port's entry points:
 - config 5: `Modem(GF3_STANDARD, max_delay=4096 + cp).demodulate` on
   bench.py's 1024-frame batch — kernels 1 (cut), 2 (fused EQ/demap) and 3
   (LDPC); kernel 2 is held at QPSK, 16-QAM (gf3-fast) and 64-QAM
-  (gf3-turbo); bench.py's batch recipe is copied here (`build_batch`), so
-  nothing of the JAX side is imported;
+  (gf3-turbo); the batch comes from the port's copy of bench.py's recipe
+  (`gf3x_torch/bench/step.py`), so nothing of the JAX side is imported;
 - the fused cut+DFT route: the same batch through
   `Modem(..., use_cut_dft=True).demodulate` — kernel 8 (cut + DFT +
   deroll) in place of kernel 1, then 2 and 3; both routes' steps are
@@ -35,7 +35,16 @@ drives the receive paths once each through the port's entry points:
   every single decode fails; long recordings: `encode_file` transfers of
   28 frames (> 1 000 000 samples, the device frame scan) and 180 frames
   (> 8 000 000 samples, overlap-save) through `decode_stream`. Their
-  recordings come from `gf3x_torch.channel`.
+  recordings come from `gf3x_torch.channel`;
+- the evaluation and command-line surface: the BER sweep
+  (`gf3x_torch.bench.ber.ber_sweep`) of 8 SNRs × 128 trials = 1024 GF3
+  frames through a room FIR and a delay in one pass (kernels 1, 2, 3),
+  checked on its curve and against the same sweep on the CPU; the
+  `gf3x-torch` command line through `gf3x_torch.cli.main` on the card
+  (transmit → receive round trip, retransmit, info, adapt and a
+  `--loading` round trip on kernels A and B, sweep, bench);
+  `Modem.equalized_symbols` (kernels 7 and A); and the golden model
+  (`gf3x_torch.GoldenModem`, host float64) beside the Modem on 7 dB frames.
 
 Any failed check raises, so the exit code is non-zero; there is no CPU
 route.
@@ -72,10 +81,14 @@ card's name and power limit as nvidia-smi reports them, and
 `{"ok": true, "device": {...}}`.
 """
 
+import contextlib
 import hashlib
+import importlib.util
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -94,6 +107,19 @@ LONGCP = dict(n_fft=2048, cp=512, bin_lo=48, bin_hi=607)
 LOADING_SEED, LOADING_P = 5, [0.1, 0.4, 0.35, 0.15]
 MINSUM_KERNELS = ["minsum_check_kernel", "minsum_decode_kernel"]
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+
+# bench.py's config-5 batch recipe: build_batch(modem, B, margin, rng) →
+# (rx (B, frame_len + margin) float32, payload, delays), from this
+# checkout's copy of it (gf3x_torch/bench/step.py; tests/test_torch_launch.py
+# holds it equal to bench.py's). It is loaded from its file, not imported
+# from the package, so that `--time TREE` builds its batches with this one
+# recipe whatever TREE holds.
+_STEP_SPEC = importlib.util.spec_from_file_location(
+    "_chip_smoke_step",
+    Path(__file__).resolve().parent / "gf3x_torch" / "bench" / "step.py")
+_STEP = importlib.util.module_from_spec(_STEP_SPEC)
+_STEP_SPEC.loader.exec_module(_STEP)
+build_batch = _STEP.build_batch
 # What the redesigns of kernels 2, 7, 3, A, 8 and B were predicted to reach
 # on an H100 80GB HBM3 at 700 W, and what the designs before them measured
 # there (PERF.md §6): printed beside this run's numbers
@@ -122,26 +148,17 @@ EXPECTED = {
 # held on its path and here)
 CUT_DFT_SHAPES = ((128, 32, 4, 60), (1024, 256, 24, 303),
                   (2048, 512, 48, 607), (4096, 512, 96, 1214))
-
-
-def build_batch(modem, B: int, margin: int, rng):
-    """B copies of a real frame at random delays + 20 dB AWGN (decodable):
-    (rx (B, frame_len + margin) float32, payload, delays).
-
-    A copy of bench.py:37-49 (`build_batch`, the JAX benchmark's config-5
-    batch recipe), kept here so that this script imports nothing of the
-    JAX side; tests/test_torch_kernels.py holds the two equal."""
-    cfg = modem.cfg
-    payload = rng.integers(0, 256, 540, dtype=np.uint8).tobytes()
-    wav = modem.encode(payload, "bench.bin")
-    T = cfg.frame_len + margin
-    rx = np.zeros((B, T), dtype=np.float32)
-    delays = rng.integers(0, margin, size=B)
-    for i in range(B):
-        rx[i, delays[i]: delays[i] + wav.size] = wav
-    p = float(np.mean(wav**2))
-    rx += (rng.standard_normal((B, T)) * np.sqrt(p / 100.0)).astype(np.float32)
-    return rx, payload, delays
+# the BER sweep at full GF3 width: `gf3x-torch sweep`'s default grid
+# (gf3x's) × 128 trials = 1024 frames, config 5's batch, through a room
+# (seeded, rt60 20 ms, DRR 3 dB: 99.3 % of its energy inside the 256-sample
+# CP) and a delay of 1000 samples; its card-against-CPU check at 4 trials
+SWEEP_SNRS = (0.0, 2.0, 4.0, 6.0, 8.0, 12.0, 16.0, 20.0)
+SWEEP_TRIALS, SWEEP_DELAY, SWEEP_CHECK_TRIALS = 128, 1000, 4
+# tests/test_observability.py's small LDPC config, whose 7 dB frame the
+# golden phase decodes beside a GF3 one
+OBS_CFG = dict(n_fft=256, cp=64, bin_lo=8, bin_hi=103, pilot_spacing=8,
+               n_known_symbols=2, n_data_symbols=12, chirp_duration=0.02,
+               fec="ldpc", ldpc_z=24, ldpc_iters=10)
 
 
 def median_ms(fn, runs: int = TIMED_RUNS) -> float:
@@ -944,6 +961,263 @@ def run_long_recordings(dev, counters):
     return total, secs
 
 
+def sweep_counts(res, cfg):
+    """A sweep's (pre-FEC bit errors, post-FEC bit errors, failed frames)
+    per SNR point, as integers."""
+    N = res["n_trials"]
+    return (np.rint(res["ber_pre_fec"] * N * cfg.raw_bits_per_frame),
+            np.rint(res["ber_post_fec"] * N * cfg.payload_bits_per_frame),
+            np.rint(res["fer"] * N))
+
+
+def run_sweep(dev, counters):
+    """The BER sweep (the reference's config 3) through
+    `gf3x_torch.bench.ber.ber_sweep` on `Modem(GF3_STANDARD)` on the card:
+    SWEEP_SNRS × SWEEP_TRIALS frames in one pass through the room FIR and
+    the delay. Checks: post-FEC BER 0 at 16 and 20 dB, pre-FEC above
+    post-FEC at 6 dB, both curves monotone within 1e-3, the EQ/demap and
+    LDPC kernels and a cut kernel launched; and the same sweep at
+    SWEEP_CHECK_TRIALS on the card and on the CPU (plain versions) from one
+    injected draw: failed frames equal, bit errors within 2 + 1e-3 of the
+    count before the FEC and 2 + 1 % after it (tests/test_torch_ber.py's
+    bounds against gf3x). Returns (launch counts, numbers)."""
+    from gf3x_torch import GF3_STANDARD, Modem
+    from gf3x_torch.bench.ber import ber_sweep
+    from gf3x_torch.channel import room_impulse_response
+
+    cfg = GF3_STANDARD
+    m = Modem(cfg, device=dev)
+    h = room_impulse_response(np.random.default_rng(0), rt60=0.02,
+                              drr_db=3.0)
+    tail = float(np.sum(h[cfg.cp:] ** 2) / np.sum(h ** 2))
+    T = cfg.frame_len + SWEEP_DELAY
+    S, N = len(SWEEP_SNRS), SWEEP_TRIALS
+
+    def sweep():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return ber_sweep(m, SWEEP_SNRS, N, generator=gen, fir=h,
+                         delay_samples=SWEEP_DELAY)
+
+    res, launches = launch_counts(counters, sweep)
+    pre, post, fer = res["ber_pre_fec"], res["ber_post_fec"], res["fer"]
+    i16, i20, mid = (SWEEP_SNRS.index(x) for x in (16.0, 20.0, 6.0))
+    check(post[i16] == 0.0 and post[i20] == 0.0, f"sweep: post-FEC BER "
+          f"{post[i16]} at 16 dB, {post[i20]} at 20 dB")
+    check(pre[mid] > post[mid], f"sweep: pre-FEC BER {pre[mid]} not above "
+          f"post-FEC {post[mid]} at 6 dB")
+    for name, c in (("post-FEC", post), ("pre-FEC", pre)):
+        check(all(c[i] >= c[i + 1] - 1e-3 for i in range(S - 1)),
+              f"sweep: the {name} curve is not monotone: {c}")
+    for name in ("fused_eq_demap", "minsum_totals"):
+        check(launches[name] > 0, f"sweep: {name} did not launch")
+    check(launches["cut_symbols"] + launches["gather_cut_group"] > 0,
+          "sweep: no cut kernel launched")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    sweep_s = float(np.median(times))
+
+    rng = np.random.default_rng(1)
+    Nc = SWEEP_CHECK_TRIALS
+    draws = dict(info=rng.integers(0, 2, (S, Nc, cfg.payload_bits_per_frame),
+                                   dtype=np.uint8),
+                 noise=rng.standard_normal((S, Nc, T), dtype=np.float32))
+    card = sweep_counts(ber_sweep(m, SWEEP_SNRS, Nc, fir=h,
+                                  delay_samples=SWEEP_DELAY, **draws), cfg)
+    cpu = sweep_counts(ber_sweep(Modem(cfg, device="cpu"), SWEEP_SNRS, Nc,
+                                 fir=h, delay_samples=SWEEP_DELAY, **draws),
+                       cfg)
+    diff = [int(np.abs(a - b).max()) for a, b in zip(card, cpu)]
+    check(np.all(np.abs(card[0] - cpu[0]) <= 2 + 1e-3 * cpu[0])
+          and np.all(np.abs(card[1] - cpu[1]) <= 2 + 1e-2 * cpu[1])
+          and np.array_equal(card[2], cpu[2]), f"sweep: card and CPU "
+          f"error counts differ: card {card}, CPU {cpu}")
+    out = dict(frames=S * N, T=T, fir_taps=len(h), fir_energy_past_cp=tail,
+               cut="kernel 6" if m._fused_cut_refuses(T) else "kernel 1",
+               sweep_s=sweep_s, sweep_s_runs=times, frames_per_s=S * N / sweep_s,
+               snr_db=list(SWEEP_SNRS), ber_pre_fec=pre.tolist(),
+               ber_post_fec=post.tolist(), fer=fer.tolist(),
+               check_counts_card=[c.tolist() for c in card],
+               check_counts_cpu=[c.tolist() for c in cpu],
+               check_max_count_diff=diff)
+    print(f"sweep: {S} x {N} = {S * N} GF3 frames of {T} samples through a "
+          f"{len(h)}-tap room ({100 * tail:.2f} % of its energy past the "
+          f"CP) and a {SWEEP_DELAY}-sample delay; pre-FEC BER "
+          f"{np.array2string(pre, precision=4)}, post-FEC "
+          f"{np.array2string(post, precision=4)}, FER {fer.tolist()}; cut "
+          f"by {out['cut']}; launches {launches}; {1e3 * sweep_s:.3f} ms "
+          f"per sweep (median of 5), {out['frames_per_s']:.1f} frames/s; "
+          f"card against CPU at {Nc} trials: error counts differ by at most "
+          f"{diff} (pre, post, frames)", flush=True)
+    return launches, out
+
+
+def run_cli(dev, counters):
+    """The `gf3x-torch` command line on the card (its default device),
+    through `gf3x_torch.cli.main`: transmit → host channel (delay, gain,
+    25 dB AWGN) → receive --json, the file back byte-equal; retransmit of
+    frame 1, received alone (exit 2, seq 0 missing); info; adapt on a 22 dB
+    probe, then transmit and receive --loading with its table (kernels A
+    and B); `Modem.equalized_symbols` of the first recording, as receive
+    --constellation computes it (this machine has no matplotlib to draw
+    it); sweep --json at its defaults; bench, which prints its data
+    symbols/s. Returns (launch counts summed, numbers)."""
+    from gf3x_torch import GF3_STANDARD, Modem
+    from gf3x_torch.channel import awgn, delay_gain
+    from gf3x_torch.cli import main as cli
+    from gf3x_torch.io import read_wav, write_wav
+
+    total = {name: 0 for name in counters}
+
+    def call(*argv):
+        """(exit code, stdout) of one CLI call, its launches added up."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, launches = launch_counts(counters, lambda: cli(list(argv)))
+        sum_counts(total, launches)
+        return rc, buf.getvalue()
+
+    def last_json(out):
+        return json.loads([ln for ln in out.splitlines()
+                           if ln.startswith("{")][-1])
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(3)
+        data = bytes(rng.integers(0, 256, 1500, dtype=np.uint8))
+        (tmp / "doc.bin").write_bytes(data)
+        t0 = time.perf_counter()
+        rc_t, _ = call("transmit", str(tmp / "doc.bin"), "-o",
+                       str(tmp / "tx.wav"))
+        x, _ = read_wav(tmp / "tx.wav")
+        rx = awgn(delay_gain(x.astype(np.float64), 7000, 0.4,
+                             total_len=x.size + 20000), 25.0, rng)
+        write_wav(tmp / "rx.wav", rx)
+        rc_r, rep = call("receive", str(tmp / "rx.wav"), "--json", "-o",
+                         str(tmp / "out"))
+        out["round_trip_s"] = time.perf_counter() - t0
+        rep = last_json(rep)
+        check(rc_t == 0 and rc_r == 0 and rep["complete"]
+              and (tmp / "out" / "doc.bin").read_bytes() == data,
+              f"cli: the transmit/receive round trip failed: {rep}")
+
+        rc, rep1 = call("retransmit", str(tmp / "doc.bin"), "--seqs", "1",
+                        "-o", str(tmp / "retx.wav"))
+        rc2, rep1 = call("receive", str(tmp / "retx.wav"), "--json")
+        rep1 = last_json(rep1)
+        check(rc == 0 and rc2 == 2 and rep1["frames_crc_ok"] == 1
+              and 0 in rep1["missing_seqs"], f"cli: retransmit: {rep1}")
+        rc, info = call("info")
+        check(rc == 0 and "payload capacity" in info, "cli: info failed")
+
+        probe = Modem(GF3_STANDARD, device=dev).encode(b"probe payload",
+                                                      "p.bin")
+        prx = awgn(delay_gain(probe.astype(np.float64), 700, 0.9,
+                              total_len=probe.size + 3000), 22.0, rng)
+        write_wav(tmp / "probe.wav", prx)
+        rc, adapt = call("adapt", str(tmp / "probe.wav"), "-o",
+                         str(tmp / "table.json"), "--margin", "1.0",
+                         "--json")
+        adapt = last_json(adapt)
+        check(rc == 0 and "bit_loading" in adapt, f"cli: adapt: {adapt}")
+        loading = ["--loading", str(tmp / "table.json")]
+        (tmp / "small.bin").write_bytes(data[:96])
+        rc, _ = call(*loading, "transmit", str(tmp / "small.bin"), "-o",
+                     str(tmp / "ltx.wav"))
+        x, _ = read_wav(tmp / "ltx.wav")
+        write_wav(tmp / "lrx.wav", awgn(delay_gain(
+            x.astype(np.float64), 300, 0.9, total_len=x.size + 2000), 24.0,
+            rng))
+        rc2, lrep = call(*loading, "receive", str(tmp / "lrx.wav"), "--json",
+                         "-o", str(tmp / "lout"))
+        check(rc == 0 and rc2 == 0 and (tmp / "lout" / "small.bin")
+              .read_bytes() == data[:96], f"cli: the --loading round trip "
+              f"failed: {lrep}")
+
+        m = Modem(GF3_STANDARD, device=dev)
+        syms, launches = launch_counts(counters, lambda: m.equalized_symbols(
+            rx, start=int(rep["starts"][0])))
+        sum_counts(total, launches)
+        d = np.min(np.abs(syms[..., None] - np.array(
+            [1 + 1j, 1 - 1j, -1 + 1j, -1 - 1j]) / np.sqrt(2)), axis=-1)
+        check(syms.shape == (GF3_STANDARD.n_data_symbols,
+                             GF3_STANDARD.n_data_bins)
+              and np.percentile(d, 99) < 0.35, "cli: equalized symbols off "
+              f"the constellation (99th percentile {np.percentile(d, 99)})")
+        out["equalized_symbols_p99_dist"] = float(np.percentile(d, 99))
+
+    t0 = time.perf_counter()
+    rc, sw = call("sweep", "--json")
+    out["sweep_s"] = time.perf_counter() - t0
+    sw = last_json(sw)
+    check(rc == 0 and len(sw["snr_db"]) == len(SWEEP_SNRS)
+          and sw["ber_post_fec"][-1] == 0.0, f"cli: sweep: {sw}")
+    rc, bench = call("bench")
+    bench = last_json(bench)
+    check(rc == 0 and bench["metric"] > 0, f"cli: bench: {bench}")
+    out.update(sweep=sw, bench=bench)
+    for name in ("gather_cut", "fused_eq_demap", "eq_track", "demap_bins",
+                 "minsum_totals", "cut_symbols"):
+        check(total[name] > 0, f"cli: {name} did not launch")
+    print(f"cli: transmit -> channel -> receive --json round trip "
+          f"byte-equal ({len(data)} B, {out['round_trip_s']:.3f} s); "
+          f"retransmit, info, adapt and the --loading round trip passed; "
+          f"equalized symbols within {out['equalized_symbols_p99_dist']:.3f} "
+          f"of QPSK (99th percentile); sweep --json at its defaults in "
+          f"{out['sweep_s']:.3f} s, post-FEC {sw['ber_post_fec']}; bench "
+          f"{bench['metric']:.1f} data symbols/s ({bench['step_ms']:.3f} "
+          f"ms/step at B = {bench['batch']}); launches {total}", flush=True)
+    return total, out
+
+
+def run_golden(dev, counters):
+    """The port's golden model (float64 NumPy, on the host) and its Modem on
+    the card decode the same 7 dB frame — tests/test_observability.py's
+    draws — of GF3 and of that test's small LDPC config: both CRC-ok with
+    the planted payload, no unsatisfied codeword, and the Modem's pass count
+    equal to the golden decoder's. Returns (launch counts, numbers)."""
+    from gf3x_torch import GoldenModem, Modem, ModemConfig, preset
+    from gf3x_torch.channel import awgn, delay_gain
+
+    total, out = {name: 0 for name in counters}, {}
+    for label, cfg in (("gf3", preset("gf3")),
+                       ("test_observability", ModemConfig(**OBS_CFG)
+                        .validate())):
+        m, g = Modem(cfg, device=dev), GoldenModem(cfg)
+        rng = np.random.default_rng(6)
+        payload = bytes(rng.integers(0, 256, 60, dtype=np.uint8))
+        wav = m.encode(payload)
+        rx = awgn(delay_gain(wav.astype(np.float64), 500, 0.6,
+                             total_len=len(wav) + 2000), 7.0, rng)
+        res, launches = launch_counts(counters,
+                                      lambda: m.decode(rx.astype(np.float32)))
+        sum_counts(total, launches)
+        gres = g.decode(rx)
+        check(res.crc_ok and gres.crc_ok and res.payload == payload
+              and gres.payload == payload, f"golden ({label}): a decode "
+              "failed")
+        check(int(res.diag.fec_unsat) == gres.diag["fec_unsat"] == 0,
+              f"golden ({label}): unsatisfied codewords")
+        check(int(res.diag.fec_iters) == gres.diag["ldpc_iters"],
+              f"golden ({label}): {int(res.diag.fec_iters)} passes on the "
+              f"card, {gres.diag['ldpc_iters']} in the golden model")
+        out[label] = dict(fec_iters=int(res.diag.fec_iters),
+                          golden_ldpc_iters=gres.diag["ldpc_iters"],
+                          launches=launches)
+        print(f"golden ({label}, 7 dB): Modem on the card and GoldenModem "
+              f"both CRC-ok with the payload, fec_unsat 0, "
+              f"{int(res.diag.fec_iters)} LDPC passes each; launches "
+              f"{launches}", flush=True)
+    for name in ("gather_cut", "fused_eq_demap", "minsum_totals"):
+        check(total[name] > 0, f"golden: {name} did not launch")
+    return total, out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; there is no CPU "
@@ -1412,6 +1686,12 @@ def main() -> None:
     launchesH, harq_s, harq_ppm = run_harq(dev, counters)
     launchesA, arq_s = run_arq(dev, counters)
     launchesT, long_s = run_long_recordings(dev, counters)
+
+    # ---- the evaluation and command-line surface: the BER sweep at full
+    # width, the CLI, the golden model against the Modem
+    launchesW, sweep = run_sweep(dev, counters)
+    launchesI, cli = run_cli(dev, counters)
+    launchesG, golden = run_golden(dev, counters)
     rows["gather_cut"] = dict(
         name="gather_cut", route="cuda",
         source="gf3x_torch/csrc/gather_cut.cu",
@@ -1426,7 +1706,8 @@ def main() -> None:
                "sfo": launchesS, "bit_loaded": launchesL,
                "longcp": launchesLC, "captures": launchesC,
                "routes": launchesR, "harq": launchesH, "arq": launchesA,
-               "long_recordings": launchesT}
+               "long_recordings": launchesT, "sweep": launchesW,
+               "cli": launchesI, "golden": launchesG}
     check(len(rows) == 8 and all(
         sum(c[name] for c in by_path.values()) > 0 for name in rows),
           "a kernel has no row or never launched on a path")
@@ -1447,6 +1728,7 @@ def main() -> None:
                       "longcp_step_ms": longcp_ms, "longcp_dft": longcp_dft,
                       "harq_s": harq_s, "harq_joint_ppm": harq_ppm,
                       "arq_s": arq_s, "long_recording_s": long_s,
+                      "sweep": sweep, "cli": cli, "golden": golden,
                       "build_s": build_s, "package": gf3x_torch.__name__}),
           flush=True)
     print(smi, flush=True)

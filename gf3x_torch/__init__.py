@@ -4,8 +4,9 @@ Schmidl–Cox sync, frame cut — alone or fused with the used-band DFT —, LS
 estimate, EQ/track/demap — fused for uniform configs, split for bit-loaded
 ones —, LDPC, the clock-offset loop and the decision-directed retry), the
 multi-frame stream decoder with its long-recording frame scan, HARQ chase
-combining, the ARQ state machines, the channel simulators, the transmit
-path and link adaptation, with eight
+combining, the ARQ state machines, the channel simulators (host and
+device), the BER sweep, the transmit path, link adaptation, the `gf3x-torch`
+command line (`cli.py`) and the float64 golden model, with eight
 hand-written CUDA kernels for sm_90a on the card and their plain PyTorch
 versions on the CPU. It never imports jax or gf3x.
 
@@ -28,8 +29,9 @@ torch.backends.cudnn.allow_tf32 = False
 from .config import (CONFIG1_LOOPBACK, GF3_FAST, GF3_HICAP,  # noqa: E402
                      GF3_ROBUST, GF3_STANDARD, GF3_TURBO, ModemConfig,
                      layout, preset)
+from .golden import GoldenModem  # noqa: E402
 from .models import DecodeDiag, DecodeResult, Modem  # noqa: E402
 
 __all__ = ["ModemConfig", "preset", "layout", "GF3_STANDARD", "GF3_FAST",
            "GF3_HICAP", "GF3_TURBO", "GF3_ROBUST", "CONFIG1_LOOPBACK",
-           "Modem", "DecodeDiag", "DecodeResult"]
+           "Modem", "DecodeDiag", "DecodeResult", "GoldenModem"]

@@ -1,6 +1,8 @@
-# Copied from gf3x/io/audio.py (NumPy and SciPy only; live play/record not
-# ported), so that gf3x_torch never imports jax.
-"""WAV file I/O at 44.1 kHz: float32 waveforms in [-1, 1] cross this module
+# Copied from gf3x/io/audio.py (NumPy and SciPy only), so that gf3x_torch
+# never imports jax.
+"""Host audio I/O: WAV files at 44.1 kHz, and live play/record through
+`sounddevice` where it is installed (an optional import; without it those
+two raise with guidance). float32 waveforms in [-1, 1] cross this module
 as 16-bit PCM."""
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from pathlib import Path
 import numpy as np
 from scipy.io import wavfile
 
-__all__ = ["write_wav", "read_wav"]
+__all__ = ["write_wav", "read_wav", "play", "record", "have_live_audio"]
 
 
 def write_wav(path: str | Path, waveform: np.ndarray, fs: int = 44100) -> None:
@@ -38,3 +40,38 @@ def read_wav(path: str | Path, expect_fs: int | None = 44100) -> tuple[np.ndarra
     if x.ndim == 2:
         x = x.mean(axis=1)
     return x, fs
+
+
+def have_live_audio() -> bool:
+    try:
+        import sounddevice  # noqa: F401
+        return True
+    except Exception:
+        return False
+
+
+def play(waveform: np.ndarray, fs: int = 44100) -> None:
+    """Play through the default output device (requires sounddevice)."""
+    try:
+        import sounddevice as sd
+    except ImportError as e:
+        raise RuntimeError(
+            "live playback needs the `sounddevice` package (not in this "
+            "image); write a WAV with write_wav() and play it externally"
+        ) from e
+    sd.play(np.asarray(waveform, dtype=np.float32), fs)
+    sd.wait()
+
+
+def record(seconds: float, fs: int = 44100) -> np.ndarray:
+    """Record from the default input device (requires sounddevice)."""
+    try:
+        import sounddevice as sd
+    except ImportError as e:
+        raise RuntimeError(
+            "live capture needs the `sounddevice` package (not in this "
+            "image); record externally and decode the WAV with read_wav()"
+        ) from e
+    x = sd.rec(int(seconds * fs), samplerate=fs, channels=1, dtype="float32")
+    sd.wait()
+    return x[:, 0]

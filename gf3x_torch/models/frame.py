@@ -154,7 +154,7 @@ def _require_strided(cfg: ModemConfig) -> None:
     if not cfg.strided_pilots:
         raise NotImplementedError(
             "irregular pilot layouts are not ported yet (ROADMAP queue 1, "
-            "item 7): gf3x_torch takes pilot_offset 0 and a spacing that "
+            "item 5): gf3x_torch takes pilot_offset 0 and a spacing that "
             "tiles the used band")
 
 

@@ -62,7 +62,7 @@ from ..utils.bits import (bits_to_bytes, bytes_to_bits, pack_header,
                           parse_frame_header)
 from .frame import (data_symbols_from_bits, demap_bin_tables,
                     frame_bin_matrix, interleave_bits, interleave_pilots,
-                    loaded_qam_map)
+                    loaded_qam_map, split_pilots)
 
 __all__ = ["Modem", "DecodeDiag", "DecodeResult"]
 
@@ -168,20 +168,26 @@ class Modem(torch.nn.Module):
         return self.chirp.device
 
     # ------------------------------------------------------------ transmit
+    def _fec_coded_bits(self, info_bits: torch.Tensor) -> torch.Tensor:
+        """Info bits (..., payload_bits) → coded-STREAM bits (..., raw_bits)
+        uint8: the FEC codewords and their pad, before scrambling and
+        interleaving (the domain `coded_stream_llr` demaps into)."""
+        cfg = self.cfg
+        coded = info_bits.to(torch.uint8)
+        if cfg.fec != "ldpc":
+            return coded
+        *lead, _ = info_bits.shape
+        u = coded.reshape(*lead, cfg.n_codewords, cfg.ldpc_k)
+        coded = self._code.encode(u, self.ldpc_parity).reshape(
+            *lead, cfg.n_codewords * cfg.ldpc_n)
+        pad = cfg.raw_bits_per_frame - coded.shape[-1]
+        return torch.nn.functional.pad(coded, (0, pad))
+
     def fec_encode(self, info_bits: torch.Tensor) -> torch.Tensor:
         """Info bits (..., payload_bits_per_frame) → scrambled, interleaved
         channel bits (..., raw_bits_per_frame) uint8."""
-        cfg = self.cfg
-        coded = info_bits.to(torch.uint8)
-        if cfg.fec == "ldpc":
-            *lead, _ = info_bits.shape
-            u = info_bits.reshape(*lead, cfg.n_codewords, cfg.ldpc_k)
-            coded = self._code.encode(u, self.ldpc_parity).reshape(
-                *lead, cfg.n_codewords * cfg.ldpc_n)
-            pad = cfg.raw_bits_per_frame - coded.shape[-1]
-            coded = torch.nn.functional.pad(coded, (0, pad))
-        coded = coded ^ self.scramble
-        return interleave_bits(cfg, coded) if cfg.interleave else coded
+        coded = self._fec_coded_bits(info_bits) ^ self.scramble
+        return interleave_bits(self.cfg, coded) if self.cfg.interleave else coded
 
     def modulate_frames(self, info_bits: torch.Tensor) -> torch.Tensor:
         """(..., payload_bits_per_frame) uint8 → (..., frame_len) float32:
@@ -506,12 +512,22 @@ class Modem(torch.nn.Module):
                       metric: torch.Tensor, sfo_correct: bool = False,
                       dd: bool = False):
         """Shared tail once the frame start is known: cut → demap → FEC →
-        DecodeDiag. rx (..., T), start (...,) or scalar. `sfo_correct`
-        inserts the clock-offset loop, `dd` takes the decision-directed
-        demod; the plain route takes kernel 8 when `use_cut_dft` is set
-        and the geometry suits gf3x's fused cut (the other two
-        re-demodulate the symbol matrix, so they keep the two-stage cut;
-        so does a geometry gf3x's fused cut refuses, as in gf3x)."""
+        DecodeDiag. rx (..., T), start (...,) or scalar; the routes are
+        `_demod_llr`'s."""
+        out, sc_win = self._demod_llr(rx, start, sfo_correct, dd)
+        return self._finish(out, tuple(rx.shape[:-1]), start, metric, sc_win)
+
+    def _demod_llr(self, rx: torch.Tensor, start: torch.Tensor,
+                   sfo_correct: bool = False, dd: bool = False):
+        """Cut and demodulate frames whose chirp onset is `start`: rx
+        (..., T), start (...,) or scalar → (`_demod_spectra`'s (llr (B,
+        raw_bits), pieces) on the flat batch, SC window or None).
+        `sfo_correct` inserts the clock-offset loop, `dd` takes the
+        decision-directed demod; the plain route takes kernel 8 when
+        `use_cut_dft` is set and the geometry suits gf3x's fused cut (the
+        other two re-demodulate the symbol matrix, so they keep the
+        two-stage cut; so does a geometry gf3x's fused cut refuses, as in
+        gf3x)."""
         cfg = self.cfg
         lead = tuple(rx.shape[:-1])
         B = int(np.prod(lead))
@@ -527,7 +543,7 @@ class Modem(torch.nn.Module):
                      if sfo_correct else None)
             demod = self._demod_syms_dd if dd else self._demod_syms
             out = demod(syms, delta=delta, roll=roll)
-        return self._finish(out, lead, start, metric, sc_win)
+        return out, sc_win
 
     def _sync(self, rx: torch.Tensor):
         """Chirp sync of (..., T): bounded and 2× decimated with
@@ -739,6 +755,30 @@ class Modem(torch.nn.Module):
             cfg.n_codewords, cfg.ldpc_n)
         info, _, _ = self._code.decode(lam, cfg.ldpc_iters)
         return self._result(info.reshape(-1).cpu().numpy(), None)
+
+    @torch.no_grad()
+    def equalized_symbols(self, rx: np.ndarray,
+                          start: Optional[int] = None) -> np.ndarray:
+        """The equalized, phase-tracked data symbols of recordings rx
+        (..., T) → (..., D, n_data_bins) complex64, for constellation plots
+        and analysis: the chirp sync over the whole recording (or the given
+        `start`), the cut, the DFT, the channel estimate and kernel A's
+        EQ/tracking (`eq_track`), then the data bins."""
+        cfg = self.cfg
+        x = torch.as_tensor(np.asarray(rx, dtype=np.float32),
+                            device=self.device)
+        lead = tuple(x.shape[:-1])
+        x = x.reshape(-1, x.shape[-1])
+        if start is None:
+            s, _ = find_frame_start(cfg, x, self.chirp)
+        else:
+            s = torch.as_tensor(int(start), dtype=torch.int32,
+                                device=self.device)
+        syms, _, roll = self._cut_frame(x, s)
+        Y, H, noise_var, _, _ = self._estimate(syms, roll)
+        eq, _, _, _ = eq_track(cfg, Y, H, noise_var, self.pilot_vals)
+        _, data = split_pilots(cfg, eq)
+        return data.reshape(*lead, *data.shape[1:]).cpu().numpy()
 
     def _host_results(self, bits: torch.Tensor,
                       diag) -> list[DecodeResult]:

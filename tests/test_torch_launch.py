@@ -1,6 +1,7 @@
 """The port's kernel call path on the CPU: the binding (`utils/device.py`
 and `csrc/binding.cu`), kernel 2's launch geometry and per-config
-constants, and chip_smoke.py's copy of bench.py's batch recipe.
+constants, and the port's copy of bench.py's batch recipe
+(`gf3x_torch.bench.step.build_batch`, which chip_smoke.py uses).
 
 The kernels themselves run only on the card (`chip_smoke.py`); what is
 held here is everything around a launch that Python decides."""
@@ -16,6 +17,7 @@ import torch
 import bench
 import chip_smoke
 from gf3x_torch import GF3_FAST, GF3_STANDARD, GF3_TURBO, Modem
+from gf3x_torch.bench import step
 from gf3x_torch.config import layout
 from gf3x_torch.ops import constellation
 from gf3x_torch.ops.kernels import fused_eq, split_eq
@@ -26,11 +28,14 @@ WIDE = GF3_STANDARD.replace(n_fft=4096, cp=1024, bin_lo=48, bin_hi=1071)
 
 
 def test_chip_smoke_build_batch_is_bench_build_batch():
-    """chip_smoke.py's own `build_batch` (it imports nothing of the JAX
-    side) gives bench.py's batch bit for bit."""
+    """The port's own `build_batch` (`gf3x_torch.bench.step`, which
+    chip_smoke.py and `gf3x-torch bench` build their batches with; it
+    imports nothing of the JAX side) gives bench.py's batch bit for bit."""
     modem = Modem(GF3_STANDARD, max_delay=4096 + GF3_STANDARD.cp,
                   device="cpu")
-    got = chip_smoke.build_batch(modem, 4, 4096, np.random.default_rng(0))
+    got = step.build_batch(modem, 4, 4096, np.random.default_rng(0))
+    via = chip_smoke.build_batch(modem, 4, 4096, np.random.default_rng(0))
+    assert all(np.array_equal(a, b) for a, b in zip(got, via))
     ref = bench.build_batch(modem, 4, 4096, np.random.default_rng(0))
     assert got[0].dtype == ref[0].dtype == np.float32
     assert np.array_equal(got[0], ref[0])
