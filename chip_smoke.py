@@ -44,7 +44,17 @@ drives the receive paths once each through the port's entry points:
   (transmit → receive round trip, retransmit, info, adapt and a
   `--loading` round trip on kernels A and B, sweep, bench);
   `Modem.equalized_symbols` (kernels 7 and A); and the golden model
-  (`gf3x_torch.GoldenModem`, host float64) beside the Modem on 7 dB frames.
+  (`gf3x_torch.GoldenModem`, host float64) beside the Modem on 7 dB frames;
+- every pilot layout ("pilots"): config 5's batch on GF3 with its pilot
+  grid offset by 4 bins (kernels 1, 2, 3), pilotless and with one pilot
+  (kernel 2 without a fit), and offset and bit-loaded (kernels A, B) —
+  kernels 2, A and B read the layout from tables — each kernel held
+  against its plain version, 1024/1024 rows CRC-ok;
+- multi-GPU ("mesh", `gf3x_torch.parallel`): `sharded_decode` on the
+  one-card mesh and on a two-shard mesh of this card against
+  `Modem.demodulate`, and `sharded_pipeline_step` at 25 dB;
+- the four walkthroughs of `gf3x_torch.examples` ("examples") on the card,
+  each with its own assertions.
 
 Any failed check raises, so the exit code is non-zero; there is no CPU
 route.
@@ -65,12 +75,17 @@ Kernel 8 is also held at n_fft = 128, 1024, 2048 and 4096 on synthetic
 rows (every 16-byte alignment, windows across and past `valid`, with and
 without the SC window).
 
-Two other modes time kernels 3, A, B and 8 alone (`time_tree`):
+Two other modes time kernels 2, 3, A, B and 8 alone (`time_tree`):
 `python3 chip_smoke.py --time TREE` those of the port in the checkout
 TREE, and `python3 chip_smoke.py --against TREE` TREE's and this
 checkout's in turns on one card, each in its own process (for a before
-and after on one machine: unpack the parent commit into TREE); kernel B's
-LLRs must hash the same in every run.
+and after on one machine: unpack the parent commit into TREE); the outputs
+of kernels 2 (config 5 and gf3-turbo), A and B (bit-loaded) must hash the
+same in every run, and each kernel's profiler µs of this tree over TREE's
+is printed.
+
+A fourth, `python3 chip_smoke.py --mesh`, runs the mesh phase alone
+across every card of the machine (the one-card mesh against all cards).
 
 Phases print one line each. The last lines are a JSON object with every
 kernel's measurements (host-clock and CUDA-event times, the kernel's own
@@ -154,11 +169,27 @@ CUT_DFT_SHAPES = ((128, 32, 4, 60), (1024, 256, 24, 303),
 # CP) and a delay of 1000 samples; its card-against-CPU check at 4 trials
 SWEEP_SNRS = (0.0, 2.0, 4.0, 6.0, 8.0, 12.0, 16.0, 20.0)
 SWEEP_TRIALS, SWEEP_DELAY, SWEEP_CHECK_TRIALS = 128, 1000, 4
+# the pilots phase: config 5's batch recipe on the pilot layouts that are
+# not a strided grid of two or more pilots, each as GF3_STANDARD.replace
+# keywords with the payload bits it carries; "loaded" takes the bit-loaded
+# phase's table drawn for its 245 data bins (`loading_table`)
+PILOT_LAYOUTS = (("offset 4", dict(pilot_offset=4), 4608),
+                 ("pilotless", dict(pilot_spacing=0), 4608),
+                 ("one pilot", dict(pilot_spacing=280), 4608),
+                 ("offset 4, loaded", dict(pilot_offset=4, loaded=True), 6912))
 # tests/test_observability.py's small LDPC config, whose 7 dB frame the
 # golden phase decodes beside a GF3 one
 OBS_CFG = dict(n_fft=256, cp=64, bin_lo=8, bin_hi=103, pilot_spacing=8,
                n_known_symbols=2, n_data_symbols=12, chirp_duration=0.02,
                fec="ldpc", ldpc_z=24, ldpc_iters=10)
+
+
+def loading_table(n_bins: int) -> tuple:
+    """The bit-loaded phase's table (tools/tpu_parity.py's on-chip parity
+    table) for `n_bins` data bins: orders 0/2/4/6 drawn with LOADING_P from
+    LOADING_SEED."""
+    return tuple(int(x) for x in np.random.default_rng(LOADING_SEED).choice(
+        [0, 2, 4, 6], size=n_bins, p=LOADING_P))
 
 
 def median_ms(fn, runs: int = TIMED_RUNS) -> float:
@@ -414,6 +445,26 @@ def hold_split(modem, Y, H, nv, out_k, label):
     return rel
 
 
+def hold_demap(cfg, eq, H, nv_sym, tables, label):
+    """Kernel B against its plain version on kernel A's output: hard
+    decisions equal, |ΔLLR| ≤ 2e-4·mean|LLR|, evm and mean|llr| ≤ 1e-4
+    rel. Returns (the kernel's outputs, max |ΔLLR|, mean |LLR|)."""
+    from gf3x_torch.ops.kernels import split_eq
+
+    b_k = split_eq.demap_bins(cfg, eq, H, nv_sym, tables)
+    b_p = split_eq.demap_bins_plain(cfg, eq, H, nv_sym)
+    scale = float(b_p[0].abs().mean())
+    err = float((b_k[0] - b_p[0]).abs().max())
+    check(torch.equal(b_k[0] < 0, b_p[0] < 0), f"demap_bins {label}: hard "
+          "decisions differ from its plain version")
+    check(err <= 2e-4 * scale, f"demap_bins {label}: LLR error {err} > 2e-4 "
+          f"x mean|LLR| {scale}")
+    for i, name in ((1, "evm"), (2, "mean|llr|")):
+        d = float(((b_k[i] - b_p[i]).abs() / b_p[i].abs()).max())
+        check(d <= 1e-4, f"demap_bins {label}: {name} differs by {d} rel")
+    return b_k, err, scale
+
+
 def hold_tail(out_k, out_p, what):
     """(llr, slope, cpe, evm, mabs) of two tails against each other, to
     the bounds of `hold_fused`; returns (max |ΔLLR|, mean |LLR|)."""
@@ -461,6 +512,23 @@ def hold_minsum(code, lam, iters, label) -> dict:
           f"over {lam.shape[0]} codewords, check pass's mask equal; {held}",
           flush=True)
     return held
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper by name, each with its `launches` count."""
+    from gf3x_torch.ops.kernels import (cut_dft, fused_eq, gather_cut,
+                                        ldpc_bp, split_eq)
+
+    return {"cut_symbols": gather_cut.cut_symbols,
+            "gather_cut": gather_cut.gather_cut,
+            "gather_cut_group": gather_cut.gather_cut_group,
+            "fused_eq_demap": fused_eq.fused_eq_demap,
+            "eq_track": split_eq.eq_track,
+            "demap_bins": split_eq.demap_bins,
+            "minsum_totals": ldpc_bp.minsum_totals,
+            "minsum_check": ldpc_bp.minsum_check,
+            "minsum_decode": ldpc_bp.minsum_decode,
+            "cut_dft": cut_dft.cut_dft}
 
 
 def launch_counts(counters, fn):
@@ -1218,6 +1286,196 @@ def run_golden(dev, counters):
     return total, out
 
 
+def run_pilots(dev, counters):
+    """Config 5's batch (B = 1024, 20 dB) on the four PILOT_LAYOUTS: on
+    each, kernels A and B held against their plain versions, then — on a
+    uniform config — kernel 2 against its plain version and bit for bit
+    against A + B, kernel 3 on the tail's codeword LLRs, and
+    `Modem.demodulate` once with every launch counter at 0 (1024/1024 rows
+    CRC-ok with the planted payload, kernels 1, 2 or A and B, and 3
+    launched), then its step timed. Returns (the launch counts summed over
+    the four paths, {label: what was held and the step ms})."""
+    from gf3x_torch import GF3_STANDARD, Modem
+
+    total, out = {name: 0 for name in counters}, {}
+    for label, kw, payload_bits in PILOT_LAYOUTS:
+        kw = dict(kw)
+        if kw.pop("loaded", False):
+            kw["bit_loading"] = loading_table(
+                GF3_STANDARD.replace(**kw).n_data_bins)
+        cfg = GF3_STANDARD.replace(**kw)
+        check(cfg.payload_bits_per_frame == payload_bits
+              and not (cfg.strided_pilots and cfg.n_pilots >= 2),
+              f"pilots {label}: payload {cfg.payload_bits_per_frame} bits, "
+              f"strided {cfg.strided_pilots} with {cfg.n_pilots} pilots")
+        modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
+        rx_np, payload, delays = build_batch(modem, B, MARGIN,
+                                             np.random.default_rng(0))
+        rx = torch.as_tensor(rx_np, device=dev)
+        _, _, _, _, Y, H, nv = path_inputs(modem, rx)
+        pv = modem.pilot_vals
+        tables = (modem.demap_used, modem.demap_bits, modem.demap_off)
+        a_k = hold_eq_track(cfg, Y, H, nv, pv, label)
+        b_k, errB, scaleB = hold_demap(cfg, a_k[0], H, a_k[3], tables, label)
+        held = dict(n_pilots=cfg.n_pilots, n_data_bins=cfg.n_data_bins,
+                    payload_bits=payload_bits, demap_bins_max_abs_err=errB,
+                    demap_bins_mean_abs=scaleB)
+        if cfg.bit_loading is None:
+            out2, err2, scale2 = hold_fused(cfg, Y, H, nv, pv, label)
+            held.update(fused_eq_demap_max_abs_err=err2,
+                        fused_eq_demap_mean_abs=scale2,
+                        split_pair_rel=hold_split(modem, Y, H, nv, out2,
+                                                  f"pilots {label}"))
+            llr, tail = out2[0], ("fused_eq_demap",)
+        else:
+            llr, tail = b_k[0], ("eq_track", "demap_bins")
+        held["minsum"] = hold_minsum(modem._code,
+                                     modem._codeword_llrs(llr).contiguous(),
+                                     cfg.ldpc_iters, f"pilots {label}")
+        del Y, H, nv, a_k, b_k, llr
+        launches, _, diag, sync_err = run_path(
+            modem, rx, payload, delays, counters, f"pilots {label}")
+        for name in ("cut_symbols", "minsum_totals") + tail:
+            check(launches[name] > 0, f"pilots {label}: {name} did not "
+                  f"launch: {launches}")
+        other = (("eq_track", "demap_bins") if cfg.bit_loading is None
+                 else ("fused_eq_demap",))
+        check(all(launches[n] == 0 for n in other), f"pilots {label}: the "
+              f"other tail launched: {launches}")
+        step = median_ms(lambda: modem.demodulate(rx))
+        sum_counts(total, launches)
+        out[label] = dict(held, step_ms=step, sync_err=sync_err,
+                          launches=launches)
+        print(f"pilots {label} ({cfg.n_pilots} pilots, {cfg.n_data_bins} "
+              f"data bins, {payload_bits} payload bits): kernels A, B"
+              f"{', 2' if cfg.bit_loading is None else ''} and 3 held against "
+              f"their plain versions; demodulate {B}/{B} rows CRC-ok, sync "
+              f"within {sync_err} samples, slope |max| "
+              f"{float(diag.pilot_slope.abs().max()):.3g}, launches "
+              f"{launches}; {step:.3f} ms/step", flush=True)
+        del modem, rx
+    return total, out
+
+
+# a float diagnostic of the two-shard decode within this share of its mean
+# magnitude of the one-batch decode's: 1e-4, but 1e-2 for the ISI floor and
+# its tail/total ratio in dB, which come from a small difference of
+# near-equal energies (`ops.chanest.isi_profile`), where the batch's matmul
+# shape moves the last bits of each
+MESH_DIAG_REL = dict(isi_var=1e-2, isi_db=1e-2)
+MESH_INTEGER_DIAG = ("sync_start", "fec_iters", "fec_unsat")
+# the |LLR| histogram counts LLRs by power-of-two bucket, so an LLR on a
+# bucket edge may move one bucket when its last bits move: each frame's
+# counts sum the same, and at most this share of the counts moves
+MESH_HIST_MOVED = 1e-4
+
+
+def run_mesh(dev, counters, meshes: dict, cfg=None):
+    """`gf3x_torch.parallel` on the batch of `cfg` (config 5 by default;
+    B = 1024) on `dev`, over each of `meshes` ({label: mesh}):
+    `sharded_decode` gives bits equal to `Modem.demodulate`'s and, on a
+    mesh of one shard, every diag field equal; on more shards (each on its own card, or two on one card) the
+    integer diagnostics equal and the float ones within MESH_DIAG_REL;
+    `sharded_pipeline_step` at 25 dB gives BER 0 and ok, its bits the
+    planted ones. Returns (the launch counts summed, numbers with each
+    entry's step ms)."""
+    from gf3x_torch import GF3_STANDARD, Modem
+    from gf3x_torch.parallel import sharded_decode, sharded_pipeline_step
+
+    cfg = cfg or GF3_STANDARD
+    tail = (("fused_eq_demap",) if cfg.bit_loading is None
+            else ("eq_track", "demap_bins"))
+    modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
+    rx_np, payload, _ = build_batch(modem, B, MARGIN,
+                                    np.random.default_rng(0))
+    rx = torch.as_tensor(rx_np, device=dev)
+    bits_u, diag_u = modem.demodulate(rx)
+    total, out = {name: 0 for name in counters}, {}
+    for label, mesh in meshes.items():
+        dec = sharded_decode(modem, mesh)
+        (bits, diag), launches = launch_counts(counters, lambda: dec(rx))
+        sum_counts(total, launches)
+        check(torch.equal(bits, bits_u), f"mesh {label}: bits differ from "
+              "Modem.demodulate's")
+        rel = {}
+        for name in diag_u._fields:
+            a, b = getattr(diag, name), getattr(diag_u, name)
+            check(a.shape == b.shape and a.device == dev, f"mesh {label}: "
+                  f"diag.{name} shape or device")
+            if torch.equal(a, b):
+                rel[name] = 0.0
+                continue
+            check(len(mesh) > 1 and name not in MESH_INTEGER_DIAG,
+                  f"mesh {label}: diag.{name} differs from Modem.demodulate's")
+            if name == "llr_hist":
+                rel[name] = float((a - b).abs().sum() / 2 / b.sum())
+                check(torch.equal(a.sum(-1), b.sum(-1))
+                      and rel[name] <= MESH_HIST_MOVED, f"mesh {label}: "
+                      f"{rel[name]} of the LLR histogram's counts moved")
+                continue
+            rel[name] = float((a - b).abs().max() / b.abs().mean())
+            check(rel[name] <= MESH_DIAG_REL.get(name, 1e-4), f"mesh {label}: "
+                  f"diag.{name} differs by {rel[name]} of its scale")
+        for name in ("cut_symbols", "minsum_totals") + tail:
+            check(launches[name] == len(mesh), f"mesh {label}: {name} "
+                  f"launched {launches[name]} times on {len(mesh)} shards")
+        step = median_ms(lambda: dec(rx))
+        out[f"sharded_decode {label}"] = dict(step_ms=step, launches=launches,
+                                              diag_rel=rel)
+        same = ("every field equal" if len(mesh) == 1 else "integer fields "
+                f"equal, float fields within {max(rel.values()):.3g} rel")
+        print(f"sharded_decode on {label} ({len(mesh)} shard(s) of "
+              f"{B // len(mesh)}): bits equal to Modem.demodulate's, diag "
+              f"{same}, launches {launches}; {step:.3f} ms/step", flush=True)
+    info = torch.as_tensor(np.random.default_rng(1).integers(
+        0, 2, (B, cfg.payload_bits_per_frame), dtype=np.uint8))
+    for label, mesh in meshes.items():
+        step_fn = sharded_pipeline_step(modem, mesh)
+        (ber, ok, bits), launches = launch_counts(
+            counters, lambda: step_fn(info, 1, 25.0))
+        sum_counts(total, launches)
+        check(float(ber) == 0.0 and bool(ok)
+              and torch.equal(bits.cpu(), info), f"pipeline step on {label}: "
+              f"ber {float(ber)}, ok {bool(ok)}")
+        step = median_ms(lambda: step_fn(info, 1, 25.0))
+        out[f"pipeline_step {label}"] = dict(step_ms=step, launches=launches)
+        print(f"sharded_pipeline_step on {label} at 25 dB, B = {B}: ber 0, ok,"
+              f" bits the planted ones, launches {launches}; {step:.3f} ms/step",
+              flush=True)
+    return total, out
+
+
+def run_examples(dev, counters):
+    """The four walkthroughs of `gf3x_torch.examples` on the card, each
+    `main(tmp, device='cuda')` into a temporary directory, with their own
+    assertions; each must launch kernels, and the adaptive link's loaded
+    transfer kernels A and B. Returns (the launch counts summed, seconds
+    and launches per walkthrough)."""
+    from gf3x_torch.examples import EXAMPLES
+
+    total, out = {name: 0 for name in counters}, {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"gf3x_torch.examples.{name}")
+        buf = io.StringIO()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                _, launches = launch_counts(
+                    counters, lambda: mod.main(tmp, device="cuda"))
+            secs = time.perf_counter() - t0
+        sum_counts(total, launches)
+        check(launches["minsum_totals"] > 0, f"example {name}: kernel 3 did "
+              f"not launch: {launches}")
+        if name == "adaptive_link":
+            check(launches["eq_track"] > 0 and launches["demap_bins"] > 0,
+                  f"example {name}: kernels A and B did not launch")
+        out[name] = dict(seconds=secs, launches=launches)
+        last = buf.getvalue().strip().splitlines()[-1]
+        print(f"example {name}: passed its assertions in {secs:.3f} s; "
+              f"launches {launches}; it ended: {last}", flush=True)
+    return total, out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; there is no CPU "
@@ -1415,16 +1673,7 @@ def main() -> None:
             code3, lam3.contiguous(), iters, f"z = {z3}, rate {rate3}")
 
     # ---- the config-5 main path, once, through the user's entry point
-    counters = {"cut_symbols": gather_cut.cut_symbols,
-                "gather_cut": gather_cut.gather_cut,
-                "gather_cut_group": gather_cut.gather_cut_group,
-                "fused_eq_demap": fused_eq.fused_eq_demap,
-                "eq_track": split_eq.eq_track,
-                "demap_bins": split_eq.demap_bins,
-                "minsum_totals": ldpc_bp.minsum_totals,
-                "minsum_check": ldpc_bp.minsum_check,
-                "minsum_decode": ldpc_bp.minsum_decode,
-                "cut_dft": cut_dft.cut_dft}
+    counters = launch_counters()
     launches5, bits5, _, sync_err = run_path(modem, rx, payload, delays,
                                              counters, "config 5")
     for name in ("cut_symbols", "fused_eq_demap", "minsum_totals"):
@@ -1573,9 +1822,8 @@ def main() -> None:
         del m_u, rx_u, Y, H, nv, out_k
 
     # ---- the bit-loaded path's inputs
-    table = tuple(int(x) for x in np.random.default_rng(LOADING_SEED).choice(
-        [0, 2, 4, 6], size=GF3_STANDARD.n_data_bins, p=LOADING_P))
-    cfg = GF3_STANDARD.replace(bit_loading=table)
+    cfg = GF3_STANDARD.replace(
+        bit_loading=loading_table(GF3_STANDARD.n_data_bins))
     modem, rx, payload, delays = batch(cfg)
     check(modem._tail_route() == "split", "the loaded config must take the "
           "split tail")
@@ -1611,17 +1859,7 @@ def main() -> None:
     # ---- kernel B vs plain on kernel A's output
     eq, _, _, nv_sym = a_k
     tables = (modem.demap_used, modem.demap_bits, modem.demap_off)
-    b_k = split_eq.demap_bins(cfg, eq, H, nv_sym, tables)
-    b_p = split_eq.demap_bins_plain(cfg, eq, H, nv_sym)
-    scale = float(b_p[0].abs().mean())
-    err = float((b_k[0] - b_p[0]).abs().max())
-    check(torch.equal(b_k[0] < 0, b_p[0] < 0), "demap_bins hard decisions "
-          "differ from its plain version")
-    check(err <= 2e-4 * scale, f"demap_bins LLR error {err} > 2e-4 x "
-          f"mean|LLR| {scale}")
-    for i, name in ((1, "evm"), (2, "mean|llr|")):
-        d = float(((b_k[i] - b_p[i]).abs() / b_p[i].abs()).max())
-        check(d <= 1e-4, f"demap_bins {name} differs by {d} rel")
+    b_k, err, scale = hold_demap(cfg, eq, H, nv_sym, tables, "bit-loaded")
     rows["demap_bins"] = dict(
         name="demap_bins", route="cuda", source="gf3x_torch/csrc/split_eq.cu",
         replaces="gf3x/ops/pallas/split_eq.py:279", max_abs_err=err,
@@ -1652,7 +1890,7 @@ def main() -> None:
     print(f"minsum_totals, loaded LLRs: raw bit error rate {raw_err:.3g}, "
           f"passes mean {held3L['passes_sum'] / lam.shape[0]:.3f}, max "
           f"{held3L['passes_max']}", flush=True)
-    del a_k, a_p, b_k, b_p, eq, lam, tot_k
+    del a_k, a_p, b_k, eq, lam, tot_k
 
     # ---- the bit-loaded main path, once, through the user's entry point
     launchesL, _, diag, sync_err = run_path(modem, rx, payload, delays,
@@ -1692,6 +1930,16 @@ def main() -> None:
     launchesW, sweep = run_sweep(dev, counters)
     launchesI, cli = run_cli(dev, counters)
     launchesG, golden = run_golden(dev, counters)
+
+    # ---- every pilot layout (kernels 2, A and B from their tables), the
+    # mesh and the four walkthroughs
+    launchesP, pilots = run_pilots(dev, counters)
+    from gf3x_torch.parallel import make_mesh
+    check(len(make_mesh()) == torch.cuda.device_count() == 1,
+          f"make_mesh() has {len(make_mesh())} devices on a one-card run")
+    launchesM, mesh = run_mesh(dev, counters, {"one card": make_mesh(),
+                                               "two shards": (dev, dev)})
+    launchesE, examples = run_examples(dev, counters)
     rows["gather_cut"] = dict(
         name="gather_cut", route="cuda",
         source="gf3x_torch/csrc/gather_cut.cu",
@@ -1707,7 +1955,8 @@ def main() -> None:
                "longcp": launchesLC, "captures": launchesC,
                "routes": launchesR, "harq": launchesH, "arq": launchesA,
                "long_recordings": launchesT, "sweep": launchesW,
-               "cli": launchesI, "golden": launchesG}
+               "cli": launchesI, "golden": launchesG, "pilots": launchesP,
+               "mesh": launchesM, "examples": launchesE}
     check(len(rows) == 8 and all(
         sum(c[name] for c in by_path.values()) > 0 for name in rows),
           "a kernel has no row or never launched on a path")
@@ -1729,6 +1978,7 @@ def main() -> None:
                       "harq_s": harq_s, "harq_joint_ppm": harq_ppm,
                       "arq_s": arq_s, "long_recording_s": long_s,
                       "sweep": sweep, "cli": cli, "golden": golden,
+                      "pilots": pilots, "mesh": mesh, "examples": examples,
                       "build_s": build_s, "package": gf3x_torch.__name__}),
           flush=True)
     print(smi, flush=True)
@@ -1788,20 +2038,26 @@ def readings(fn, names) -> dict:
         for k, v in clocks.items()})
 
 
+def sha256_of(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
 def time_tree(tree: Path) -> dict:
-    """`--time TREE`: kernels 3, A, B and 8 of the gf3x_torch package in
+    """`--time TREE`: kernels 2, 3, A, B and 8 of the gf3x_torch package in
     TREE, on this run's card, through the calls every version of the port
-    has (`LdpcCode.decode_totals`, `split_eq.eq_track`,
-    `split_eq.demap_bins`, `cut_dft.cut_dft`): kernel 3 on the config-5
+    has (`fused_eq.fused_eq_demap`, `LdpcCode.decode_totals`,
+    `split_eq.eq_track`, `split_eq.demap_bins`, `cut_dft.cut_dft`): kernel 2
+    on the config-5 and gf3-turbo batches' spectra, kernel 3 on the config-5
     batch's codeword LLRs (0 sweeps), on the same codewords as BPSK LLRs at
     σ = 0.8 and on a mixed batch (every fourth codeword noisy), kernel 8 on
     the config-5 batch's cut, kernels A and B on the bit-loaded batch
     (B on A's output), each read three ways (`readings`); kernel 3's passes
-    checked equal over repeated calls, and the sha256 of kernel B's LLR
-    bytes."""
+    checked equal over repeated calls, and the sha256 of the bytes of
+    kernel 2's LLRs, slope and cpe, kernel A's eq, slope, cpe and nv_sym and
+    kernel B's LLRs (`sha256`)."""
     sys.path.insert(0, str(tree))
     import gf3x_torch
-    from gf3x_torch import GF3_STANDARD, Modem
+    from gf3x_torch import GF3_STANDARD, GF3_TURBO, Modem
     from gf3x_torch.ops.kernels import cut_dft, fused_eq, split_eq
     from gf3x_torch.utils.device import kernel_lib
 
@@ -1810,33 +2066,39 @@ def time_tree(tree: Path) -> dict:
     dev = torch.device("cuda", 0)
     kernel_lib()
     out = {}
-    for cfg, label in ((GF3_STANDARD, "config5"), (GF3_STANDARD.replace(
-            bit_loading=tuple(int(x) for x in np.random.default_rng(
-                LOADING_SEED).choice([0, 2, 4, 6],
-                                     size=GF3_STANDARD.n_data_bins,
-                                     p=LOADING_P))), "bit_loaded")):
+    for cfg, label in ((GF3_STANDARD, "config5"), (GF3_TURBO, "gf3_turbo"),
+                       (GF3_STANDARD.replace(bit_loading=loading_table(
+                           GF3_STANDARD.n_data_bins)), "bit_loaded")):
         modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
         rx, _, _ = build_batch(modem, B, MARGIN, np.random.default_rng(0))
         rx = torch.as_tensor(rx, device=dev)
         q, roll, kw, _, Y, H, nv = path_inputs(modem, rx)
         pv = modem.pilot_vals
         if label == "bit_loaded":
-            out["eq_track"] = readings(
+            out["eq_track"] = dict(readings(
                 lambda: split_eq.eq_track(cfg, Y, H, nv, pv),
-                ["eq_track_kernel"])
+                ["eq_track_kernel"]), sha256=[sha256_of(t) for t in
+                                              split_eq.eq_track(cfg, Y, H,
+                                                                nv, pv)])
             eq, _, _, nv_sym = split_eq.eq_track(cfg, Y, H, nv, pv)
             tables = (modem.demap_used, modem.demap_bits, modem.demap_off)
             llr = split_eq.demap_bins(cfg, eq, H, nv_sym, tables)[0]
             out["demap_bins"] = dict(readings(
                 lambda: split_eq.demap_bins(cfg, eq, H, nv_sym, tables),
-                ["demap_bins"]), llr_sha256=hashlib.sha256(
-                    llr.cpu().numpy().tobytes()).hexdigest())
+                ["demap_bins"]), sha256=[sha256_of(llr)])
+            continue
+        out2 = fused_eq.fused_eq_demap(cfg, Y, H, nv, pv)
+        out[f"fused_eq_demap_{label}"] = dict(readings(
+            lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv, pv),
+            ["fused_eq_demap"]), sha256=[sha256_of(t) for t in out2[:3]])
+        if label == "gf3_turbo":
+            del rx, Y, H, nv, out2
             continue
         kw8 = {k: kw[k] for k in ("valid", "block", "S", "body_off",
                                   "sc_off")}
         out["cut_dft"] = readings(
             lambda: cut_dft.cut_dft(cfg, rx, q, roll, **kw8), ["cut_dft"])
-        llr = fused_eq.fused_eq_demap(cfg, Y, H, nv, pv)[0]
+        llr = out2[0]
         lam = modem._codeword_llrs(llr).contiguous()
         gen = torch.Generator(device=dev).manual_seed(1)
         noise = torch.randn(lam.shape, generator=gen, device=dev)
@@ -1858,22 +2120,24 @@ def time_tree(tree: Path) -> dict:
                 passes_sum=int(runs[0][2].sum()),
                 passes_max=int(runs[0][2].max()),
                 unsat=int(runs[0][1].sum()))
-        del rx, Y, H, nv, llr, lam, noise, noisy, mixed
+        del rx, Y, H, nv, out2, llr, lam, noise, noisy, mixed
     return out
 
 
 def compare_trees(other: Path) -> None:
     """`--against TREE`: `time_tree` of TREE and of this script's own tree
     in turns (TREE, this, this, TREE), each in its own process on this
-    run's card; prints each run's numbers as one JSON line, and fails
-    unless kernel B's LLR bytes hash the same in all four."""
+    run's card; prints each run's numbers as one JSON line, then each
+    kernel's profiler µs of this tree over TREE's (the two runs of each
+    averaged); fails unless the outputs of kernels 2, A and B hash the same
+    in all four runs."""
     here = Path(__file__).resolve().parent
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {smi}", flush=True)
-    sha = set()
+    sha, us = {}, {}
     for label, tree in (("other", other), ("this", here), ("this", here),
                         ("other", other)):
         res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -1881,17 +2145,59 @@ def compare_trees(other: Path) -> None:
                              text=True, timeout=600)
         check(res.returncode == 0, f"--time {tree} failed:\n{res.stderr}")
         got = json.loads(res.stdout.splitlines()[-1])
-        sha.add(got["demap_bins"]["llr_sha256"])
+        for name, row in got.items():
+            if "sha256" in row:
+                sha.setdefault(name, set()).add(tuple(row["sha256"]))
+            us.setdefault(name, {}).setdefault(label, []).extend(
+                x for x in row["kernel_us"] if x is not None)
         print(json.dumps({"tree": label, "path": str(tree), **got}),
               flush=True)
-    check(len(sha) == 1, f"kernel B's LLRs differ between the trees: {sha}")
-    print(f"demap_bins LLR sha256 equal in all four runs: {sha.pop()}",
+    ratio = {name: float(np.mean(v["this"]) / np.mean(v["other"]))
+             for name, v in us.items() if v.get("this") and v.get("other")}
+    print(json.dumps({"kernel_us_this_over_other": ratio}), flush=True)
+    check(len(sha) == 4 and all(len(v) == 1 for v in sha.values()),
+          f"the outputs of kernels 2, A and B differ between the trees: "
+          f"{sha}")
+    print(f"outputs of {sorted(sha)} hash the same in all four runs",
           flush=True)
     print(smi, flush=True)
 
 
+def mesh_cards() -> None:
+    """`--mesh`: the mesh phase alone across every card of the machine:
+    `run_mesh` on the one-card mesh and on `make_mesh()` (all cards), on
+    config 5's batch and on the bit-loaded one (kernel B asks for more
+    than 48 KB of shared memory, an attribute each card keeps), timing
+    both; prints the numbers as one JSON line and the cards' names and
+    power limits."""
+    from gf3x_torch import GF3_STANDARD
+    from gf3x_torch.parallel import make_mesh
+    from gf3x_torch.utils.device import kernel_lib
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    n = torch.cuda.device_count()
+    print(f"devices: {n}\n{smi}", flush=True)
+    kernel_lib()
+    meshes = {"one card": make_mesh(1), f"{n} cards": make_mesh()}
+    out = {}
+    for label, cfg in (("config5", GF3_STANDARD), ("bit_loaded",
+                       GF3_STANDARD.replace(bit_loading=loading_table(
+                           GF3_STANDARD.n_data_bins)))):
+        _, out[label] = run_mesh(torch.device("cuda", 0), launch_counters(),
+                                 meshes, cfg)
+    print(json.dumps(out), flush=True)
+    print(smi, flush=True)
+
+
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--time":
+    if len(sys.argv) == 2 and sys.argv[1] == "--mesh":
+        if not torch.cuda.is_available():
+            raise RuntimeError("chip_smoke needs a CUDA device")
+        mesh_cards()
+    elif len(sys.argv) == 3 and sys.argv[1] == "--time":
         if not torch.cuda.is_available():
             raise RuntimeError("chip_smoke needs a CUDA device")
         print(json.dumps(time_tree(Path(sys.argv[2]))), flush=True)

@@ -32,14 +32,14 @@ int gf3x_cut_dft(const float*, const int*, const int*, const float*, float*,
                  int, int, int, int, int, float, int, int, int, int, int, int,
                  int, void*);
 int gf3x_fused_eq_demap(const float*, const float*, const float*,
-                        const float*, float*, float*, float*, float*, float*,
-                        long long, int, int, int, int, int, int, const float*,
-                        int, int, float, int, float, float, int, int, int,
-                        float, float, void*);
+                        const float*, const int*, float*, float*, float*,
+                        float*, float*, long long, int, int, int, int, int,
+                        const float*, int, int, float, int, float, float, int,
+                        int, int, float, float, void*);
 int gf3x_eq_track(const float*, const float*, const float*, const float*,
-                  float*, float*, float*, float*, long long, int, int, int,
-                  int, int, int, int, float, int, float, float, int, int, int,
-                  void*);
+                  const int*, float*, float*, float*, float*, long long, int,
+                  int, int, int, int, int, float, int, float, float, int, int,
+                  int, void*);
 int gf3x_demap_bins(const float*, const float*, const float*, const int*,
                     float*, float*, float*, long long, int, int, int, int,
                     float, float, const float*, int, int, int, void*);
@@ -122,14 +122,14 @@ ENTRY(gf3x_cut_dft, "ppppppllllllllllllflllllllp",
                    I(9), I(10), I(11), I(12), I(13), I(14), I(15), I(16),
                    I(17), F(18), I(19), I(20), I(21), I(22), I(23), I(24),
                    I(25), P(26)))
-ENTRY(gf3x_fused_eq_demap, "ppppppppplllllllpllflfflllffp",
+ENTRY(gf3x_fused_eq_demap, "ppppppppppllllllpllflfflllffp",
       gf3x_fused_eq_demap(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7),
-                          P(8), L(9), I(10), I(11), I(12), I(13), I(14),
+                          P(8), P(9), L(10), I(11), I(12), I(13), I(14),
                           I(15), P(16), I(17), I(18), F(19), I(20), F(21),
                           F(22), I(23), I(24), I(25), F(26), F(27), P(28)))
-ENTRY(gf3x_eq_track, "ppppppppllllllllflfflllp",
-      gf3x_eq_track(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), L(8),
-                    I(9), I(10), I(11), I(12), I(13), I(14), I(15), F(16),
+ENTRY(gf3x_eq_track, "ppppppppplllllllflfflllp",
+      gf3x_eq_track(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), P(8),
+                    L(9), I(10), I(11), I(12), I(13), I(14), I(15), F(16),
                     I(17), F(18), F(19), I(20), I(21), I(22), P(23)))
 ENTRY(gf3x_demap_bins, "ppppppplllllffplllp",
       gf3x_demap_bins(P(0), P(1), P(2), P(3), P(4), P(5), P(6), L(7), I(8),

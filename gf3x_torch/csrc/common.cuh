@@ -8,6 +8,27 @@
 
 #define GF3X_EXPORT extern "C" __attribute__((visibility("default")))
 
+constexpr int kMaxDevices = 64;
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
+// device, where that is above the 48 KB default: the limit is an attribute
+// of the kernel on each device, so `set` keeps, per device, the largest
+// size allowed there so far and the attribute is set only when it grows.
+template <typename Kernel>
+cudaError_t gf3x_allow_smem(Kernel kernel, size_t smem,
+                            size_t (&set)[kMaxDevices]) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < kMaxDevices && smem <= set[dev]) return cudaSuccess;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e == cudaSuccess && dev < kMaxDevices) set[dev] = smem;
+    return e;
+}
+
 // Sum over the 32 lanes of a warp; every lane gets the total.
 __device__ __forceinline__ float gf3x_warp_sum(float v) {
 #pragma unroll

@@ -350,14 +350,10 @@ cut_dft_kernel(const __grid_constant__ CutDftArgs a) {
 template <int P, bool kPair>
 cudaError_t launch_cut_dft(const CutDftArgs& a, long long B, int smem,
                            cudaStream_t stream) {
-    static int smem_set = 48 * 1024;   // the largest size allowed so far
-    if (smem > smem_set) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            cut_dft_kernel<P, kPair>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return e;
-        smem_set = smem;
-    }
+    static size_t smem_set[kMaxDevices] = {};
+    const cudaError_t e = gf3x_allow_smem(cut_dft_kernel<P, kPair>, smem,
+                                          smem_set);
+    if (e != cudaSuccess) return e;
     cut_dft_kernel<P, kPair><<<static_cast<unsigned>(B), a.team * a.teams,
                                smem, stream>>>(a);
     return cudaGetLastError();

@@ -19,11 +19,21 @@
 //   noise floor — on the symbol's bins in the warp's shared buffer
 //   (fetched there by gf3x_fetch_symbol with cp.async).
 //
-// Kernels A and 2 have one layout: a block per frame, Ĥ and |Ĥ|² staged in
-// shared memory once, and each warp walking its data symbols through
-// gf3x_track_symbol_warp; A then derotates every used bin, 2 derotates and
-// demaps the data bins. Both run the same code in the same order, so
-// slope, cpe, nv_sym and every derotated bin agree bit for bit.
+// Kernels A and 2 have one layout: a block per frame, Ĥ, |Ĥ|² and the pilot
+// layout staged in shared memory once, and each warp walking its data
+// symbols through gf3x_track_symbol_warp; A then derotates every used bin,
+// 2 derotates and demaps the data bins. Both run the same code in the same
+// order, so slope, cpe, nv_sym and every derotated bin agree bit for bit.
+//
+// The layout is a table, not the spacing: `pos` lists the P pilot
+// positions, then the U − P data positions, as used-bin indices
+// (layout(cfg).pilot_pos and .data_pos), so any pilot layout runs here —
+// an offset grid, a spacing that does not tile the band, one pilot or
+// none. On a strided layout the table holds p·sp and the data bins in
+// order, the integers the arithmetic walk computed, so its results are
+// the same bits. Below two pilots there is no fit (slope = cpe = 0 and no
+// derotation, as pilot_phase_correct); with none, no noise floor either
+// (nv_sym = nv, as _eq_tail).
 #pragma once
 
 #include "common.cuh"
@@ -33,7 +43,8 @@ struct TrackArgs {
     const float2* h;     // (B, U) channel estimate
     const float* nv;     // (B,) LS noise variance
     const float2* pv;    // (P,) pilot values
-    int S, K, D, U, P, sp;
+    const int* pos;      // (U,) P pilot positions, then U − P data positions
+    int S, K, D, U, P;
     int n_ladder;        // refinement stages (≤ 2)
     int ladder_q[2];     // pilot lag of each stage
     float ladder_base[2];
@@ -81,10 +92,12 @@ __device__ __forceinline__ float gf3x_pilot_residual(float2 x, float2 pv,
     return h2 * (ur * ur + ui * ui);
 }
 
-// The pilot phase fit of one symbol by one warp: zr/zi hold the P
-// CSI-weighted pilot products (visible to the whole warp), dr/di are P
-// floats each of scratch. Returns (slope, cpe) in every lane.
+// The pilot phase fit of one symbol by one warp (P ≥ 2): zr/zi hold the P
+// CSI-weighted pilot products (visible to the whole warp), kp the pilot
+// positions, dr/di are P floats each of scratch. Returns (slope, cpe) in
+// every lane.
 __device__ __forceinline__ float2 gf3x_fit_pilots_warp(const TrackArgs& a,
+                                                       const int* kp,
                                                        const float* zr,
                                                        const float* zi,
                                                        float* dr, float* di,
@@ -94,7 +107,7 @@ __device__ __forceinline__ float2 gf3x_fit_pilots_warp(const TrackArgs& a,
     for (int st = 0; st < a.n_ladder; ++st) {
         for (int p = lane; p < a.P; p += 32) {
             float s, c;
-            sincosf(slope * static_cast<float>(p * a.sp), &s, &c);
+            sincosf(slope * static_cast<float>(kp[p]), &s, &c);
             dr[p] = zr[p] * c + zi[p] * s;     // z·e^{−i·a·k}
             di[p] = zi[p] * c - zr[p] * s;
         }
@@ -106,7 +119,7 @@ __device__ __forceinline__ float2 gf3x_fit_pilots_warp(const TrackArgs& a,
     float wr = 0.0f, wi = 0.0f;
     for (int p = lane; p < a.P; p += 32) {
         float s, c;
-        sincosf(slope * static_cast<float>(p * a.sp), &s, &c);
+        sincosf(slope * static_cast<float>(kp[p]), &s, &c);
         wr += zr[p] * c + zi[p] * s;
         wi += zi[p] * c - zr[p] * s;
     }
@@ -145,37 +158,52 @@ struct SymbolFit {
 
 // One data symbol of frame b by one warp: `cur` holds its U bins (the
 // warp's own shared buffer, whose copy has landed) and is equalized in
-// place; hs and h2s are the frame's Ĥ and |Ĥ|² in shared memory, zr, zi,
-// dr, di P floats each of the warp's scratch. Synchronised by __syncwarp
-// alone; every lane gets the fit and the noise floor, and `cur` stays
-// equalized but not derotated (the caller derotates the bins it needs).
+// place; hs and h2s are the frame's Ĥ and |Ĥ|² and kp its P pilot
+// positions in shared memory, zr, zi, dr, di P floats each of the warp's
+// scratch. Synchronised by __syncwarp alone; every lane gets the fit and
+// the noise floor, and `cur` stays equalized but not derotated (the caller
+// derotates the bins it needs, where P ≥ 2).
 __device__ __forceinline__ SymbolFit gf3x_track_symbol_warp(
         const TrackArgs& a, int b, float2* cur, const float2* hs,
-        const float* h2s, float* zr, float* zi, float* dr, float* di,
-        int lane) {
+        const float* h2s, const int* kp, float* zr, float* zi, float* dr,
+        float* di, int lane) {
     for (int k = lane; k < a.U; k += 32) cur[k] = gf3x_eq_bin(cur[k], hs[k], h2s[k]);
     __syncwarp();
+    SymbolFit f;
+    f.slope = 0.0f;
+    f.cpe = 0.0f;
+    f.nv_sym = a.nv[b];
+    if (a.P == 0) return f;
     for (int p = lane; p < a.P; p += 32) {
-        const int k = p * a.sp;
+        const int k = kp[p];
         const float2 z = gf3x_pilot_product(cur[k], a.pv[p], h2s[k]);
         zr[p] = z.x;
         zi[p] = z.y;
     }
     __syncwarp();
-    const float2 fit = gf3x_fit_pilots_warp(a, zr, zi, dr, di, lane);
+    const bool fit = a.P >= 2;
+    if (fit) {
+        const float2 sc = gf3x_fit_pilots_warp(a, kp, zr, zi, dr, di, lane);
+        f.slope = sc.x;
+        f.cpe = sc.y;
+    }
     __syncwarp();
     // noise floor from the derotated pilots
     for (int p = lane; p < a.P; p += 32) {
-        const int k = p * a.sp;
-        zr[p] = gf3x_pilot_residual(gf3x_derotate(cur[k], fit.x, k, fit.y),
-                                    a.pv[p], h2s[k]);
+        const int k = kp[p];
+        zr[p] = gf3x_pilot_residual(
+            fit ? gf3x_derotate(cur[k], f.slope, k, f.cpe) : cur[k], a.pv[p],
+            h2s[k]);
     }
     __syncwarp();
-    SymbolFit f;
-    f.slope = fit.x;
-    f.cpe = fit.y;
-    f.nv_sym = gf3x_noise_floor_warp(zr, a.P, a.nv[b], lane);
+    f.nv_sym = gf3x_noise_floor_warp(zr, a.P, f.nv_sym, lane);
     return f;
+}
+
+// The frame's layout table (`pos`, n ints) into shared memory by the block.
+__device__ __forceinline__ void gf3x_stage_layout(const TrackArgs& a,
+                                                  int* s_pos, int n) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) s_pos[i] = a.pos[i];
 }
 
 // Max-log LLRs of one PAM axis with 2^m levels `lv` (indexed by Gray

@@ -24,11 +24,12 @@
 // reductions, atan2f and sincosf that one warp ran while the block's other
 // warps waited at barriers, and at most 3-7 such blocks fit on an SM.
 //
-// Design: a block takes one frame. It stages Ĥ, |Ĥ|² and 1/max(|Ĥ|², 1e-12)
-// in shared memory once (one block barrier); its W warps then walk the
-// frame's D data symbols, warp w taking symbols w, w + W, ... Each warp
-// runs its symbol's whole chain (EQ, fit, noise floor, demap) synchronised
-// by __syncwarp alone, and copies its next symbol's bins into its second
+// Design: a block takes one frame. It stages Ĥ, |Ĥ|², 1/max(|Ĥ|², 1e-12)
+// and the layout table (the pilot positions, then the used-bin index of
+// each data bin) in shared memory once (one block barrier); its W warps
+// then walk the frame's D data symbols, warp w taking symbols w, w + W,
+// ... Each warp runs its symbol's whole chain (EQ, fit, noise floor,
+// demap) synchronised by __syncwarp alone, and copies its next symbol's bins into its second
 // shared-memory buffer with cp.async while it works on the current one. So
 // every SM holds many independent chains instead of one per block. W and
 // the shared-memory size come from the wrapper (fused_eq_geometry), which
@@ -79,13 +80,14 @@ __device__ __forceinline__ void store_llrs(float* out, const float* l) {
 // Dynamic shared memory, in floats (the wrapper's fused_eq_geometry
 // computes the same): Ĥ (2U) | W·nbuf symbol buffers (2U each) | |Ĥ|² (U) |
 // 1/max(|Ĥ|², 1e-12) (U) | W pilot scratches (4P each) | the W warps' two
-// sums.
+// sums | the layout table (U ints: P pilot positions, U − P data
+// positions).
 template <int m>
 __global__ void __launch_bounds__(1024)
 fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     extern __shared__ __align__(16) float sm[];
     const TrackArgs& t = a.t;
-    const int U = t.U, P = t.P, D = t.D, sp = t.sp, W = a.warps;
+    const int U = t.U, P = t.P, D = t.D, W = a.warps;
     const int b = blockIdx.x;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
     float2* hs = reinterpret_cast<float2*>(sm);
@@ -97,6 +99,8 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     float* dr = zi + P;
     float* di = dr + P;
     float* red = inv_csi + U + 4 * P * W;
+    int* kp = reinterpret_cast<int*>(red + 2 * W);
+    const int* dpos = kp + P;
 
     // the warp's first symbol is in flight while the block stages Ĥ
     gf3x_fetch_symbol(t, b, w, buf, lane);
@@ -107,18 +111,14 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
         h2s[k] = h2;
         inv_csi[k] = 1.0f / fmaxf(h2, 1e-12f);
     }
+    gf3x_stage_layout(t, kp, U);
     __syncthreads();
 
     float lv[kMaxLevels];
 #pragma unroll
     for (int i = 0; i < kMaxLevels; ++i) lv[i] = a.lv[i];
-    // data bin j is used bin j + g + 1 with g = j / (sp − 1) (strided
-    // pilots at k ≡ 0 mod sp): lane's first g and remainder, and their
-    // steps for j += 32
-    const int nd = U - P, spm1 = sp - 1;
-    const int g0 = nd > 0 ? lane / spm1 : 0, r0 = nd > 0 ? lane % spm1 : 0;
-    const int step_g = nd > 0 ? 32 / spm1 : 0;
-    const int step_r = nd > 0 ? 32 % spm1 : 0;
+    const int nd = U - P;
+    const bool derotate = P >= 2;
     float md_sum = 0.0f, abs_sum = 0.0f;
     for (int d = w, i = 0; d < D; d += W, ++i) {
         float2* cur = buf + (i & (a.nbuf - 1)) * U;
@@ -126,21 +126,16 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
                           lane);
         gf3x_cp_async_wait_all_but_newest();
         __syncwarp();
-        const SymbolFit f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, zr, zi,
-                                                   dr, di, lane);
+        const SymbolFit f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, kp, zr,
+                                                   zi, dr, di, lane);
 
         // derotate and demap the data bins
         const long long o = static_cast<long long>(b) * D + d;
         float* row = a.llr + o * a.R;
-        for (int j = lane, g = g0, r = r0; j < nd; j += 32) {
-            const int k = j + g + 1;
-            g += step_g;
-            r += step_r;
-            if (r >= spm1) {
-                r -= spm1;
-                ++g;
-            }
-            const float2 x = gf3x_derotate(cur[k], f.slope, k, f.cpe);
+        for (int j = lane; j < nd; j += 32) {
+            const int k = dpos[j];
+            const float2 x =
+                derotate ? gf3x_derotate(cur[k], f.slope, k, f.cpe) : cur[k];
             const float nv_eff = f.nv_sym * inv_csi[k];
             const float nvc = fmaxf(nv_eff, 1e-12f);
             float l[2 * m];
@@ -192,8 +187,8 @@ cudaError_t launch_fused(const FusedArgs& a, long long B, int smem,
 
 GF3X_EXPORT int gf3x_fused_eq_demap(
         const float* y, const float* h, const float* nv, const float* pv,
-        float* llr, float* slope, float* cpe, float* evm, float* mabs,
-        long long B, int S, int K, int U, int P, int sp, int m,
+        const int* pos, float* llr, float* slope, float* cpe, float* evm,
+        float* mabs, long long B, int S, int K, int U, int P, int m,
         const float* levels, int n_ladder, int q0, float base0, int q1,
         float base1, float mean_dk, int warps, int nbuf, int smem,
         float evm_div, float abs_div, void* stream) {
@@ -202,12 +197,12 @@ GF3X_EXPORT int gf3x_fused_eq_demap(
     a.t.h = reinterpret_cast<const float2*>(h);
     a.t.nv = nv;
     a.t.pv = reinterpret_cast<const float2*>(pv);
+    a.t.pos = pos;
     a.t.S = S;
     a.t.K = K;
     a.t.D = S - K;
     a.t.U = U;
     a.t.P = P;
-    a.t.sp = sp;
     a.t.n_ladder = n_ladder;
     a.t.ladder_q[0] = q0;
     a.t.ladder_q[1] = q1;

@@ -436,14 +436,9 @@ GF3X_EXPORT int gf3x_minsum_check(const float* lam, float* totals,
     cudaError_t err = cudaMemsetAsync(work, 0, 2 * sizeof(int), s);
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t smem = static_cast<size_t>(kCheckWarps) * check_stride(z);
-    static size_t smem_set = 48 * 1024;
-    if (smem > smem_set) {
-        err = cudaFuncSetAttribute(minsum_check_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-        smem_set = smem;
-    }
+    static size_t smem_set[kMaxDevices] = {};
+    err = gf3x_allow_smem(minsum_check_kernel, smem, smem_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
     if (L > 0) {
         const long long blocks = (L + kCheckWarps - 1) / kCheckWarps;
         minsum_check_kernel<<<static_cast<unsigned>(blocks), 32 * kCheckWarps,
@@ -464,14 +459,10 @@ GF3X_EXPORT int gf3x_minsum_decode(const float* lam, float* totals,
         return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = ((static_cast<size_t>(E) + kBlockCols) * z +
                          kBlockCols * z / 32) * sizeof(float);
-    static size_t smem_set = 48 * 1024;   // the largest size allowed so far
-    if (smem > smem_set) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            minsum_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-        smem_set = smem;
-    }
+    static size_t smem_set[kMaxDevices] = {};
+    const cudaError_t err = gf3x_allow_smem(minsum_decode_kernel, smem,
+                                            smem_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const int grid = decode_grid(z, smem, L);
     if (grid > 0) {
         minsum_decode_kernel<<<grid, z, smem,

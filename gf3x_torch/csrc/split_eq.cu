@@ -31,7 +31,7 @@
 // once: that round trip is the split's price against the fused kernel.
 //
 // Kernel A has kernel 2's layout (fused_eq.cu): a block takes one frame and
-// stages Ĥ and |Ĥ|² in shared memory once; each of its W warps walks data
+// stages Ĥ, |Ĥ|² and the pilot positions in shared memory once; each of its W warps walks data
 // symbols w, w + W, ..., copying the next one's bins into its second
 // buffer with cp.async while it runs the current one through
 // gf3x_track_symbol_warp, then derotates every used bin and stores the eq
@@ -69,7 +69,8 @@ struct TrackOut {
 
 // Dynamic shared memory, in floats (the wrapper's fused_eq_geometry with
 // demap=False computes the same): Ĥ (2U) | W·nbuf symbol buffers (2U
-// each) | |Ĥ|² (U) | W pilot scratches (4P each).
+// each) | |Ĥ|² (U) | W pilot scratches (4P each) | the pilot positions (P
+// ints). Below two pilots the bins are not derotated.
 __global__ void __launch_bounds__(1024)
 eq_track_kernel(const __grid_constant__ TrackOut a) {
     extern __shared__ __align__(16) float sm[];
@@ -84,6 +85,7 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
     float* zi = zr + P;
     float* dr = zi + P;
     float* di = dr + P;
+    int* kp = reinterpret_cast<int*>(h2s + U + 4 * P * W);
 
     // the warp's first symbol is in flight while the block stages Ĥ
     gf3x_fetch_symbol(t, b, w, buf, lane);
@@ -92,7 +94,9 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
         hs[k] = h;
         h2s[k] = h.x * h.x + h.y * h.y;
     }
+    gf3x_stage_layout(t, kp, P);
     __syncthreads();
+    const bool derotate = P >= 2;
 
     for (int d = w, i = 0; d < D; d += W, ++i) {
         float2* cur = buf + (i & (a.nbuf - 1)) * U;
@@ -100,12 +104,13 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
                           lane);
         gf3x_cp_async_wait_all_but_newest();
         __syncwarp();
-        const SymbolFit f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, zr, zi,
-                                                   dr, di, lane);
+        const SymbolFit f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, kp, zr,
+                                                   zi, dr, di, lane);
         const long long o = static_cast<long long>(b) * D + d;
         float2* row = a.eq + o * U;
         for (int k = lane; k < U; k += 32)
-            row[k] = gf3x_derotate(cur[k], f.slope, k, f.cpe);
+            row[k] = derotate ? gf3x_derotate(cur[k], f.slope, k, f.cpe)
+                              : cur[k];
         if (lane == 0) {
             a.slope[o] = f.slope;
             a.cpe[o] = f.cpe;
@@ -236,8 +241,8 @@ demap_bins_kernel(const __grid_constant__ DemapArgs a) {
 
 GF3X_EXPORT int gf3x_eq_track(
         const float* y, const float* h, const float* nv, const float* pv,
-        float* eq, float* slope, float* cpe, float* nv_sym, long long B,
-        int S, int K, int U, int P, int sp, int n_ladder, int q0,
+        const int* pos, float* eq, float* slope, float* cpe, float* nv_sym,
+        long long B, int S, int K, int U, int P, int n_ladder, int q0,
         float base0, int q1, float base1, float mean_dk, int warps, int nbuf,
         int smem, void* stream) {
     TrackOut a;
@@ -245,12 +250,12 @@ GF3X_EXPORT int gf3x_eq_track(
     a.t.h = reinterpret_cast<const float2*>(h);
     a.t.nv = nv;
     a.t.pv = reinterpret_cast<const float2*>(pv);
+    a.t.pos = pos;
     a.t.S = S;
     a.t.K = K;
     a.t.D = S - K;
     a.t.U = U;
     a.t.P = P;
-    a.t.sp = sp;
     a.t.n_ladder = n_ladder;
     a.t.ladder_q[0] = q0;
     a.t.ladder_q[1] = q1;
@@ -297,14 +302,9 @@ GF3X_EXPORT int gf3x_demap_bins(
     a.warps = warps;
     a.nbuf = nbuf;
     for (int i = 0; i < kLevels; ++i) a.lv[i] = levels[i];
-    static int smem_set = 48 * 1024;   // the largest size allowed so far
-    if (smem > smem_set) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            demap_bins_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            smem);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        smem_set = smem;
-    }
+    static size_t smem_set[kMaxDevices] = {};
+    const cudaError_t e = gf3x_allow_smem(demap_bins_kernel, smem, smem_set);
+    if (e != cudaSuccess) return static_cast<int>(e);
     if (B > 0) {
         demap_bins_kernel<<<static_cast<unsigned>(B), 32 * warps, smem,
                             static_cast<cudaStream_t>(stream)>>>(a);

@@ -150,33 +150,46 @@ def _pilot_values(cfg: ModemConfig, like: torch.Tensor,
     return pilot_vals.to(like.device)
 
 
-def _require_strided(cfg: ModemConfig) -> None:
-    if not cfg.strided_pilots:
-        raise NotImplementedError(
-            "irregular pilot layouts are not ported yet (ROADMAP queue 1, "
-            "item 5): gf3x_torch takes pilot_offset 0 and a spacing that "
-            "tiles the used band")
+@functools.lru_cache(maxsize=None)
+def _layout_index(cfg: ModemConfig, device: torch.device
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pilot positions, data positions) within the used band as int64
+    index tensors on `device`, made once per config and device."""
+    lay = layout(cfg)
+    return (torch.as_tensor(lay.pilot_pos, dtype=torch.long, device=device),
+            torch.as_tensor(lay.data_pos, dtype=torch.long, device=device))
 
 
 def interleave_pilots(cfg: ModemConfig, dsym: torch.Tensor,
                       pilot_vals: torch.Tensor | None = None) -> torch.Tensor:
-    """Data symbols (..., n_data_bins) + pilots → (..., n_used): the used
-    band viewed as (n_pilots, spacing) groups, pilot at slot 0 of each."""
-    _require_strided(cfg)
+    """Data symbols (..., n_data_bins) + pilots → (..., n_used). A strided
+    layout is the used band viewed as (n_pilots, spacing) groups, pilot at
+    slot 0 of each; any other layout (an offset, a spacing that does not
+    tile the band, one pilot or none) is scattered by index."""
     *lead, _ = dsym.shape
-    grp = dsym.reshape(*lead, cfg.n_pilots, cfg.pilot_spacing - 1)
     pil = _pilot_values(cfg, dsym, pilot_vals).to(dsym.dtype)
-    pil = pil.expand(*lead, cfg.n_pilots)[..., None]
-    return torch.cat([pil, grp], dim=-1).reshape(*lead, cfg.n_used)
+    if cfg.strided_pilots:
+        grp = dsym.reshape(*lead, cfg.n_pilots, cfg.pilot_spacing - 1)
+        pil = pil.expand(*lead, cfg.n_pilots)[..., None]
+        return torch.cat([pil, grp], dim=-1).reshape(*lead, cfg.n_used)
+    ppos, dpos = _layout_index(cfg, dsym.device)
+    out = torch.zeros(*lead, cfg.n_used, dtype=dsym.dtype,
+                      device=dsym.device)
+    out.index_copy_(-1, dpos, dsym)
+    out.index_copy_(-1, ppos, pil.expand(*lead, cfg.n_pilots))
+    return out
 
 
 def split_pilots(cfg: ModemConfig, bins: torch.Tensor):
     """(..., n_used) → (pilot bins (..., n_pilots), data bins
-    (..., n_data_bins)), the inverse of `interleave_pilots`."""
-    _require_strided(cfg)
-    *lead, _ = bins.shape
-    grp = bins.reshape(*lead, cfg.n_pilots, cfg.pilot_spacing)
-    return grp[..., 0], grp[..., 1:].reshape(*lead, cfg.n_data_bins)
+    (..., n_data_bins)), the inverse of `interleave_pilots`: a reshape on
+    strided layouts, `index_select` on the others."""
+    if cfg.strided_pilots:
+        *lead, _ = bins.shape
+        grp = bins.reshape(*lead, cfg.n_pilots, cfg.pilot_spacing)
+        return grp[..., 0], grp[..., 1:].reshape(*lead, cfg.n_data_bins)
+    ppos, dpos = _layout_index(cfg, bins.device)
+    return bins.index_select(-1, ppos), bins.index_select(-1, dpos)
 
 
 def data_symbols_from_bits(cfg: ModemConfig, coded_bits: torch.Tensor,

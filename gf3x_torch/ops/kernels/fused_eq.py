@@ -17,6 +17,9 @@ launches. Both return
 The kernel takes one frame per block and one data symbol per warp at a
 time, as kernel A does; `fused_eq_geometry` chooses the warps per block
 and the shared memory of either for a batch, and the CPU tests reach it.
+Both read the pilot layout from a table (`layout_table`), so every layout
+runs on them: strided, offset, a spacing that does not tile the band, one
+pilot or none.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from .split_eq import (check_track_inputs, demap_bins_plain, eq_track_plain,
                        track_constants)
 
 __all__ = ["fused_eq_demap", "fused_eq_demap_plain", "fused_eq_geometry",
-           "FusedGeometry", "launch_constants", "pick_warps"]
+           "FusedGeometry", "launch_constants", "layout_table", "pick_warps"]
 
 SMEM_BLOCK = 232_448     # dynamic shared memory one block may use (227 KB)
 SMEM_SM = 233_472        # shared memory of one SM (228 KB)
@@ -79,12 +82,12 @@ class FusedGeometry:
 def _smem_bytes(U: int, P: int, warps: int, nbuf: int,
                 demap: bool = True) -> int:
     """The kernels' layout: Ĥ (2U floats), the warps' symbol buffers (2U
-    each), |Ĥ|² (U) and the warps' pilot scratch (4P each); kernel 2
-    (`demap`) adds the clamped inverse of |Ĥ|² (U) and the warps' two
-    sums."""
+    each), |Ĥ|² (U), the warps' pilot scratch (4P each) and the pilot
+    positions (P ints); kernel 2 (`demap`) adds the clamped inverse of |Ĥ|²
+    (U), the warps' two sums and the data positions (U − P ints)."""
     if demap:
-        return 4 * (4 * U + warps * (2 * U * nbuf + 4 * P + 2))
-    return 4 * (3 * U + warps * (2 * U * nbuf + 4 * P))
+        return 4 * (5 * U + warps * (2 * U * nbuf + 4 * P + 2))
+    return 4 * (3 * U + P + warps * (2 * U * nbuf + 4 * P))
 
 
 def pick_warps(D: int, B: int, sms: int, smem_of) -> FusedGeometry | None:
@@ -149,6 +152,15 @@ def _pilot_floats(cfg: ModemConfig, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def layout_table(cfg: ModemConfig, device: torch.device) -> torch.Tensor:
+    """The kernels' layout table on `device`: the P pilot positions, then
+    the n_data_bins data positions, as int32 used-bin indices (n_used)."""
+    lay = layout(cfg)
+    return torch.as_tensor(np.concatenate([lay.pilot_pos, lay.data_pos])
+                           .astype(np.int32), device=device)
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
@@ -157,8 +169,8 @@ def fused_eq_demap(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
                    noise_var: torch.Tensor,
                    pilot_vals: torch.Tensor | None = None):
     """`fused_eq_demap_plain` for CPU tensors; the CUDA kernel otherwise
-    (strided pilots, at least two of them, QPSK to 64-QAM). A bit-loaded
-    config takes the split tail (`split_eq`) on either device."""
+    (any pilot layout, QPSK to 64-QAM, n_used ≤ 1024). A bit-loaded config
+    takes the split tail (`split_eq`) on either device."""
     if cfg.bit_loading is not None:
         raise ValueError("fused_eq_demap: a bit-loaded config takes the "
                          "split tail (split_eq.eq_track + demap_bins)")
@@ -182,9 +194,9 @@ def fused_eq_demap(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
     slope, cpe = torch.empty(2, B, D, device=dev)
     evm, mabs = torch.empty(2, B, device=dev)
     launch("gf3x_fused_eq_demap", dev.index, y.data_ptr(), h.data_ptr(),
-           nv.data_ptr(), pv.data_ptr(), llr.data_ptr(), slope.data_ptr(),
-           cpe.data_ptr(), evm.data_ptr(), mabs.data_ptr(), B, S,
-           cfg.n_known_symbols, U, cfg.n_pilots, cfg.pilot_spacing,
+           nv.data_ptr(), pv.data_ptr(), layout_table(cfg, dev).data_ptr(),
+           llr.data_ptr(), slope.data_ptr(), cpe.data_ptr(), evm.data_ptr(),
+           mabs.data_ptr(), B, S, cfg.n_known_symbols, U, cfg.n_pilots,
            cfg.bits_per_symbol // 2, levels, n_ladder, q0, b0, q1, b1, mean_dk,
            geo.warps, geo.nbuf, geo.smem, evm_div, abs_div)
     fused_eq_demap.launches += 1

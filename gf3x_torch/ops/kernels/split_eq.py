@@ -39,7 +39,9 @@ def eq_track_plain(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
                    pilot_vals: torch.Tensor | None = None):
     """Y (B, K+D, U) complex64 spectra (derolled), H (B, U) complex64,
     noise_var (B,) → (eq (B, D, U) derotated equalized bins, slope, cpe,
-    nv_sym (B, D))."""
+    nv_sym (B, D)). Below two pilots there is no fit (slope = cpe = 0, no
+    derotation); a pilotless config has no noise floor either: nv_sym is
+    noise_var on every symbol (gf3x's `_eq_tail`)."""
     from ...models.frame import split_pilots
 
     if pilot_vals is None:
@@ -47,6 +49,9 @@ def eq_track_plain(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
     pilot_vals = pilot_vals.to(Y.device)
     eq = equalize(H, Y[:, cfg.n_known_symbols:])
     eq, slope, cpe = pilot_phase_correct(cfg, eq, H, pilot_vals)
+    if cfg.n_pilots == 0:
+        return eq, slope, cpe, noise_var[:, None].expand(
+            -1, cfg.n_data_symbols).contiguous()
     pil, _ = split_pilots(cfg, eq)
     # per-symbol noise floor from the CSI-weighted pilot residuals: a burst
     # symbol demaps as erasures instead of confident errors
@@ -81,9 +86,12 @@ def demap_bins_plain(cfg: ModemConfig, eq: torch.Tensor, H: torch.Tensor,
 def track_constants(cfg: ModemConfig):
     """pilot_phase_correct's static constants as the kernels take them:
     (mean pilot spacing, n_ladder, q0, base0, q1, base1) — the (lag,
-    baseline) of each of at most two refinement stages."""
+    baseline) of each of at most two refinement stages. Below two pilots
+    there is no fit: (1.0, 0, 0, 1.0, 0, 1.0)."""
     kp = layout(cfg).pilot_pos.astype(np.float64)
     P = cfg.n_pilots
+    if P < 2:
+        return 1.0, 0, 0, 1.0, 0, 1.0
     stages = [(Q, float(np.float32(np.mean(kp[Q:] - kp[:-Q]))))
               for Q in sorted({max(2, P // 8), P // 2}) if 1 <= Q < P]
     (q0, b0), (q1, b1) = (stages + [(0, 1.0), (0, 1.0)])[:2]
@@ -94,15 +102,14 @@ def track_constants(cfg: ModemConfig):
 def check_track_inputs(name: str, cfg: ModemConfig, Y, H, noise_var):
     """The shape, type and device checks of the kernels that take
     Y (B, K+D, U), H (B, U) complex64 and noise_var (B,) on one CUDA
-    device."""
+    device, with n_used ≤ 1024 (a symbol's bins in one warp's shared
+    buffers); any pilot layout."""
     dev = Y.device
     if dev.type != "cuda" or H.device != dev or noise_var.device != dev:
         raise ValueError(f"{name}: Y, H and noise_var must be on one CUDA "
                          "device")
-    if not (cfg.strided_pilots and cfg.n_pilots >= 2
-            and cfg.n_used <= 1024):
-        raise ValueError(f"{name}: the kernel needs strided pilots (at "
-                         "least two) and n_used ≤ 1024")
+    if cfg.n_used > 1024:
+        raise ValueError(f"{name}: the kernel needs n_used ≤ 1024")
     B, S, U = Y.shape
     if (S != cfg.n_known_symbols + cfg.n_data_symbols or U != cfg.n_used
             or Y.dtype != torch.complex64 or H.shape != (B, U)
@@ -119,7 +126,7 @@ def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
     if Y.device.type == "cpu":
         return eq_track_plain(cfg, Y, H, noise_var, pilot_vals)
     from .fused_eq import (_pilot_floats, _sm_count, fused_eq_geometry,
-                           launch_constants)
+                           launch_constants, layout_table)
 
     check_track_inputs("eq_track", cfg, Y, H, noise_var)
     dev = Y.device
@@ -137,10 +144,10 @@ def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
     eq = torch.empty(B, D, U, dtype=torch.complex64, device=dev)
     slope, cpe, nv_sym = torch.empty(3, B, D, device=dev)
     launch("gf3x_eq_track", dev.index, y.data_ptr(), h.data_ptr(),
-           nv.data_ptr(), pv.data_ptr(), eq.data_ptr(), slope.data_ptr(),
-           cpe.data_ptr(), nv_sym.data_ptr(), B, S, cfg.n_known_symbols, U,
-           cfg.n_pilots, cfg.pilot_spacing, n_ladder, q0, b0, q1, b1, mean_dk,
-           geo.warps, geo.nbuf, geo.smem)
+           nv.data_ptr(), pv.data_ptr(), layout_table(cfg, dev).data_ptr(),
+           eq.data_ptr(), slope.data_ptr(), cpe.data_ptr(), nv_sym.data_ptr(),
+           B, S, cfg.n_known_symbols, U, cfg.n_pilots, n_ladder, q0, b0, q1,
+           b1, mean_dk, geo.warps, geo.nbuf, geo.smem)
     eq_track.launches += 1
     return eq, slope, cpe, nv_sym
 

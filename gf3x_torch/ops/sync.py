@@ -2,7 +2,8 @@
 the FFT chirp matched filter and its overlap-save form for long
 recordings, bounded and decimated onset search with first-arrival
 refinement, the block-aligned frame cut alone (kernel 1, 6 or 7, by gf3x's
-rule) or fused with the used-band DFT (kernel 8), and Schmidl–Cox timing
+rule) or fused with the used-band DFT (kernel 8), the spectrum cut (a
+window cut from the sync FFT by the shift theorem), and Schmidl–Cox timing
 and metrics.
 
 The correlation stays an FFT (`torch.fft`, cuFFT on the card); the TPU's
@@ -23,6 +24,7 @@ from .kernels import cut_dft as _cut_dft
 from .kernels import gather_cut as _cut
 
 __all__ = ["sync_nfft", "bounded_sync_nfft", "bounded_mf_shape",
+           "rx_spectrum", "matched_filter_spec", "extract_windows_spec",
            "matched_filter", "streaming_matched_filter", "find_frame_start",
            "max_cut_start", "cut_plan", "fused_cut_refuses", "cut_symbols",
            "cut_dft_spectra", "sc_metric_window", "schmidl_cox_metric",
@@ -61,6 +63,46 @@ def _chirp_spectrum(chirp, nfft: int, device) -> torch.Tensor:
     """conj(rfft(chirp, nfft)) in float64, rounded to complex64."""
     c = torch.as_tensor(chirp, dtype=torch.float64, device=device)
     return torch.conj(torch.fft.rfft(c, nfft)).to(torch.complex64)
+
+
+def rx_spectrum(rx: torch.Tensor, nfft: int) -> torch.Tensor:
+    """rfft of the recording at the sync FFT length: (..., T) →
+    (..., nfft // 2 + 1) complex64, computed once and shared by the
+    matched filter (`matched_filter_spec`) and the window cut
+    (`extract_windows_spec`)."""
+    return torch.fft.rfft(rx, nfft, dim=-1)
+
+
+def matched_filter_spec(R: torch.Tensor, chirp, T: int, nfft: int
+                        ) -> torch.Tensor:
+    """The matched filter from a precomputed R = rx_spectrum(rx, nfft):
+    (..., T) float32, `matched_filter`'s output at that length."""
+    M = torch.fft.irfft(R * _chirp_spectrum(chirp, nfft, R.device), nfft,
+                        dim=-1)
+    return M[..., :T]
+
+
+def extract_windows_spec(R: torch.Tensor, starts: torch.Tensor, need: int,
+                         nfft: int) -> torch.Tensor:
+    """rx[start : start + need] per row, cut from R = rx_spectrum(rx, nfft)
+    by the shift theorem: rolling rx left by `start` multiplies bin k by
+    e^{+2πik·start/nfft}, then one irfft. R (..., nfft // 2 + 1), starts
+    (...,) int → (..., need) float32; samples at or past the recording's end
+    read as the zero padding.
+
+    start·k is reduced mod nfft in integers before any float: it reaches
+    2⁴⁴ on minute-long recordings, where float32 would corrupt the phase by
+    ~0.7 rad. nfft is a power of two, so the mod is a mask."""
+    if nfft & (nfft - 1):
+        raise ValueError(f"extract_windows_spec: nfft {nfft} is not a power "
+                         "of two")
+    k = torch.arange(R.shape[-1], dtype=torch.int64, device=R.device)
+    s = torch.as_tensor(starts, device=R.device).to(torch.int64)[..., None]
+    m = (s * k) & (nfft - 1)                      # (start·k) mod nfft, exact
+    ang = np.float32(2.0 * np.pi / nfft) * m.to(torch.float32)
+    rolled = torch.fft.irfft(R * torch.complex(torch.cos(ang),
+                                               torch.sin(ang)), nfft, dim=-1)
+    return rolled[..., :need]
 
 
 def matched_filter(rx: torch.Tensor, chirp, nfft: int | None = None
@@ -322,15 +364,21 @@ def find_frame_start_sc(cfg: ModemConfig, rx: torch.Tensor):
     return torch.clamp(start, min=0).to(torch.int32), peak_val
 
 
-def sc_metric_at(cfg: ModemConfig, rx: torch.Tensor,
-                 d: torch.Tensor) -> torch.Tensor:
+def sc_metric_at(cfg: ModemConfig, rx: torch.Tensor, d: torch.Tensor,
+                 R: torch.Tensor | None = None,
+                 nfft: int | None = None) -> torch.Tensor:
     """SC metric at one window start per row (clipped into the recording):
     rx (..., T), d (...,) int → (...,) f32, ≈ 1 where the repeated-half SC
-    symbol sits at d. Touches only the n_fft samples there."""
+    symbol sits at d. Touches only the n_fft samples there: gathered from
+    rx, or, given R = rx_spectrum(rx, nfft), cut from that sync spectrum
+    (`extract_windows_spec`)."""
     T = rx.shape[-1]
     d = torch.broadcast_to(torch.as_tensor(d, device=rx.device),
                            rx.shape[:-1])
-    d = torch.clamp(d.to(torch.int64), 0, max(T - cfg.n_fft, 0)).reshape(-1)
-    cols = d[:, None] + torch.arange(cfg.n_fft, device=rx.device)
+    d = torch.clamp(d.to(torch.int64), 0, max(T - cfg.n_fft, 0))
+    if R is not None:
+        return sc_metric_window(cfg, extract_windows_spec(R, d, cfg.n_fft,
+                                                          nfft))
+    cols = d.reshape(-1)[:, None] + torch.arange(cfg.n_fft, device=rx.device)
     win = torch.gather(rx.reshape(-1, T), 1, cols)
     return sc_metric_window(cfg, win.reshape(*rx.shape[:-1], cfg.n_fft))

@@ -8,10 +8,10 @@ test reproduces those draws (`jax_draws`) and hands them to the port's
 sweep as `info` and `noise`, so both run the same frames through the same
 channel.
 
-The configs are tests/test_ber_sweep.py's UNCODED and CODED with bin_hi =
-103 in place of 100: theirs have 93 used bins at pilot spacing 8, a pilot
-layout that does not tile the band, which the port refuses (ROADMAP queue 1
-item 5; pinned by `test_irregular_pilot_configs_are_refused`)."""
+The configs are tests/test_ber_sweep.py's UNCODED and CODED — 93 used bins
+at pilot spacing 8, a pilot layout that does not tile the band — and the
+same with bin_hi = 103 (96 bins, a strided grid), so that the sweep is
+held on both kinds of layout."""
 
 import numpy as np
 import pytest
@@ -29,11 +29,11 @@ from gf3x_torch import Modem
 from gf3x_torch.bench.ber import ber_sweep
 from gf3x_torch.channel import room_impulse_response, torch_sims
 
-from test_ber_sweep import CODED as CODED_IRREGULAR
-from test_ber_sweep import UNCODED as UNCODED_IRREGULAR
+from test_ber_sweep import CODED as CODED_93
+from test_ber_sweep import UNCODED as UNCODED_93
 
-UNCODED = UNCODED_IRREGULAR.replace(bin_hi=103).validate()
-CODED = CODED_IRREGULAR.replace(bin_hi=103).validate()
+UNCODED = UNCODED_93.replace(bin_hi=103).validate()
+CODED = CODED_93.replace(bin_hi=103).validate()
 
 
 def _x(seed=0, shape=(3, 2, 4000)):
@@ -110,12 +110,17 @@ def counts(res, cfg):
 
 
 # (config, SNR grid, FIR, delay): tests/test_ber_sweep.py's three sweeps,
-# and the coded config through the FIR and delay across its waterfall
+# and the coded config through the FIR and delay across its waterfall, at
+# 96 bins; and tests/test_ber_sweep.py's own 93-bin configs (an irregular
+# pilot layout) through the same sweeps
 SWEEPS = {
     "uncoded": (UNCODED, [-4.0, 0.0, 6.0, 14.0, 24.0], False, 0),
     "coded": (CODED, [2.0, 5.0, 8.0], False, 0),
     "uncoded_fir": (UNCODED, [30.0], True, 50),
     "coded_fir": (CODED, [0.0, 2.0, 4.0, 6.0, 8.0], True, 50),
+    "uncoded_93": (UNCODED_93, [-4.0, 0.0, 6.0, 14.0, 24.0], False, 0),
+    "coded_93": (CODED_93, [2.0, 5.0, 8.0], False, 0),
+    "coded_fir_93": (CODED_93, [0.0, 2.0, 4.0, 6.0, 8.0], True, 50),
 }
 
 
@@ -144,13 +149,6 @@ def test_sweep_matches_gf3x_on_its_draws(case):
     assert np.all(np.abs(pre - rpre) <= 2 + 1e-3 * rpre)
     assert np.array_equal(fer, rfer)
     assert np.all(np.abs(post - rpost) <= 2 + 1e-2 * rpost)
-
-
-def test_irregular_pilot_configs_are_refused():
-    """tests/test_ber_sweep.py's own configs (93 used bins, spacing 8) are
-    an irregular pilot layout: the port refuses it rather than mis-map."""
-    with pytest.raises(NotImplementedError, match="irregular pilot"):
-        ber_sweep(Modem(UNCODED_IRREGULAR, device="cpu"), [10.0], n_trials=1)
 
 
 def test_uncoded_qpsk_curve_shape():

@@ -202,12 +202,12 @@ def test_fused_eq_geometry_covers_every_symbol_once(name):
             assert 1 <= geo.warps <= 32
             assert geo.nbuf == (2 if geo.passes > 1 else 1)
             # the kernels' layouts, in floats: Ĥ, the symbol buffers, |Ĥ|²
-            # and the pilot scratch; kernel 2 adds 1/max(|Ĥ|², 1e-12) and
-            # the warps' sums (fused_eq.cu, split_eq.cu)
+            # and the pilot scratch; kernel 2 adds 1/max(|Ĥ|², 1e-12), the
+            # warps' sums and the layout table (U ints), kernel A the pilot
+            # positions (P ints) (fused_eq.cu, split_eq.cu)
             floats = (2 * U + 2 * U * geo.warps * geo.nbuf + U
                       + 4 * P * geo.warps)
-            if demap:
-                floats += U + 2 * geo.warps
+            floats += U + 2 * geo.warps + U if demap else P
             assert geo.smem == 4 * floats <= 232_448
         assert fused_eq.fused_eq_geometry(cfg, 1, demap=demap).passes == 1
     # without the demap's rows a block of kernel A needs less
