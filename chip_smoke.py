@@ -50,6 +50,15 @@ drives the receive paths once each through the port's entry points:
   (kernel 2 without a fit), and offset and bit-loaded (kernels A, B) —
   kernels 2, A and B read the layout from tables — each kernel held
   against its plain version, 1024/1024 rows CRC-ok;
+- the wide bands ("wide", WIDE_BANDS: the GF3 band at n_fft 4096, 8192
+  and 16384, CP = N/4): config 5's batch recipe at gf3-4096 (QPSK, B =
+  1024), gf3-8192 (64-QAM and bit-loaded, B = 1024) and gf3-16384 (64-QAM
+  and bit-loaded, pilot spacing 4, B = 64) — kernels 6, 2 or A and B, and
+  3; kernels 2, A and B held against their plain versions and in both
+  layouts (staged and streamed, sha256 of every output), kernel 2 bit for
+  bit against A + B; `use_cut_dft` on each band and on an aligned CP
+  (kernel 8 at n_fft 4096 only) and `Modem.decode` of one gf3-4096
+  recording (kernels 7, 2, 3);
 - multi-GPU ("mesh", `gf3x_torch.parallel`): `sharded_decode` on the
   one-card mesh and on a two-shard mesh of this card against
   `Modem.demodulate`, and `sharded_pipeline_step` at 25 dB;
@@ -118,6 +127,18 @@ F32_FLOPS = 67e12   # H100 SXM float32 rate outside the tensor cores
 # gf3-longcp: CP = N/4 at N = 2048 (SURVEY.md:139), the same band and bins
 # of 21.5 Hz as GF3; defined here and in the tests only (gf3x has no preset)
 LONGCP = dict(n_fft=2048, cp=512, bin_lo=48, bin_hi=607)
+# the wide bands: the GF3 band (1.03-13.1 kHz) with the symbol lengthened
+# for long reverb, CP = N/4, the next steps of gf3-longcp's ladder; defined
+# here and in the tests only. Each is run at full width: (replace keywords,
+# frames per batch); gf3-8192 and gf3-16384 also bit-loaded
+# (`loading_table` over their data bins)
+WIDE_BANDS = {
+    "gf3-4096": dict(n_fft=4096, cp=1024, bin_lo=96, bin_hi=1215),
+    "gf3-8192": dict(n_fft=8192, cp=2048, bin_lo=192, bin_hi=2431,
+                     bits_per_symbol=6),
+    "gf3-16384": dict(n_fft=16384, cp=4096, bin_lo=384, bin_hi=7999,
+                      pilot_spacing=4, bits_per_symbol=6),
+}
 # the bit-loaded path's table: tools/tpu_parity.py's on-chip parity table
 LOADING_SEED, LOADING_P = 5, [0.1, 0.4, 0.35, 0.15]
 MINSUM_KERNELS = ["minsum_check_kernel", "minsum_decode_kernel"]
@@ -455,8 +476,8 @@ def hold_demap(cfg, eq, H, nv_sym, tables, label):
     b_p = split_eq.demap_bins_plain(cfg, eq, H, nv_sym)
     scale = float(b_p[0].abs().mean())
     err = float((b_k[0] - b_p[0]).abs().max())
-    check(torch.equal(b_k[0] < 0, b_p[0] < 0), f"demap_bins {label}: hard "
-          "decisions differ from its plain version")
+    check(same_decisions(b_k[0], b_p[0], f"demap_bins {label}"),
+          f"demap_bins {label}: hard decisions differ from its plain version")
     check(err <= 2e-4 * scale, f"demap_bins {label}: LLR error {err} > 2e-4 "
           f"x mean|LLR| {scale}")
     for i, name in ((1, "evm"), (2, "mean|llr|")):
@@ -471,7 +492,7 @@ def hold_tail(out_k, out_p, what):
     llr_k, llr_p = out_k[0], out_p[0]
     scale = float(llr_p.abs().mean())
     err = float((llr_k - llr_p).abs().max())
-    check(torch.equal(llr_k < 0, llr_p < 0), f"{what}: hard decisions differ")
+    check(same_decisions(llr_k, llr_p, what), f"{what}: hard decisions differ")
     check(err <= 2e-4 * scale, f"{what}: LLR error {err} > 2e-4 x mean|LLR| "
           f"{scale}")
     for i, name in ((1, "slope"), (2, "cpe")):
@@ -481,6 +502,26 @@ def hold_tail(out_k, out_p, what):
         d = float(((out_k[i] - out_p[i]).abs() / out_p[i].abs()).max())
         check(d <= 1e-4, f"{what}: {name} differs by {d} rel")
     return err, scale
+
+
+# per held output, the plain LLRs of exactly 0 on which the kernel's LLR is
+# negative: ties `same_decisions` lets pass, printed in the kernels line
+DECISION_TIES: dict = {}
+
+
+def same_decisions(llr_k: torch.Tensor, llr_p: torch.Tensor,
+                   what: str) -> bool:
+    """Whether a kernel's LLRs make the plain version's hard decisions
+    (llr < 0) wherever the plain LLR is not exactly 0. A 0 is a tie, which
+    decides nothing; the soft bound still holds there. Ties the kernel
+    breaks the other way are counted in DECISION_TIES."""
+    tie = llr_p == 0
+    broken = int(((llr_k < 0) & tie).sum())
+    if broken:
+        DECISION_TIES[what] = broken
+        print(f"{what}: {broken} plain LLR(s) of exactly 0 where the kernel's "
+              "is negative (ties, within the soft bound)", flush=True)
+    return torch.equal((llr_k < 0) | tie, (llr_p < 0) | tie)
 
 
 def hold_minsum(code, lam, iters, label) -> dict:
@@ -1357,6 +1398,281 @@ def run_pilots(dev, counters):
     return total, out
 
 
+# the wide phase's cases: (label, WIDE_BANDS key, loaded, frames per batch);
+# gf3-16384's frame is 523 025 samples, so 64 of them
+WIDE_CASES = (("gf3-4096", "gf3-4096", False, 1024),
+              ("gf3-8192", "gf3-8192", False, 1024),
+              ("gf3-8192 loaded", "gf3-8192", True, 1024),
+              ("gf3-16384", "gf3-16384", False, 64),
+              ("gf3-16384 loaded", "gf3-16384", True, 64))
+# each band's CP nearest N/4 whose cut gf3x's fused kernels take (every
+# offset on the 128 grid; the N/4 CP puts the SC window off it): there
+# `use_cut_dft` turns on kernel 8's n_fft range alone
+WIDE_ALIGNED_CP = {"gf3-4096": 768, "gf3-8192": 1792}
+
+
+def wide_config(key: str, loaded: bool):
+    from gf3x_torch import GF3_STANDARD
+
+    cfg = GF3_STANDARD.replace(**WIDE_BANDS[key])
+    if loaded:
+        cfg = cfg.replace(bit_loading=loading_table(cfg.n_data_bins))
+    return cfg
+
+
+def tail_bytes(cfg, Bk: int, kernel: str) -> float:
+    """The bytes kernel 2, A or B must move on a batch of Bk frames: 2 reads
+    the data symbols' spectra, Ĥ and the noise floor and writes the LLRs,
+    slope and cpe and two per-frame sums (`tail_timed`); A reads the same
+    and writes the derotated bins and three per-symbol rows; B reads the
+    data bins' eq values, their Ĥ and the noise floor and writes the LLRs
+    and two per-symbol rows."""
+    D, U, nd = cfg.n_data_symbols, cfg.n_used, cfg.n_data_bins
+    if kernel == "fused_eq_demap":
+        return (8 * Bk * D * U + 8 * Bk * U + 4 * Bk
+                + 4 * Bk * cfg.raw_bits_per_frame + 4 * 2 * Bk * D
+                + 4 * 2 * Bk)
+    if kernel == "eq_track":
+        return 8 * Bk * D * U * 2 + 8 * Bk * U + 4 * Bk + 3 * 4 * Bk * D
+    return (8 * Bk * D * nd + 8 * Bk * nd + 4 * Bk * D
+            + 4 * Bk * cfg.raw_bits_per_frame + 2 * 4 * Bk * D)
+
+
+def hold_layouts(label, fn, layout_of):
+    """fn(streamed) in the layout its geometry picks and in the forced
+    streamed layout: every output's sha256 equal where the picked layout
+    is the staged one. Returns (the picked layout's outputs, whether it is
+    streamed, the sha256s)."""
+    natural = fn(False)
+    sha = [sha256_of(t) for t in natural]
+    streamed = layout_of()
+    if not streamed:
+        forced = fn(True)
+        check([sha256_of(t) for t in forced] == sha, f"{label}: the "
+              "streamed layout's outputs differ from the staged one's")
+    return natural, streamed, sha
+
+
+def wide_timed(cfg, Bk, name, fn, layout_of) -> dict:
+    """A tail kernel's µs (profiler) in the layout its geometry picks and,
+    where that is the staged one, in the forced streamed layout, beside its
+    bound (bytes over HBM_BPS)."""
+    kern = {"fused_eq_demap": "fused_eq_demap_kernel",
+            "eq_track": "eq_track_kernel",
+            "demap_bins": "demap_bins_kernel"}[name]
+    row = dict(layout="streamed" if layout_of() else "staged",
+               kernel_us=kernel_us(lambda: fn(False), [kern])["us"],
+               **bound(tail_bytes(cfg, Bk, name)))
+    if not layout_of():
+        row["streamed_kernel_us"] = kernel_us(lambda: fn(True), [kern])["us"]
+    return row
+
+
+def run_wide(dev, counters, rows):
+    """The wide bands at full width (WIDE_CASES, bench.py's batch recipe):
+    on each, kernels A and B — and on a uniform config kernel 2 — held
+    against their plain versions, kernel 2 bit for bit against A + B, the
+    staged layout against the forced streamed one by the sha256 of every
+    output (at gf3-16384 every layout is streamed), each kernel's µs beside
+    its bound; then `Modem.demodulate` with every launch counter at 0
+    (every row CRC-ok; kernels 6, 2 or A and B, and 3 launched) and its step
+    timed. Kernel 8 is held at gf3-4096's cut; `use_cut_dft=True` decodes
+    gf3-4096 and gf3-8192 on the two-stage cut (gf3x's fused cut refuses
+    their SC window offset) and, at the CPs of WIDE_ALIGNED_CP, takes kernel
+    8 at n_fft 4096 and declines it at 8192; `Modem.decode` of one gf3-4096
+    recording runs kernels 7, 2 and 3. Adds the kernels' wide rows to
+    `rows`; returns (the launch counts summed over every drive, {label:
+    what was held and the step ms})."""
+    from gf3x_torch import Modem
+    from gf3x_torch.ops.kernels import cut_dft, fused_eq, split_eq
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    total, out = {name: 0 for name in counters}, {}
+    for label, key, loaded, Bk in WIDE_CASES:
+        cfg = wide_config(key, loaded)
+        modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
+        rx_np, payload, delays = build_batch(modem, Bk, MARGIN,
+                                             np.random.default_rng(0))
+        rx = torch.as_tensor(rx_np, device=dev)
+        del rx_np
+        q, roll, kw, _, Y, H, nv = path_inputs(modem, rx)
+        pv = modem.pilot_vals
+        tables = (modem.demap_used, modem.demap_bits, modem.demap_off)
+        held = dict(n_used=cfg.n_used, n_pilots=cfg.n_pilots,
+                    n_data_bins=cfg.n_data_bins, batch=Bk)
+
+        def track(streamed):
+            return split_eq.eq_track(cfg, Y, H, nv, pv, streamed=streamed)
+
+        hold_eq_track(cfg, Y, H, nv, pv, label)
+        a_k, a_streamed, held["eq_track_sha256"] = hold_layouts(
+            f"eq_track {label}", track, lambda: fused_eq.fused_eq_geometry(
+                cfg, Bk, sms, demap=False).streamed)
+        eq, nv_sym = a_k[0], a_k[3]
+
+        def demap(streamed):
+            return split_eq.demap_bins(cfg, eq, H, nv_sym, tables,
+                                       streamed=streamed)
+
+        def b_streamed():
+            return split_eq.demap_geometry(cfg, Bk, sms).streamed
+
+        _, errB, scaleB = hold_demap(cfg, eq, H, nv_sym, tables, label)
+        b_k, _, held["demap_bins_sha256"] = hold_layouts(
+            f"demap_bins {label}", demap, b_streamed)
+        held.update(demap_bins_max_abs_err=errB, demap_bins_mean_abs=scaleB)
+        times = {"eq_track": wide_timed(cfg, Bk, "eq_track", track, lambda:
+                                        a_streamed),
+                 "demap_bins": wide_timed(cfg, Bk, "demap_bins", demap,
+                                          b_streamed)}
+        tail = ("eq_track", "demap_bins")
+        if cfg.bit_loading is None:
+            def fused(streamed):
+                return fused_eq.fused_eq_demap(cfg, Y, H, nv, pv,
+                                               streamed=streamed)
+
+            def f_streamed():
+                return fused_eq.fused_eq_geometry(cfg, Bk, sms).streamed
+
+            _, err2, scale2 = hold_fused(cfg, Y, H, nv, pv, label)
+            out2, _, held["fused_eq_demap_sha256"] = hold_layouts(
+                f"fused_eq_demap {label}", fused, f_streamed)
+            held.update(fused_eq_demap_max_abs_err=err2,
+                        fused_eq_demap_mean_abs=scale2,
+                        split_pair_rel=hold_split(modem, Y, H, nv, out2,
+                                                  f"wide {label}"))
+            times["fused_eq_demap"] = wide_timed(cfg, Bk, "fused_eq_demap",
+                                                 fused, f_streamed)
+            tail = ("fused_eq_demap",)
+            del out2
+        for name, t in times.items():
+            rows[name].setdefault("wide", {})[label] = t
+        if key == "gf3-4096":
+            held["cut_dft"] = hold_cut_dft_path(cfg, rx, q, roll, kw, label)
+            rows["cut_dft"].setdefault("wide", {})[label] = held["cut_dft"]
+        del Y, H, nv, a_k, b_k, eq, nv_sym
+        launches, bits, _, sync_err = run_path(modem, rx, payload, delays,
+                                               counters, f"wide {label}")
+        for name in ("gather_cut_group", "minsum_totals") + tail:
+            check(launches[name] > 0, f"wide {label}: {name} did not launch: "
+                  f"{launches}")
+        other = (("eq_track", "demap_bins") if cfg.bit_loading is None
+                 else ("fused_eq_demap",))
+        check(all(launches[n] == 0 for n in other + ("cut_symbols",
+                                                      "cut_dft")),
+              f"wide {label}: another cut or tail launched: {launches}")
+        sum_counts(total, launches)
+        step = median_ms(lambda: modem.demodulate(rx))
+        held.update(step_ms=step, sync_err=sync_err, launches=launches,
+                    data_symbols_per_s=Bk * cfg.n_data_symbols / (step / 1e3))
+        print(f"wide {label} (n_fft {cfg.n_fft}, {cfg.n_used} used bins, "
+              f"{cfg.n_pilots} pilots, {cfg.n_codewords} codewords, B {Bk}, "
+              f"T {rx.shape[-1]}): kernels {', '.join(times)} held against "
+              f"their plain versions and staged against streamed (sha256); "
+              f"{ {n: (t['layout'], round(t['kernel_us'], 1), t.get('streamed_kernel_us'), round(1e3 * t['bound_ms'], 1)) for n, t in times.items()} } "
+              f"(layout, kernel us, streamed us, bound us); demodulate "
+              f"{Bk}/{Bk} rows CRC-ok, sync within {sync_err} samples, "
+              f"launches {launches}; {step:.3f} ms/step", flush=True)
+        if not loaded and key in WIDE_ALIGNED_CP:
+            held["use_cut_dft"] = run_wide_cut_dft(dev, counters, total,
+                                                   modem, rx, payload,
+                                                   delays, bits, label)
+        if key == "gf3-4096":
+            row0 = rx[0].cpu().numpy()
+            res, launches = launch_counts(counters,
+                                          lambda: modem.decode(row0))
+            check(res.crc_ok and res.payload == payload, f"decode of one "
+                  f"{label} recording: not CRC-ok")
+            for name in ("gather_cut", "fused_eq_demap", "minsum_totals"):
+                check(launches[name] > 0, f"decode of one {label} recording: "
+                      f"{name} did not launch: {launches}")
+            sum_counts(total, launches)
+            held["decode_launches"] = launches
+            print(f"decode of one {label} recording: CRC-ok, launches "
+                  f"{launches}", flush=True)
+        out[label] = held
+        del modem, rx, q, roll, bits
+    return total, out
+
+
+def hold_cut_dft_path(cfg, rx, q, roll, kw, label) -> dict:
+    """Kernel 8 against its plain version on a path's cut (spectra within
+    1e-5 of their mean magnitude, the SC window equal), timed beside its
+    bound: the symbol and SC windows in, the spectra and SC window out, and
+    a real FFT (2.5·N·log2 N) plus the deroll (6 per bin) per symbol."""
+    from gf3x_torch.ops.kernels import cut_dft
+
+    kw8 = {k: kw[k] for k in ("valid", "block", "S", "body_off", "sc_off")}
+    Y8, s8 = cut_dft.cut_dft(cfg, rx, q, roll, **kw8)
+    Yp, sp = cut_dft.cut_dft_plain(cfg, rx, q, roll, **kw8)
+    err, scale = float((Y8 - Yp).abs().max()), float(Yp.abs().mean())
+    check(err <= 1e-5 * scale, f"cut_dft {label}: spectra differ from the "
+          f"plain version by {err} > 1e-5 x mean|Y| {scale}")
+    check(torch.equal(s8, sp), f"cut_dft {label}: SC window differs")
+    Bk, S, N, U = rx.shape[0], kw8["S"], cfg.n_fft, cfg.n_used
+    row = dict(max_abs_err=err, mean_abs=scale,
+               geometry=str(cut_dft.cut_dft_geometry(N, S + 1)),
+               kernel_us=kernel_us(lambda: cut_dft.cut_dft(
+                   cfg, rx, q, roll, **kw8), ["cut_dft_kernel"])["us"],
+               **bound(4 * Bk * (S + 1) * N + 8 * Bk * S * U + 4 * Bk * N
+                       + 8 * Bk, Bk * S * (2.5 * N * np.log2(N) + 6.0 * U)))
+    print(f"cut_dft at {label}'s cut ({Bk} x {rx.shape[-1]}): max |dY| "
+          f"{err:.3g} (mean |Y| {scale:.3g}), SC window equal; "
+          f"{row['geometry']}; kernel {row['kernel_us']:.1f} us, bound "
+          f"{1e3 * row['bound_ms']:.1f} us", flush=True)
+    return row
+
+
+def run_wide_cut_dft(dev, counters, total, modem, rx, payload, delays, bits,
+                     label) -> dict:
+    """`use_cut_dft=True` on a wide band: on its own CP the two-stage cut
+    (kernel 6; gf3x's fused cut refuses the geometry), no kernel 8 launch
+    and the bits of `demodulate`; at WIDE_ALIGNED_CP's CP, kernel 8 at
+    n_fft 4096 (held at that path's cut) and kernel 1 at 8192 (kernel 8
+    declined by its n_fft range), every row CRC-ok. Adds the launches to
+    `total`; returns what was held."""
+    from gf3x_torch import Modem
+    from gf3x_torch.ops.kernels import cut_dft
+
+    cfg = modem.cfg
+    m8 = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev, use_cut_dft=True)
+    launches, bits8, _, _ = run_path(m8, rx, payload, delays, counters,
+                                     f"wide {label}, use_cut_dft")
+    check(launches["cut_dft"] == 0 and launches["gather_cut_group"] > 0
+          and torch.equal(bits8, bits), f"wide {label}, use_cut_dft: "
+          f"kernel 8 launched or bits differ: {launches}")
+    sum_counts(total, launches)
+    held = {"own_cp": launches}
+    cfg_a = cfg.replace(cp=WIDE_ALIGNED_CP[label])
+    m_a = Modem(cfg_a, max_delay=MARGIN + cfg_a.cp, device=dev,
+                use_cut_dft=True)
+    rx_np, payload_a, delays_a = build_batch(m_a, rx.shape[0], MARGIN,
+                                             np.random.default_rng(1))
+    rx_a = torch.as_tensor(rx_np, device=dev)
+    del rx_np
+    takes = cut_dft.takes(cfg_a)
+    check(takes == (cfg_a.n_fft <= 4096) and m_a._takes_cut_dft(
+        rx_a.shape[-1]) == takes, f"{label} at cp {cfg_a.cp}: route")
+    if takes:
+        q, roll, kw, _, _, _, _ = path_inputs(m_a, rx_a)
+        held["kernel8"] = hold_cut_dft_path(cfg_a, rx_a, q, roll, kw,
+                                            f"{label} at cp {cfg_a.cp}")
+    launches, _, _, _ = run_path(m_a, rx_a, payload_a, delays_a, counters,
+                                 f"wide {label} at cp {cfg_a.cp}, "
+                                 "use_cut_dft")
+    cut = "cut_dft" if takes else "cut_symbols"
+    check(launches[cut] > 0 and launches["cut_dft" if not takes
+                                         else "cut_symbols"] == 0,
+          f"{label} at cp {cfg_a.cp}, use_cut_dft: {cut} must launch alone: "
+          f"{launches}")
+    sum_counts(total, launches)
+    held[f"cp{cfg_a.cp}"] = launches
+    print(f"use_cut_dft at {label}: own CP {cfg.cp} on the two-stage cut "
+          f"(kernel 6, no kernel 8), bits equal; at CP {cfg_a.cp} (aligned) "
+          f"{cut}, {rx.shape[0]}/{rx.shape[0]} rows CRC-ok", flush=True)
+    return held
+
+
 # a float diagnostic of the two-shard decode within this share of its mean
 # magnitude of the one-batch decode's: 1e-4, but 1e-2 for the ISI floor and
 # its tail/total ratio in dB, which come from a small difference of
@@ -1568,12 +1884,19 @@ def main() -> None:
         **tail_timed(cfg, lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv, pv),
                      lambda: fused_eq.fused_eq_demap_plain(cfg, Y, H, nv,
                                                            pv), Y))
+    # the streamed layout at config 5: the same bytes, its own time
+    hold_layouts("fused_eq_demap config 5", lambda streamed: fused_eq
+                 .fused_eq_demap(cfg, Y, H, nv, pv, streamed=streamed),
+                 lambda: False)
+    r2["streamed_kernel_us"] = kernel_us(lambda: fused_eq.fused_eq_demap(
+        cfg, Y, H, nv, pv, streamed=True), ["fused_eq_demap_kernel"])["us"]
     print(f"fused_eq_demap: hard decisions equal, max |dLLR| {err:.3g} "
           f"(mean |LLR| {scale:.3g}), held at B = 1 and 7 too; llr, slope "
           f"and cpe bit-identical to the split pair's (evm, mean|llr| within "
           f"{split_rel:.2g} rel); {r2['geometry']}; {r2['ms']:.3f} ms vs "
           f"plain {r2['plain_ms']:.3f} ms; device {r2['device_ms']:.4f} ms, "
-          f"kernel {r2['kernel_us']:.1f} us, bound {r2['bound_ms']:.4f} ms "
+          f"kernel {r2['kernel_us']:.1f} us (streamed layout, same bytes: "
+          f"{r2['streamed_kernel_us']:.1f} us), bound {r2['bound_ms']:.4f} ms "
           f"({EXPECTED['fused_eq_demap']})", flush=True)
 
     # ---- kernel 3 vs plain: the path's codeword LLRs (20 dB, every
@@ -1874,11 +2197,25 @@ def main() -> None:
                 4.0 * B * cfg.raw_bits_per_frame, kernel="demap_bins_kernel"))
     rB = rows["demap_bins"]
     rB["geometry"] = str(split_eq.demap_geometry(cfg, B, sms))
+    # A and B in the streamed layout on the loaded batch: the same bytes,
+    # their own times
+    hold_layouts("eq_track bit-loaded", lambda streamed: split_eq.eq_track(
+        cfg, Y, H, nv, pv, streamed=streamed), lambda: False)
+    hold_layouts("demap_bins bit-loaded", lambda streamed: split_eq
+                 .demap_bins(cfg, eq, H, nv_sym, tables, streamed=streamed),
+                 lambda: False)
+    rA["streamed_kernel_us"] = kernel_us(lambda: split_eq.eq_track(
+        cfg, Y, H, nv, pv, streamed=True), ["eq_track_kernel"])["us"]
+    rB["streamed_kernel_us"] = kernel_us(lambda: split_eq.demap_bins(
+        cfg, eq, H, nv_sym, tables, streamed=True),
+        ["demap_bins_kernel"])["us"]
     print(f"demap_bins: hard decisions equal, max |dLLR| {err:.3g} (mean "
           f"|LLR| {scale:.3g}); {rB['geometry']}; {rB['ms']:.3f} ms vs plain "
           f"{rB['plain_ms']:.3f} ms; device {rB['device_ms']:.4f} ms, kernel "
           f"{rB['kernel_us']:.1f} us, bound {rB['bound_ms']:.4f} ms "
-          f"({EXPECTED['demap_bins']})", flush=True)
+          f"({EXPECTED['demap_bins']}); streamed layouts (same bytes): A "
+          f"{rA['streamed_kernel_us']:.1f} us, B "
+          f"{rB['streamed_kernel_us']:.1f} us", flush=True)
 
     # ---- kernel 3 on the loaded path's LLRs, which carry raw bit errors
     lam = modem._codeword_llrs(b_k[0]).contiguous()
@@ -1934,6 +2271,7 @@ def main() -> None:
     # ---- every pilot layout (kernels 2, A and B from their tables), the
     # mesh and the four walkthroughs
     launchesP, pilots = run_pilots(dev, counters)
+    launchesWd, wide = run_wide(dev, counters, rows)
     from gf3x_torch.parallel import make_mesh
     check(len(make_mesh()) == torch.cuda.device_count() == 1,
           f"make_mesh() has {len(make_mesh())} devices on a one-card run")
@@ -1956,7 +2294,7 @@ def main() -> None:
                "routes": launchesR, "harq": launchesH, "arq": launchesA,
                "long_recordings": launchesT, "sweep": launchesW,
                "cli": launchesI, "golden": launchesG, "pilots": launchesP,
-               "mesh": launchesM, "examples": launchesE}
+               "wide": launchesWd, "mesh": launchesM, "examples": launchesE}
     check(len(rows) == 8 and all(
         sum(c[name] for c in by_path.values()) > 0 for name in rows),
           "a kernel has no row or never launched on a path")
@@ -1978,7 +2316,8 @@ def main() -> None:
                       "harq_s": harq_s, "harq_joint_ppm": harq_ppm,
                       "arq_s": arq_s, "long_recording_s": long_s,
                       "sweep": sweep, "cli": cli, "golden": golden,
-                      "pilots": pilots, "mesh": mesh, "examples": examples,
+                      "pilots": pilots, "wide": wide, "mesh": mesh,
+                      "examples": examples, "decision_ties": DECISION_TIES,
                       "build_s": build_s, "package": gf3x_torch.__name__}),
           flush=True)
     print(smi, flush=True)

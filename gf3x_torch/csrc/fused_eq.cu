@@ -37,6 +37,15 @@
 // as vectors: one float2 (QPSK), one float4 (16-QAM), a float4 and a float2
 // (64-QAM). The block reduces its symbols' EVM and |llr| sums in a fixed
 // order and writes the frame's means itself.
+//
+// A wide band (gf3-16384: U = 7616, P = 1904) fits no warp count in that
+// layout, so the wrapper picks the streamed one (nbuf = 0): the same warps
+// and lanes walk the same bins in the same order, but each reads y and Ĥ
+// from global memory and recomputes |Ĥ|², its inverse and the equalized bin
+// with the staging code's expressions (eq_demap.cuh's StreamedBins); the
+// pilots' bins are read twice (fit, residuals) and the data bins once.
+// Shared memory keeps only the pilot positions, the warps' pilot scratch
+// and sums. Its outputs equal the staged layout's bit for bit.
 #include <cstdint>
 
 #include "eq_demap.cuh"
@@ -54,7 +63,8 @@ struct FusedArgs {
     float* mabs;         // (B,) mean |llr|
     int R;               // LLRs per data symbol
     int warps;           // W: warp w takes data symbols w, w + W, ...
-    int nbuf;            // symbol buffers per warp: 2 when W < D, else 1
+    int nbuf;            // symbol buffers per warp: 2 when W < D, else 1;
+                         // 0 for the streamed layout
     float evm_div;       // D · n_data_bins
     float abs_div;       // D · R
     float lv[kMaxLevels];   // PAM level of each Gray label
@@ -78,11 +88,13 @@ __device__ __forceinline__ void store_llrs(float* out, const float* l) {
 }
 
 // Dynamic shared memory, in floats (the wrapper's fused_eq_geometry
-// computes the same): Ĥ (2U) | W·nbuf symbol buffers (2U each) | |Ĥ|² (U) |
-// 1/max(|Ĥ|², 1e-12) (U) | W pilot scratches (4P each) | the W warps' two
-// sums | the layout table (U ints: P pilot positions, U − P data
-// positions).
-template <int m>
+// computes the same). Staged: Ĥ (2U) | W·nbuf symbol buffers (2U each) |
+// |Ĥ|² (U) | 1/max(|Ĥ|², 1e-12) (U) | W pilot scratches (4P each) | the W
+// warps' two sums | the layout table (U ints: P pilot positions, U − P
+// data positions). Streamed (nbuf = 0): the pilot scratches, the sums and
+// the P pilot positions alone; Ĥ, the bins and the data positions are read
+// from global memory.
+template <int m, bool kStreamed>
 __global__ void __launch_bounds__(1024)
 fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     extern __shared__ __align__(16) float sm[];
@@ -90,28 +102,34 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     const int U = t.U, P = t.P, D = t.D, W = a.warps;
     const int b = blockIdx.x;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const size_t rows = kStreamed ? 0 : 4 * U + 2 * U * W * a.nbuf;
     float2* hs = reinterpret_cast<float2*>(sm);
     float2* buf = hs + U + static_cast<size_t>(w) * a.nbuf * U;
     float* h2s = sm + 2 * U + 2 * U * W * a.nbuf;
     float* inv_csi = h2s + U;
-    float* zr = inv_csi + U + 4 * P * w;
+    float* zr = sm + rows + 4 * P * w;
     float* zi = zr + P;
     float* dr = zi + P;
     float* di = dr + P;
-    float* red = inv_csi + U + 4 * P * W;
+    float* red = sm + rows + 4 * P * W;
     int* kp = reinterpret_cast<int*>(red + 2 * W);
-    const int* dpos = kp + P;
+    const int* dpos = kStreamed ? t.pos + P : kp + P;
+    const float2* hrow = t.h + static_cast<long long>(b) * U;
 
-    // the warp's first symbol is in flight while the block stages Ĥ
-    gf3x_fetch_symbol(t, b, w, buf, lane);
-    for (int k = threadIdx.x; k < U; k += blockDim.x) {
-        const float2 h = t.h[static_cast<long long>(b) * U + k];
-        const float h2 = h.x * h.x + h.y * h.y;
-        hs[k] = h;
-        h2s[k] = h2;
-        inv_csi[k] = 1.0f / fmaxf(h2, 1e-12f);
+    if constexpr (kStreamed) {
+        gf3x_stage_layout(t, kp, P);
+    } else {
+        // the warp's first symbol is in flight while the block stages Ĥ
+        gf3x_fetch_symbol(t, b, w, buf, lane);
+        for (int k = threadIdx.x; k < U; k += blockDim.x) {
+            const float2 h = hrow[k];
+            const float h2 = gf3x_abs2(h);
+            hs[k] = h;
+            h2s[k] = h2;
+            inv_csi[k] = gf3x_inv_csi(h2);
+        }
+        gf3x_stage_layout(t, kp, U);
     }
-    gf3x_stage_layout(t, kp, U);
     __syncthreads();
 
     float lv[kMaxLevels];
@@ -121,22 +139,39 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     const bool derotate = P >= 2;
     float md_sum = 0.0f, abs_sum = 0.0f;
     for (int d = w, i = 0; d < D; d += W, ++i) {
+        const float2* yrow = t.y + (static_cast<long long>(b) * t.S + t.K + d) * U;
         float2* cur = buf + (i & (a.nbuf - 1)) * U;
-        gf3x_fetch_symbol(t, b, d + W, buf + ((i + 1) & (a.nbuf - 1)) * U,
-                          lane);
-        gf3x_cp_async_wait_all_but_newest();
-        __syncwarp();
-        const SymbolFit f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, kp, zr,
-                                                   zi, dr, di, lane);
+        SymbolFit f;
+        if constexpr (kStreamed) {
+            f = gf3x_fit_symbol_warp(t, b, StreamedBins{yrow, hrow}, kp, zr,
+                                     zi, dr, di, lane);
+        } else {
+            gf3x_fetch_symbol(t, b, d + W, buf + ((i + 1) & (a.nbuf - 1)) * U,
+                              lane);
+            gf3x_cp_async_wait_all_but_newest();
+            __syncwarp();
+            f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, kp, zr, zi, dr, di,
+                                       lane);
+        }
 
         // derotate and demap the data bins
         const long long o = static_cast<long long>(b) * D + d;
         float* row = a.llr + o * a.R;
         for (int j = lane; j < nd; j += 32) {
             const int k = dpos[j];
-            const float2 x =
-                derotate ? gf3x_derotate(cur[k], f.slope, k, f.cpe) : cur[k];
-            const float nv_eff = f.nv_sym * inv_csi[k];
+            float2 x;
+            float inv;
+            if constexpr (kStreamed) {
+                const float2 h = hrow[k];
+                const float h2 = gf3x_abs2(h);
+                x = gf3x_eq_bin(yrow[k], h, h2);
+                inv = gf3x_inv_csi(h2);
+            } else {
+                x = cur[k];
+                inv = inv_csi[k];
+            }
+            if (derotate) x = gf3x_derotate(x, f.slope, k, f.cpe);
+            const float nv_eff = f.nv_sym * inv;
             const float nvc = fmaxf(nv_eff, 1e-12f);
             float l[2 * m];
             gf3x_demap_axis<m>(x.x, lv, nvc, l, md_sum, abs_sum);
@@ -169,18 +204,25 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     }
 }
 
-template <int m>
-cudaError_t launch_fused(const FusedArgs& a, long long B, int smem,
-                         cudaStream_t stream) {
+template <int m, bool kStreamed>
+cudaError_t launch_layout(const FusedArgs& a, long long B, int smem,
+                          cudaStream_t stream) {
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            fused_eq_demap_kernel<m>,
+            fused_eq_demap_kernel<m, kStreamed>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return e;
     }
-    fused_eq_demap_kernel<m><<<static_cast<unsigned>(B), 32 * a.warps, smem,
-                               stream>>>(a);
+    fused_eq_demap_kernel<m, kStreamed>
+        <<<static_cast<unsigned>(B), 32 * a.warps, smem, stream>>>(a);
     return cudaGetLastError();
+}
+
+template <int m>
+cudaError_t launch_fused(const FusedArgs& a, long long B, int smem,
+                         cudaStream_t stream) {
+    return a.nbuf == 0 ? launch_layout<m, true>(a, B, smem, stream)
+                       : launch_layout<m, false>(a, B, smem, stream);
 }
 
 }  // namespace

@@ -15,9 +15,9 @@
 // eq (B, D, U) complex64 and slope, cpe, nv_sym (B, D).
 //
 // Kernel B takes the wire-order slot table (the active data bins in the
-// order their bits go on the wire, each packed as its used-bin index, its
-// order m and the offset of its first bit within a symbol's R wire bits,
-// the running sum of 2m) and writes the twin's layout: scrambled,
+// order their bits go on the wire, each an int2: its used-bin index and
+// its order m in x, in y the offset of its first bit within a symbol's R
+// wire bits, the running sum of 2m) and writes the twin's layout: scrambled,
 // wire-order LLRs (B, D·R), plus per-(frame, symbol) partial sums of the
 // EVM distances and of |llr|. One launch covers every loading group; a
 // uniform config is one group with gain 1. The TPU kernel's bin chunking,
@@ -51,6 +51,16 @@
 // where R % 4 ≠ 0); the sums are warp sums with no block barrier. The
 // demap arithmetic is the first design's, so the LLRs are bit for bit the
 // same. W and the shared memory come from the wrapper (demap_geometry).
+//
+// Where a band's staged layout fits no warp count (gf3-16384: U = 7616, a
+// 64-QAM row of R = 34 272 LLRs), the wrappers pick the streamed one
+// (nbuf = 0). Kernel A then runs kernel 2's streamed chain (eq_demap.cuh's
+// StreamedBins: y and Ĥ read from global memory, |Ĥ|² and the equalized
+// bins recomputed) and derotates every bin from it. Kernel B reads its
+// slots, Ĥ and the eq bins from global memory and writes each slot's 2m
+// LLRs straight to its offset in the output row; shared memory holds only
+// the PAM levels. Warps, lanes and each lane's order are the staged
+// layout's, so the outputs are the same bits.
 #include <cstdint>
 
 #include "eq_demap.cuh"
@@ -68,9 +78,11 @@ struct TrackOut {
 };
 
 // Dynamic shared memory, in floats (the wrapper's fused_eq_geometry with
-// demap=False computes the same): Ĥ (2U) | W·nbuf symbol buffers (2U
-// each) | |Ĥ|² (U) | W pilot scratches (4P each) | the pilot positions (P
-// ints). Below two pilots the bins are not derotated.
+// demap=False computes the same). Staged: Ĥ (2U) | W·nbuf symbol buffers
+// (2U each) | |Ĥ|² (U) | W pilot scratches (4P each) | the pilot positions
+// (P ints). Streamed (nbuf = 0): the pilot scratches and positions alone.
+// Below two pilots the bins are not derotated.
+template <bool kStreamed>
 __global__ void __launch_bounds__(1024)
 eq_track_kernel(const __grid_constant__ TrackOut a) {
     extern __shared__ __align__(16) float sm[];
@@ -78,39 +90,53 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
     const int U = t.U, P = t.P, D = t.D, W = a.warps;
     const int b = blockIdx.x;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const size_t rows = kStreamed ? 0 : 3 * U + 2 * U * W * a.nbuf;
     float2* hs = reinterpret_cast<float2*>(sm);
     float2* buf = hs + U + static_cast<size_t>(w) * a.nbuf * U;
     float* h2s = sm + 2 * U + 2 * U * W * a.nbuf;
-    float* zr = h2s + U + 4 * P * w;
+    float* zr = sm + rows + 4 * P * w;
     float* zi = zr + P;
     float* dr = zi + P;
     float* di = dr + P;
-    int* kp = reinterpret_cast<int*>(h2s + U + 4 * P * W);
+    int* kp = reinterpret_cast<int*>(sm + rows + 4 * P * W);
+    const float2* hrow = t.h + static_cast<long long>(b) * U;
 
-    // the warp's first symbol is in flight while the block stages Ĥ
-    gf3x_fetch_symbol(t, b, w, buf, lane);
-    for (int k = threadIdx.x; k < U; k += blockDim.x) {
-        const float2 h = t.h[static_cast<long long>(b) * U + k];
-        hs[k] = h;
-        h2s[k] = h.x * h.x + h.y * h.y;
+    if constexpr (!kStreamed) {
+        // the warp's first symbol is in flight while the block stages Ĥ
+        gf3x_fetch_symbol(t, b, w, buf, lane);
+        for (int k = threadIdx.x; k < U; k += blockDim.x) {
+            const float2 h = hrow[k];
+            hs[k] = h;
+            h2s[k] = gf3x_abs2(h);
+        }
     }
     gf3x_stage_layout(t, kp, P);
     __syncthreads();
     const bool derotate = P >= 2;
 
     for (int d = w, i = 0; d < D; d += W, ++i) {
-        float2* cur = buf + (i & (a.nbuf - 1)) * U;
-        gf3x_fetch_symbol(t, b, d + W, buf + ((i + 1) & (a.nbuf - 1)) * U,
-                          lane);
-        gf3x_cp_async_wait_all_but_newest();
-        __syncwarp();
-        const SymbolFit f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, kp, zr,
-                                                   zi, dr, di, lane);
         const long long o = static_cast<long long>(b) * D + d;
         float2* row = a.eq + o * U;
-        for (int k = lane; k < U; k += 32)
-            row[k] = derotate ? gf3x_derotate(cur[k], f.slope, k, f.cpe)
-                              : cur[k];
+        SymbolFit f;
+        if constexpr (kStreamed) {
+            const StreamedBins bins{
+                t.y + (static_cast<long long>(b) * t.S + t.K + d) * U, hrow};
+            f = gf3x_fit_symbol_warp(t, b, bins, kp, zr, zi, dr, di, lane);
+            for (int k = lane; k < U; k += 32)
+                row[k] = derotate ? gf3x_derotate(bins.x(k), f.slope, k, f.cpe)
+                                  : bins.x(k);
+        } else {
+            float2* cur = buf + (i & (a.nbuf - 1)) * U;
+            gf3x_fetch_symbol(t, b, d + W, buf + ((i + 1) & (a.nbuf - 1)) * U,
+                              lane);
+            gf3x_cp_async_wait_all_but_newest();
+            __syncwarp();
+            f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, kp, zr, zi, dr, di,
+                                       lane);
+            for (int k = lane; k < U; k += 32)
+                row[k] = derotate ? gf3x_derotate(cur[k], f.slope, k, f.cpe)
+                                  : cur[k];
+        }
         if (lane == 0) {
             a.slope[o] = f.slope;
             a.cpe[o] = f.cpe;
@@ -121,21 +147,25 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
 }
 
 constexpr int kLevels = 2 + 4 + 8;   // PAM levels of QPSK, 16- and 64-QAM
-constexpr int kSlotBitsK = 10;       // a slot: used bin | m << 10 | off << 12
-constexpr int kSlotBitsM = 2;
+
+// A slot: x = used-bin index << 2 | order m, y = the wire offset of its
+// first LLR within the symbol's R.
+__device__ __forceinline__ int slot_bin(int2 sl) { return sl.x >> 2; }
+__device__ __forceinline__ int slot_order(int2 sl) { return sl.x & 3; }
 
 struct DemapArgs {
     const float2* eq;    // (B, D, U) derotated equalized bins
     const float2* h;     // (B, U) channel estimate
     const float* nv_sym; // (B, D) per-symbol noise floor
-    const int* slots;    // (NS,) the active bins in wire order, packed
+    const int2* slots;   // (NS,) the active bins in wire order
     float* llr;          // (B, D·R)
     float* evm_part;     // (B, D) Σ over active bins of the min distances
     float* abs_part;     // (B, D) Σ |llr|
     int D, U, NS, R;
     float inv_gain, inv_gain2;   // 1/g and 1/g² of the loading boost
     int warps;           // W: warp w takes data symbols w, w + W, ...
-    int nbuf;            // eq rows per warp: 2 when W < D, else 1
+    int nbuf;            // eq rows per warp: 2 when W < D, else 1; 0 for
+                         // the streamed layout
     float lv[kLevels];   // levels of order m at lv[2^m − 2 ...]
 };
 
@@ -159,10 +189,26 @@ __device__ __forceinline__ void fetch_eq_row(const DemapArgs& a, int b, int d,
     gf3x_cp_async_commit();
 }
 
+// One slot's 2m LLRs at nv_eff = nvs · inv into out (loading: demap e/g
+// with noise nv/g², g = 1 when uniform).
+__device__ __forceinline__ void demap_slot(const DemapArgs& a, int m,
+                                           float2 e, float nvs, float inv,
+                                           const float* lv, float* out,
+                                           float& md_sum, float& abs_sum) {
+    const float nv_eff = nvs * inv;
+    const float nvc = fmaxf(nv_eff * a.inv_gain2, 1e-12f);
+    gf3x_demap_bin(m, e.x * a.inv_gain, e.y * a.inv_gain, lv + (1 << m) - 2,
+                   nvc, out, md_sum, abs_sum);
+}
+
 // Dynamic shared memory, in floats (the wrapper's demap_smem_bytes computes
-// the same): per warp, nbuf eq rows (2U, rounded up to 4) and an LLR row
-// (R, rounded up to 4) | the slot table (NS ints) | 1/max(|Ĥ|², 1e-12) per
-// slot (NS) | the PAM levels (16).
+// the same). Staged: per warp, nbuf eq rows (2U, rounded up to 4) and an
+// LLR row (R, rounded up to 4) | the slot table (NS int2) |
+// 1/max(|Ĥ|², 1e-12) per slot (NS) | the PAM levels (16). Streamed
+// (nbuf = 0): the PAM levels alone; each lane reads its slots, their Ĥ and
+// eq bins from global memory and writes each slot's LLRs at its offset in
+// the output row.
+template <bool kStreamed>
 __global__ void __launch_bounds__(1024)
 demap_bins_kernel(const __grid_constant__ DemapArgs a) {
     extern __shared__ __align__(16) float sm[];
@@ -172,60 +218,63 @@ demap_bins_kernel(const __grid_constant__ DemapArgs a) {
     const int per_warp = a.nbuf * round4(2 * U) + round4(R);
     float* mine = sm + static_cast<size_t>(w) * per_warp;
     float* row = mine + a.nbuf * round4(2 * U);
-    int* s_slot = reinterpret_cast<int*>(sm + static_cast<size_t>(W) * per_warp);
+    int2* s_slot = reinterpret_cast<int2*>(sm + static_cast<size_t>(W) * per_warp);
     float* s_inv = reinterpret_cast<float*>(s_slot + NS);
-    float* s_lv = s_inv + NS;
+    float* s_lv = kStreamed ? sm : s_inv + NS;
+    const float2* hrow = a.h + static_cast<long long>(b) * U;
 
-    // the warp's first row is in flight while the block stages the slots
-    fetch_eq_row(a, b, w, reinterpret_cast<float2*>(mine), lane);
-    for (int i = threadIdx.x; i < NS; i += blockDim.x) {
-        const int sl = a.slots[i];
-        const float2 h =
-            a.h[static_cast<long long>(b) * U + (sl & ((1 << kSlotBitsK) - 1))];
-        const float h2 = h.x * h.x + h.y * h.y;
-        s_slot[i] = sl;
-        s_inv[i] = 1.0f / fmaxf(h2, 1e-12f);
+    if constexpr (!kStreamed) {
+        // the warp's first row is in flight while the block stages the slots
+        fetch_eq_row(a, b, w, reinterpret_cast<float2*>(mine), lane);
+        for (int i = threadIdx.x; i < NS; i += blockDim.x) {
+            const int2 sl = a.slots[i];
+            s_slot[i] = sl;
+            s_inv[i] = gf3x_inv_csi(gf3x_abs2(hrow[slot_bin(sl)]));
+        }
     }
     if (threadIdx.x < kLevels) s_lv[threadIdx.x] = a.lv[threadIdx.x];
     __syncthreads();
 
     const bool vec4 = !(R & 3);
     for (int d = w, i = 0; d < D; d += W, ++i) {
-        const float2* cur =
-            reinterpret_cast<const float2*>(mine + (i & (a.nbuf - 1)) *
-                                                       round4(2 * U));
-        fetch_eq_row(a, b, d + W,
-                     reinterpret_cast<float2*>(
-                         mine + ((i + 1) & (a.nbuf - 1)) * round4(2 * U)),
-                     lane);
-        gf3x_cp_async_wait_all_but_newest();
-        __syncwarp();
         const long long o = static_cast<long long>(b) * D + d;
         const float nvs = a.nv_sym[o];
-        float md_sum = 0.0f, abs_sum = 0.0f;
-        for (int j = lane; j < NS; j += 32) {
-            const int sl = s_slot[j];
-            const int k = sl & ((1 << kSlotBitsK) - 1);
-            const int m = (sl >> kSlotBitsK) & ((1 << kSlotBitsM) - 1);
-            const float2 e = cur[k];
-            // loading: demap y/g with noise nv/g² (g = 1 when uniform)
-            const float nv_eff = nvs * s_inv[j];
-            const float nvc = fmaxf(nv_eff * a.inv_gain2, 1e-12f);
-            gf3x_demap_bin(m, e.x * a.inv_gain, e.y * a.inv_gain,
-                           s_lv + (1 << m) - 2, nvc,
-                           row + (sl >> (kSlotBitsK + kSlotBitsM)), md_sum,
-                           abs_sum);
-        }
-        __syncwarp();
         float* dst = a.llr + o * R;
-        if (vec4 && !(reinterpret_cast<uintptr_t>(dst) & 15)) {
-            for (int c = lane; c < R / 4; c += 32)
-                reinterpret_cast<float4*>(dst)[c] =
-                    reinterpret_cast<const float4*>(row)[c];
+        float md_sum = 0.0f, abs_sum = 0.0f;
+        if constexpr (kStreamed) {
+            const float2* erow = a.eq + o * U;
+            for (int j = lane; j < NS; j += 32) {
+                const int2 sl = a.slots[j];
+                const int k = slot_bin(sl);
+                demap_slot(a, slot_order(sl), erow[k], nvs,
+                           gf3x_inv_csi(gf3x_abs2(hrow[k])), s_lv, dst + sl.y,
+                           md_sum, abs_sum);
+            }
         } else {
-            for (int c = lane; c < R / 2; c += 32)
-                reinterpret_cast<float2*>(dst)[c] =
-                    reinterpret_cast<const float2*>(row)[c];
+            const float2* cur =
+                reinterpret_cast<const float2*>(mine + (i & (a.nbuf - 1)) *
+                                                           round4(2 * U));
+            fetch_eq_row(a, b, d + W,
+                         reinterpret_cast<float2*>(
+                             mine + ((i + 1) & (a.nbuf - 1)) * round4(2 * U)),
+                         lane);
+            gf3x_cp_async_wait_all_but_newest();
+            __syncwarp();
+            for (int j = lane; j < NS; j += 32) {
+                const int2 sl = s_slot[j];
+                demap_slot(a, slot_order(sl), cur[slot_bin(sl)], nvs, s_inv[j],
+                           s_lv, row + sl.y, md_sum, abs_sum);
+            }
+            __syncwarp();
+            if (vec4 && !(reinterpret_cast<uintptr_t>(dst) & 15)) {
+                for (int c = lane; c < R / 4; c += 32)
+                    reinterpret_cast<float4*>(dst)[c] =
+                        reinterpret_cast<const float4*>(row)[c];
+            } else {
+                for (int c = lane; c < R / 2; c += 32)
+                    reinterpret_cast<float2*>(dst)[c] =
+                        reinterpret_cast<const float2*>(row)[c];
+            }
         }
         md_sum = gf3x_warp_sum(md_sum);
         abs_sum = gf3x_warp_sum(abs_sum);
@@ -235,6 +284,36 @@ demap_bins_kernel(const __grid_constant__ DemapArgs a) {
         }
         __syncwarp();   // cur and the row are rewritten next
     }
+}
+
+template <bool kStreamed>
+cudaError_t launch_track(const TrackOut& a, long long B, int smem,
+                         cudaStream_t stream) {
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            eq_track_kernel<kStreamed>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+    }
+    if (B > 0) {
+        eq_track_kernel<kStreamed>
+            <<<static_cast<unsigned>(B), 32 * a.warps, smem, stream>>>(a);
+    }
+    return cudaGetLastError();
+}
+
+template <bool kStreamed>
+cudaError_t launch_demap(const DemapArgs& a, long long B, int smem,
+                         cudaStream_t stream) {
+    static size_t smem_set[kMaxDevices] = {};
+    const cudaError_t e =
+        gf3x_allow_smem(demap_bins_kernel<kStreamed>, smem, smem_set);
+    if (e != cudaSuccess) return e;
+    if (B > 0) {
+        demap_bins_kernel<kStreamed>
+            <<<static_cast<unsigned>(B), 32 * a.warps, smem, stream>>>(a);
+    }
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -268,16 +347,9 @@ GF3X_EXPORT int gf3x_eq_track(
     a.nv_sym = nv_sym;
     a.warps = warps;
     a.nbuf = nbuf;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            eq_track_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    if (B > 0) {
-        eq_track_kernel<<<static_cast<unsigned>(B), 32 * warps, smem,
-                          static_cast<cudaStream_t>(stream)>>>(a);
-    }
-    return static_cast<int>(cudaGetLastError());
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return static_cast<int>(nbuf == 0 ? launch_track<true>(a, B, smem, st)
+                                      : launch_track<false>(a, B, smem, st));
 }
 
 GF3X_EXPORT int gf3x_demap_bins(
@@ -289,7 +361,7 @@ GF3X_EXPORT int gf3x_demap_bins(
     a.eq = reinterpret_cast<const float2*>(eq);
     a.h = reinterpret_cast<const float2*>(h);
     a.nv_sym = nv_sym;
-    a.slots = slots;
+    a.slots = reinterpret_cast<const int2*>(slots);
     a.llr = llr;
     a.evm_part = evm_part;
     a.abs_part = abs_part;
@@ -302,12 +374,7 @@ GF3X_EXPORT int gf3x_demap_bins(
     a.warps = warps;
     a.nbuf = nbuf;
     for (int i = 0; i < kLevels; ++i) a.lv[i] = levels[i];
-    static size_t smem_set[kMaxDevices] = {};
-    const cudaError_t e = gf3x_allow_smem(demap_bins_kernel, smem, smem_set);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (B > 0) {
-        demap_bins_kernel<<<static_cast<unsigned>(B), 32 * warps, smem,
-                            static_cast<cudaStream_t>(stream)>>>(a);
-    }
-    return static_cast<int>(cudaGetLastError());
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return static_cast<int>(nbuf == 0 ? launch_demap<true>(a, B, smem, st)
+                                      : launch_demap<false>(a, B, smem, st));
 }

@@ -17,8 +17,8 @@ Receive path of one (B, T) float32 batch:
     → ofdm_dft + deroll      cuFFT, one phase ramp for the block-grid roll;
                              the δ-warped matmul DFT in the clock-offset loop
       (with `use_cut_dft`, on the plain route of a geometry the fused cut
-       takes: cut_dft_spectra, kernel 8 — cut, DFT and deroll in one
-       launch)
+       takes and kernel 8's FFT takes, n_fft ≤ 4096: cut_dft_spectra,
+       kernel 8 — cut, DFT and deroll in one launch)
     → estimate_channel       LS + tap denoise + ISI profile on K symbols
     → the EQ/demap tail, by config (`_tail_route`):
         uniform:     fused_eq_demap       kernel 2 (EQ, pilot tracking, demap)
@@ -50,6 +50,7 @@ from ..fec.ldpc import LdpcCode
 from ..ops.chanest import _isi_operator, denoise_projection, estimate_channel
 from ..ops.chirp import make_chirp
 from ..ops.constellation import hard_bits, qam_map
+from ..ops.kernels import cut_dft as _cut_dft
 from ..ops.kernels.fused_eq import fused_eq_demap
 from ..ops.kernels.split_eq import demap_bins, eq_track
 from ..ops.ofdm import deroll, ofdm_dft, ofdm_modulate
@@ -290,6 +291,14 @@ class Modem(torch.nn.Module):
                                  body_off=cfg.sc_len, sc_off=sc_off,
                                  block=self._cut_block)
 
+    def _takes_cut_dft(self, T: int) -> bool:
+        """Whether `use_cut_dft` takes kernel 8 for a length-T recording:
+        gf3x's fused cut must take the geometry (its cut_dft_spectra yields
+        where `_fused_cut_refuses`), and kernel 8 its n_fft
+        (`cut_dft.takes`: a power of two up to 4096; gf3x's declines those
+        above by its VMEM budget). Both are static in the config."""
+        return not self._fused_cut_refuses(T) and _cut_dft.takes(self.cfg)
+
     def _cut_dft_frame(self, rx: torch.Tensor, start: torch.Tensor):
         """Fused cut + used-band DFT + deroll (kernel 8), the same cut as
         `_cut_frame`: sync position → (Y (..., S, n_used) derolled spectra,
@@ -524,16 +533,15 @@ class Modem(torch.nn.Module):
         raw_bits), pieces) on the flat batch, SC window or None).
         `sfo_correct` inserts the clock-offset loop, `dd` takes the
         decision-directed demod; the plain route takes kernel 8 when
-        `use_cut_dft` is set and the geometry suits gf3x's fused cut (the
-        other two re-demodulate the symbol matrix, so they keep the
-        two-stage cut; so does a geometry gf3x's fused cut refuses, as in
-        gf3x)."""
+        `use_cut_dft` is set and the geometry suits gf3x's fused cut and
+        kernel 8 (`_takes_cut_dft`; the other two re-demodulate the symbol
+        matrix, so they keep the two-stage cut)."""
         cfg = self.cfg
         lead = tuple(rx.shape[:-1])
         B = int(np.prod(lead))
         S = cfg.n_known_symbols + cfg.n_data_symbols
         if (self.use_cut_dft and not sfo_correct and not dd
-                and not self._fused_cut_refuses(rx.shape[-1])):
+                and self._takes_cut_dft(rx.shape[-1])):
             Y, sc_win = self._cut_dft_frame(rx, start)
             out = self._demod_spectra(Y.reshape(B, S, cfg.n_used))
         else:

@@ -29,13 +29,22 @@ from .fused_eq import SMEM_BLOCK
 from .gather_cut import cut_symbols_plain
 
 __all__ = ["cut_dft", "cut_dft_plain", "cut_dft_geometry", "CutDftGeometry",
-           "twiddles"]
+           "takes", "twiddles"]
 
 MAX_THREADS = 512        # the kernel's __launch_bounds__
 # segments a team walks in a row, at most: at config 5 (25 segments a row,
 # 1024 rows) 5 teams of 5 segments and 2 of 13 ran level on the H100, 9 of
 # 3 and 13 of 2 slower (chip_smoke.py --time on each; PERF.md §6)
 SEGMENTS_PER_TEAM = 5
+N_FFT_RANGE = (128, 4096)    # the powers of two whose FFT fits a team
+
+
+def takes(cfg: ModemConfig) -> bool:
+    """Whether the kernel takes the config's geometry: n_fft a power of two
+    in N_FFT_RANGE and bins up to n_fft/2."""
+    N = cfg.n_fft
+    return (not N & (N - 1) and N_FFT_RANGE[0] <= N <= N_FFT_RANGE[1]
+            and cfg.bin_hi <= N // 2)
 
 
 def cut_dft_plain(cfg: ModemConfig, rx: torch.Tensor, q: torch.Tensor,
@@ -119,7 +128,7 @@ def cut_dft_geometry(n_fft: int, nseg: int) -> CutDftGeometry:
     walk at most SEGMENTS_PER_TEAM segments each, or more segments where the
     block would exceed 227 KB of shared memory or 512 threads (15 named
     barriers for pairs of warps)."""
-    if n_fft & (n_fft - 1) or not 128 <= n_fft <= 4096:
+    if n_fft & (n_fft - 1) or not N_FFT_RANGE[0] <= n_fft <= N_FFT_RANGE[1]:
         raise ValueError(f"cut_dft_geometry: n_fft={n_fft} is not a power "
                          "of two in [128, 4096]")
     points, team, radices = fft_plan(n_fft)
@@ -155,7 +164,7 @@ def cut_dft(cfg: ModemConfig, rx: torch.Tensor, q: torch.Tensor,
         raise ValueError("cut_dft: needs contiguous rx (B, T) float32 and "
                          "q, roll (B,) int32")
     N = cfg.n_fft
-    if N & (N - 1) or not 128 <= N <= 4096 or cfg.bin_hi > N // 2:
+    if not takes(cfg):
         raise ValueError(f"cut_dft: the kernel takes n_fft a power of two "
                          f"in [128, 4096] and bins up to n_fft/2, not "
                          f"n_fft={N}, bin_hi={cfg.bin_hi}")

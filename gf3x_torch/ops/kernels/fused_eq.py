@@ -15,11 +15,14 @@ launches. Both return
     mabs  (B,) f32 — mean |llr|.
 
 The kernel takes one frame per block and one data symbol per warp at a
-time, as kernel A does; `fused_eq_geometry` chooses the warps per block
-and the shared memory of either for a batch, and the CPU tests reach it.
-Both read the pilot layout from a table (`layout_table`), so every layout
-runs on them: strided, offset, a spacing that does not tile the band, one
-pilot or none.
+time, as kernel A does; `fused_eq_geometry` chooses the warps per block,
+the layout and the shared memory of either for a batch, and the CPU tests
+reach it. The staged layout holds Ĥ and each warp's symbols in shared
+memory; a band whose staged layout fits no warp count (gf3-16384, U =
+7616) takes the streamed one, which reads them from global memory and
+gives the same bits. Both kernels read the pilot layout from a table
+(`layout_table`), so every layout runs on them: strided, offset, a
+spacing that does not tile the band, one pilot or none.
 """
 
 from __future__ import annotations
@@ -66,13 +69,18 @@ class FusedGeometry:
     with `warps` warps; warp w takes data symbols w, w + warps, ...
     (`passes` of them at most), each through
     `nbuf` shared-memory symbol buffers (2: the next symbol's copy overlaps
-    the current one's work); `smem` bytes of dynamic shared memory per
-    block."""
+    the current one's work; 0: the streamed layout, which stages no
+    symbol and reads every bin from global memory); `smem` bytes of dynamic
+    shared memory per block."""
 
     warps: int
     passes: int
     nbuf: int
     smem: int
+
+    @property
+    def streamed(self) -> bool:
+        return self.nbuf == 0
 
     def symbols(self, warp: int, D: int) -> range:
         """The data symbols warp `warp` of a block takes."""
@@ -88,6 +96,30 @@ def _smem_bytes(U: int, P: int, warps: int, nbuf: int,
     if demap:
         return 4 * (5 * U + warps * (2 * U * nbuf + 4 * P + 2))
     return 4 * (3 * U + P + warps * (2 * U * nbuf + 4 * P))
+
+
+# the streamed layout's one limit: a warp's pilot scratch (4P floats), the
+# pilot positions (P ints) and kernel 2's two sums in one block
+MAX_STREAMED_PILOTS = (SMEM_BLOCK // 4 - 2) // 5
+
+
+def _streamed_smem_bytes(P: int, warps: int, demap: bool = True) -> int:
+    """The streamed layout: the warps' pilot scratch (4P each) and the pilot
+    positions (P ints); kernel 2 (`demap`) adds the warps' two sums."""
+    return 4 * (P + warps * (4 * P + (2 if demap else 0)))
+
+
+def streamed_geometry(staged: FusedGeometry | None, D: int, B: int, sms: int,
+                      smem_of) -> FusedGeometry | None:
+    """The streamed launch: the staged layout's warps where that layout fits
+    (so the frame's sums keep their order and the outputs their bits), else
+    `pick_warps` on the streamed shared memory `smem_of(warps)`; None if no
+    count fits."""
+    if staged is None:
+        staged = pick_warps(D, B, sms, lambda warps, nbuf: smem_of(warps))
+        if staged is None:
+            return None
+    return FusedGeometry(staged.warps, staged.passes, 0, smem_of(staged.warps))
 
 
 def pick_warps(D: int, B: int, sms: int, smem_of) -> FusedGeometry | None:
@@ -117,16 +149,26 @@ def pick_warps(D: int, B: int, sms: int, smem_of) -> FusedGeometry | None:
 
 @functools.lru_cache(maxsize=None)
 def fused_eq_geometry(cfg: ModemConfig, B: int, sms: int = H100_SMS,
-                      demap: bool = True) -> FusedGeometry:
+                      demap: bool = True,
+                      streamed: bool = False) -> FusedGeometry:
     """Warps per block for a batch of B frames on `sms` SMs, for kernel 2
-    (`demap`) or kernel A (`pick_warps`). Raises if no count fits."""
-    U, P = cfg.n_used, cfg.n_pilots
-    best = pick_warps(cfg.n_data_symbols, B, sms,
+    (`demap`) or kernel A (`pick_warps`): the staged layout where a warp
+    count fits it, else (or with `streamed`, which only the tests and
+    chip_smoke.py pass) the streamed one (`streamed_geometry`). Raises past
+    MAX_STREAMED_PILOTS pilots, where neither fits."""
+    U, P, D = cfg.n_used, cfg.n_pilots, cfg.n_data_symbols
+    best = pick_warps(D, B, sms,
                       lambda warps, nbuf: _smem_bytes(U, P, warps, nbuf,
                                                       demap))
+    if best is None or streamed:
+        best = streamed_geometry(best, D, B, sms,
+                                 lambda warps: _streamed_smem_bytes(P, warps,
+                                                                    demap))
     if best is None:
-        raise ValueError(f"fused_eq_geometry: no warp count fits U={U}, "
-                         f"P={P} in {SMEM_BLOCK} bytes of shared memory")
+        raise ValueError(f"fused_eq_geometry: P={P} pilots exceed the "
+                         f"streamed layout's bound of {MAX_STREAMED_PILOTS} "
+                         f"(one warp's pilot scratch in {SMEM_BLOCK} bytes "
+                         "of shared memory)")
     return best
 
 
@@ -167,10 +209,13 @@ def _sm_count(index: int) -> int:
 
 def fused_eq_demap(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
                    noise_var: torch.Tensor,
-                   pilot_vals: torch.Tensor | None = None):
+                   pilot_vals: torch.Tensor | None = None, *,
+                   streamed: bool = False):
     """`fused_eq_demap_plain` for CPU tensors; the CUDA kernel otherwise
-    (any pilot layout, QPSK to 64-QAM, n_used ≤ 1024). A bit-loaded config
-    takes the split tail (`split_eq`) on either device."""
+    (any pilot layout and band, QPSK to 64-QAM), in the layout
+    `fused_eq_geometry` picks (`streamed` forces the streamed one). A
+    bit-loaded config takes the split tail (`split_eq`) on either
+    device."""
     if cfg.bit_loading is not None:
         raise ValueError("fused_eq_demap: a bit-loaded config takes the "
                          "split tail (split_eq.eq_track + demap_bins)")
@@ -185,7 +230,7 @@ def fused_eq_demap(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
                              .contiguous()))
     (mean_dk, n_ladder, q0, b0, q1, b1), _, levels, evm_div, abs_div = \
         launch_constants(cfg)
-    geo = fused_eq_geometry(cfg, B, _sm_count(dev.index))
+    geo = fused_eq_geometry(cfg, B, _sm_count(dev.index), streamed=streamed)
     # the inputs stay bound until the launch: a temporary's memory could be
     # handed to the next allocation before the kernel reads it
     y, h = Y.contiguous(), H.contiguous()

@@ -10,6 +10,10 @@ PyTorch version:
   and mean |llr| (B,). The kernel walks the wire-order slot table
   (`slot_table`) with one warp per data symbol (`demap_geometry`).
 
+Both kernels have kernel 2's two layouts (`fused_eq.FusedGeometry`): the
+staged one, and for a band whose staged layout fits no warp count the
+streamed one, which gives the same bits.
+
 The plain versions are the XLA twin's math (Modem._eq_tail,
 loaded_demap_llr / qam_demap_llr); `fused_eq_demap_plain` is the two run
 back to back. Each wrapper runs its plain version for CPU tensors and
@@ -102,14 +106,11 @@ def track_constants(cfg: ModemConfig):
 def check_track_inputs(name: str, cfg: ModemConfig, Y, H, noise_var):
     """The shape, type and device checks of the kernels that take
     Y (B, K+D, U), H (B, U) complex64 and noise_var (B,) on one CUDA
-    device, with n_used ≤ 1024 (a symbol's bins in one warp's shared
-    buffers); any pilot layout."""
+    device; any pilot layout and band."""
     dev = Y.device
     if dev.type != "cuda" or H.device != dev or noise_var.device != dev:
         raise ValueError(f"{name}: Y, H and noise_var must be on one CUDA "
                          "device")
-    if cfg.n_used > 1024:
-        raise ValueError(f"{name}: the kernel needs n_used ≤ 1024")
     B, S, U = Y.shape
     if (S != cfg.n_known_symbols + cfg.n_data_symbols or U != cfg.n_used
             or Y.dtype != torch.complex64 or H.shape != (B, U)
@@ -119,10 +120,12 @@ def check_track_inputs(name: str, cfg: ModemConfig, Y, H, noise_var):
 
 
 def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
-             noise_var: torch.Tensor, pilot_vals: torch.Tensor | None = None):
+             noise_var: torch.Tensor, pilot_vals: torch.Tensor | None = None,
+             *, streamed: bool = False):
     """`eq_track_plain` for CPU tensors; kernel A otherwise, launched with
     kernel 2's per-config constants and its layout
-    (`fused_eq.fused_eq_geometry(..., demap=False)`)."""
+    (`fused_eq.fused_eq_geometry(..., demap=False)`; `streamed` forces the
+    streamed one)."""
     if Y.device.type == "cpu":
         return eq_track_plain(cfg, Y, H, noise_var, pilot_vals)
     from .fused_eq import (_pilot_floats, _sm_count, fused_eq_geometry,
@@ -136,7 +139,8 @@ def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
           torch.view_as_real(pilot_vals.to(dev, torch.complex64)
                              .contiguous()))
     mean_dk, n_ladder, q0, b0, q1, b1 = launch_constants(cfg)[0]
-    geo = fused_eq_geometry(cfg, B, _sm_count(dev.index), demap=False)
+    geo = fused_eq_geometry(cfg, B, _sm_count(dev.index), demap=False,
+                            streamed=streamed)
     # the inputs stay bound until the launch: a temporary's memory could be
     # handed to the next allocation before the kernel reads it
     y, h = Y.contiguous(), H.contiguous()
@@ -165,33 +169,31 @@ def _levels_by_order() -> tuple[np.ndarray, int]:
     return lv, lv.ctypes.data
 
 
-SLOT_BITS_K = 10         # a slot packs its used-bin index (10 bits),
-SLOT_BITS_M = 2          # its order m (2 bits) and its wire offset above
+SLOT_BITS_M = 2          # a slot's first word: used-bin index << 2 | m
 
 
 def slot_table(used, bits, off) -> np.ndarray:
     """Kernel B's wire-order slot table from the per-data-bin tables (used-
     bin index, bits 0/2/4/6, wire offset): slot i is the i-th active bin in
-    wire order (ascending offset; group-sorted when bit-loaded), packed as
-    its used-bin index | m << 10 | its offset << 12, the offset being the
-    running sum of 2m over the slots before it. Bins with 0 bits have no
-    slot. int32 (n_active,)."""
+    wire order (ascending offset; group-sorted when bit-loaded), as two
+    int32 words — its used-bin index << 2 | its order m, then its offset,
+    the running sum of 2m over the slots before it. Bins with 0 bits have
+    no slot. int32 (n_active, 2)."""
     used, bits, off = (np.asarray(t, dtype=np.int64) for t in (used, bits,
                                                                 off))
     active = np.nonzero(bits > 0)[0]
     order = active[np.argsort(off[active], kind="stable")]
     m = bits[order] // 2
     offs = np.concatenate([[0], np.cumsum(2 * m)[:-1]]).astype(np.int64)
-    return (used[order] | (m << SLOT_BITS_K)
-            | (offs << (SLOT_BITS_K + SLOT_BITS_M))).astype(np.int32)
+    return np.stack([used[order] << SLOT_BITS_M | m, offs],
+                    axis=-1).astype(np.int32)
 
 
 def unpack_slots(slots) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(used-bin index, m, wire offset) of each slot of `slot_table`."""
     s = np.asarray(slots, dtype=np.int64)
-    return (s & ((1 << SLOT_BITS_K) - 1),
-            (s >> SLOT_BITS_K) & ((1 << SLOT_BITS_M) - 1),
-            s >> (SLOT_BITS_K + SLOT_BITS_M))
+    return (s[:, 0] >> SLOT_BITS_M, s[:, 0] & ((1 << SLOT_BITS_M) - 1),
+            s[:, 1])
 
 
 _LAUNCH: dict = {}       # (config, device) → `_demap_constants`
@@ -233,38 +235,47 @@ def _round4(n: int) -> int:
 
 
 def demap_smem_bytes(U: int, R: int, NS: int, warps: int, nbuf: int) -> int:
-    """Kernel B's shared memory: per warp, nbuf eq rows (2U floats each) and
-    its LLR row (R floats), each rounded up to 16 bytes; then the slot
-    table (NS ints), 1/max(|Ĥ|², 1e-12) per slot (NS) and the PAM levels
-    (16 floats)."""
-    return 4 * (warps * (nbuf * _round4(2 * U) + _round4(R)) + 2 * NS + 16)
+    """Kernel B's shared memory, staged: per warp, nbuf eq rows (2U floats
+    each) and its LLR row (R floats), each rounded up to 16 bytes; then the
+    slot table (NS int2), 1/max(|Ĥ|², 1e-12) per slot (NS) and the PAM
+    levels (16 floats). Streamed (nbuf = 0): the levels alone."""
+    if nbuf == 0:
+        return 4 * 16
+    return 4 * (warps * (nbuf * _round4(2 * U) + _round4(R)) + 3 * NS + 16)
 
 
 @functools.lru_cache(maxsize=None)
-def demap_geometry(cfg: ModemConfig, B: int, sms: int = 132):
+def demap_geometry(cfg: ModemConfig, B: int, sms: int = 132,
+                   streamed: bool = False):
     """Kernel B's launch for a batch of B frames on `sms` SMs: one block per
     frame, warp w taking data symbols w, w + warps, ...
-    (`fused_eq.pick_warps` on `demap_smem_bytes`)."""
-    from .fused_eq import pick_warps
+    (`fused_eq.pick_warps` on `demap_smem_bytes`), staged where a warp
+    count fits, else (or with `streamed`, which only the tests and
+    chip_smoke.py pass) streamed (`fused_eq.streamed_geometry`)."""
+    from .fused_eq import pick_warps, streamed_geometry
 
     U, R, NS = cfg.n_used, cfg.bits_per_ofdm_symbol, cfg.n_active_bins
-    geo = pick_warps(cfg.n_data_symbols, B, sms,
+    D = cfg.n_data_symbols
+    geo = pick_warps(D, B, sms,
                      lambda warps, nbuf: demap_smem_bytes(U, R, NS, warps,
                                                           nbuf))
-    if geo is None:
-        raise ValueError(f"demap_geometry: no warp count fits U={U}, R={R}")
+    if geo is None or streamed:
+        geo = streamed_geometry(geo, D, B, sms,
+                                lambda warps: demap_smem_bytes(U, R, NS,
+                                                               warps, 0))
     return geo
 
 
 def demap_bins(cfg: ModemConfig, eq: torch.Tensor, H: torch.Tensor,
-               nv_sym: torch.Tensor, tables):
+               nv_sym: torch.Tensor, tables, *, streamed: bool = False):
     """`demap_bins_plain` for CPU tensors; kernel B otherwise. `tables` is
     (used-bin index, bits, wire offset) per data bin, int32 —
     `models.frame.demap_bin_tables(cfg)`, which a Modem keeps as buffers;
     the kernel takes their wire-order slot table (`slot_table`, derived
-    once per config and device by `_demap_constants`). The plain version
-    derives the same layout from the config itself, so the two agree only
-    if the tables are right."""
+    once per config and device by `_demap_constants`), in the layout
+    `demap_geometry` picks (`streamed` forces the streamed one). The plain
+    version derives the same layout from the config itself, so the two
+    agree only if the tables are right."""
     if eq.device.type == "cpu":
         return demap_bins_plain(cfg, eq, H, nv_sym)
     from .fused_eq import _sm_count
@@ -276,14 +287,12 @@ def demap_bins(cfg: ModemConfig, eq: torch.Tensor, H: torch.Tensor,
     B, D, U = eq.shape
     if (D != cfg.n_data_symbols or U != cfg.n_used
             or eq.dtype != torch.complex64 or H.shape != (B, U)
-            or H.dtype != torch.complex64 or nv_sym.shape != (B, D)
-            or U > 1 << SLOT_BITS_K):
+            or H.dtype != torch.complex64 or nv_sym.shape != (B, D)):
         raise ValueError("demap_bins: needs eq (B, D, n_used) and H "
-                         "(B, n_used) complex64, nv_sym (B, D), "
-                         "n_used ≤ 1024")
+                         "(B, n_used) complex64, nv_sym (B, D)")
     slots, inv_g, inv_g2, R, evm_div, abs_div = _demap_constants(cfg, tables,
                                                                  dev)
-    geo = demap_geometry(cfg, B, _sm_count(dev.index))
+    geo = demap_geometry(cfg, B, _sm_count(dev.index), streamed=streamed)
     # the inputs stay bound until the launch: a temporary's memory could be
     # handed to the next allocation before the kernel reads it
     e = torch.view_as_real(eq.contiguous())
@@ -293,7 +302,7 @@ def demap_bins(cfg: ModemConfig, eq: torch.Tensor, H: torch.Tensor,
     evm_p, abs_p = torch.empty(2, B, D, device=dev)
     launch("gf3x_demap_bins", dev.index, e.data_ptr(), h.data_ptr(),
            nv.data_ptr(), slots.data_ptr(), llr.data_ptr(), evm_p.data_ptr(),
-           abs_p.data_ptr(), B, D, U, slots.numel(), R, inv_g, inv_g2,
+           abs_p.data_ptr(), B, D, U, slots.shape[0], R, inv_g, inv_g2,
            _levels_by_order()[1], geo.warps, geo.nbuf, geo.smem)
     demap_bins.launches += 1
     return llr, evm_p.sum(dim=1) / evm_div, abs_p.sum(dim=1) / abs_div

@@ -178,7 +178,9 @@ def test_binding_matches_every_entry_and_wrapper():
 
 
 CONFIGS = {"config5": GF3_STANDARD, "gf3-fast": GF3_FAST,
-           "gf3-turbo": GF3_TURBO, "gf3-longcp": LONGCP, "n_used-1024": WIDE}
+           "gf3-turbo": GF3_TURBO, "gf3-longcp": LONGCP, "n_used-1024": WIDE,
+           **{name: GF3_STANDARD.replace(**kw)
+              for name, kw in chip_smoke.WIDE_BANDS.items()}}
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -187,7 +189,8 @@ def test_fused_eq_geometry_covers_every_symbol_once(name):
     per frame, warp w taking data symbols w, w + W, ...), each cover every
     (frame, data symbol) exactly once, give every warp a symbol, and keep a
     block within 227 KB of shared memory, at the batches the port runs
-    (one recording, odd batches, 1024)."""
+    (one recording, odd batches, 1024), staged or — where that fits no
+    warp count (gf3-16384) — streamed."""
     cfg = CONFIGS[name]
     D, U, P = cfg.n_data_symbols, cfg.n_used, cfg.n_pilots
     assert name != "n_used-1024" or U == 1024
@@ -200,16 +203,26 @@ def test_fused_eq_geometry_covers_every_symbol_once(name):
             assert len(seen) == B * D and set(seen.values()) == {1}
             assert all(1 <= len(s) <= geo.passes for s in per_warp)
             assert 1 <= geo.warps <= 32
-            assert geo.nbuf == (2 if geo.passes > 1 else 1)
+            assert geo.streamed == (name == "gf3-16384")
             # the kernels' layouts, in floats: Ĥ, the symbol buffers, |Ĥ|²
             # and the pilot scratch; kernel 2 adds 1/max(|Ĥ|², 1e-12), the
             # warps' sums and the layout table (U ints), kernel A the pilot
-            # positions (P ints) (fused_eq.cu, split_eq.cu)
-            floats = (2 * U + 2 * U * geo.warps * geo.nbuf + U
-                      + 4 * P * geo.warps)
-            floats += U + 2 * geo.warps + U if demap else P
+            # positions (P ints) (fused_eq.cu, split_eq.cu); streamed, the
+            # pilot scratch, kernel 2's sums and the pilot positions alone
+            if geo.streamed:
+                assert geo.nbuf == 0
+                floats = 4 * P * geo.warps + (2 * geo.warps if demap else 0)
+                floats += P
+            else:
+                assert geo.nbuf == (2 if geo.passes > 1 else 1)
+                floats = (2 * U + 2 * U * geo.warps * geo.nbuf + U
+                          + 4 * P * geo.warps)
+                floats += U + 2 * geo.warps + U if demap else P
             assert geo.smem == 4 * floats <= 232_448
-        assert fused_eq.fused_eq_geometry(cfg, 1, demap=demap).passes == 1
+        # one recording: a symbol per warp, where a narrow band lets the
+        # block hold D warps
+        if name not in chip_smoke.WIDE_BANDS:
+            assert fused_eq.fused_eq_geometry(cfg, 1, demap=demap).passes == 1
     # without the demap's rows a block of kernel A needs less
     geoA = fused_eq.fused_eq_geometry(cfg, 1024, demap=False)
     assert geoA.smem < fused_eq._smem_bytes(U, P, geoA.warps, geoA.nbuf)
@@ -225,8 +238,10 @@ def test_demap_geometry_covers_every_symbol_once(name):
     """Kernel B's launch (kernel 2's layout over the wire-order slots):
     every (frame, data symbol) once, every warp a symbol, and a block's
     shared memory — per warp its eq rows and LLR row, each rounded up to
-    16 bytes, then the slot table, a float per slot and the levels
-    (split_eq.cu) — within 227 KB, at the batches the port runs."""
+    16 bytes, then the slot table (two words a slot), a float per slot and
+    the levels (split_eq.cu) — within 227 KB, at the batches the port runs;
+    streamed (gf3-16384, whose 64-QAM row fits no warp count), the levels
+    alone."""
     cfg = LOADED if name == "bit-loaded" else CONFIGS[name]
     D, U = cfg.n_data_symbols, cfg.n_used
     R, NS = cfg.bits_per_ofdm_symbol, cfg.n_active_bins
@@ -236,9 +251,13 @@ def test_demap_geometry_covers_every_symbol_once(name):
                        for d in geo.symbols(w, D))
         assert len(seen) == B * D and set(seen.values()) == {1}
         assert all(geo.symbols(w, D) for w in range(geo.warps))
+        assert geo.streamed == (name == "gf3-16384")
+        if geo.streamed:
+            assert geo.nbuf == 0 and geo.smem == 4 * 16
+            continue
         assert geo.nbuf == (2 if geo.passes > 1 else 1)
         per_warp = (geo.nbuf * -(-2 * U // 4) * 4) + -(-R // 4) * 4
-        assert geo.smem == 4 * (geo.warps * per_warp + 2 * NS + 16)
+        assert geo.smem == 4 * (geo.warps * per_warp + 3 * NS + 16)
         assert geo.smem <= 232_448
 
 

@@ -325,7 +325,7 @@ def test_slot_table_is_the_wire_order(name):
     slots = split_eq.slot_table(used, bits, off)
     k, m, offs = split_eq.unpack_slots(slots)
     active = np.nonzero(bits)[0]
-    assert slots.dtype == np.int32 and slots.size == cfg.n_active_bins
+    assert slots.dtype == np.int32 and slots.shape == (cfg.n_active_bins, 2)
     assert sorted(k.tolist()) == sorted(used[active].tolist())
     for order in np.unique(m):
         at = np.nonzero(m == order)[0]
@@ -371,7 +371,8 @@ def test_demap_constants_refuse_tables_off_the_config():
     cpu = torch.device("cpu")
     slots, inv_g, inv_g2, R, _, _ = split_eq._demap_constants(
         cfg, (used, bits, off), cpu)
-    assert R == cfg.bits_per_ofdm_symbol and slots.numel() == cfg.n_active_bins
+    assert R == cfg.bits_per_ofdm_symbol
+    assert slots.shape == (cfg.n_active_bins, 2)
     assert inv_g == np.float32(1.0 / tframe.loading_tables(cfg).gain)
     split_eq._LAUNCH.clear()
     wide, heavy = used.copy(), bits.copy()

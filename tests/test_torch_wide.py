@@ -1,0 +1,282 @@
+"""The wide bands — GF3's band (1.03-13.1 kHz) with the symbol lengthened
+for long reverb, CP = N/4, as `chip_smoke.WIDE_BANDS` defines them:
+gf3-4096 (U = 1120), gf3-8192 (U = 2240, 64-QAM) and gf3-16384 (U = 7616,
+pilot spacing 4, 64-QAM) — on the port against gf3x on the CPU, cut to
+D = 4 data symbols and B = 8 rows (whole 8-row groups: the batched cut).
+
+Tolerances (tests/test_torch_long_cp.py's): payload bits exact and CRC ok;
+sync_start within the decimation step (2); H, noise_var, isi_var ≤ 1e-3
+rel; slope/cpe ≤ 1e-4 rad; evm, mean|LLR| and sc_metric ≤ 1e-3 rel;
+fec_unsat exact; the LLR histograms' totals exact and their bins within 4
+counts. The tail's plain versions (kernels 2, A and B) against gf3x's XLA
+tail: hard decisions exact, LLRs ≤ 2e-4·mean|LLR|, slope/cpe ≤ 1e-4 rad,
+the rest ≤ 1e-4 rel (tests/test_torch_pilots.py's).
+
+The CUDA kernels run only on the card: `chip_smoke.py`'s "wide" phase
+holds them, in both layouts, against these plain versions there. Here:
+their launch geometry (staged where a warp count fits, else streamed),
+kernel B's slot table past 2¹⁴ bins, and kernel 8's route."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from gf3x import GF3_STANDARD as J_STANDARD
+from gf3x import Modem as JModem
+
+import chip_smoke
+from gf3x_torch import GF3_STANDARD, Modem
+from gf3x_torch.models import frame as tframe
+from gf3x_torch.ops.kernels import cut_dft, fused_eq, gather_cut, split_eq
+
+from test_torch_long_cp import build_batch, counting
+from test_torch_pilots import tail_inputs
+
+WIDE = {name: GF3_STANDARD.replace(**kw)
+        for name, kw in chip_smoke.WIDE_BANDS.items()}
+MARGIN = 4096
+# the same bands with a CP whose cut gf3x's fused kernels take (every
+# offset on the 128 grid): kernel 8's route turns on n_fft alone there
+ALIGNED = {"gf3-4096": dict(chip_smoke.WIDE_BANDS["gf3-4096"], cp=768),
+           "gf3-8192": dict(chip_smoke.WIDE_BANDS["gf3-8192"], cp=1792)}
+
+
+def loaded(cfg):
+    """The band bit-loaded with chip_smoke's table over its data bins."""
+    return cfg.replace(bit_loading=chip_smoke.loading_table(cfg.n_data_bins))
+
+
+@pytest.fixture(scope="module", params=["gf3-4096", "gf3-8192"])
+def batch(request):
+    """B = 8 recordings of one band at D = 4, decoded once by gf3x (bounded
+    sync, `_decode_jit`)."""
+    kw = dict(chip_smoke.WIDE_BANDS[request.param], n_data_symbols=4)
+    jm = JModem(J_STANDARD.replace(**kw), max_delay=MARGIN + kw["cp"])
+    rx, payload = build_batch(jm, 8, np.random.default_rng(0))
+    bits, diag = jm._decode_jit(jnp.asarray(rx))
+    cfg = GF3_STANDARD.replace(**kw)
+    return cfg, rx, payload, np.asarray(bits), jax.device_get(diag)
+
+
+def test_wide_demodulate_matches_gf3x(batch, monkeypatch):
+    """`demodulate` of the band on B = 8: the cut is kernel 6's (gf3x's
+    fused cut refuses the SC window offset, cp + cp/4 + 64, off the 128
+    grid), and bits and diagnostics equal gf3x's within the stated
+    tolerances."""
+    cfg, rx, payload, j_bits, jd = batch
+    tm = Modem(cfg, max_delay=MARGIN + cfg.cp, device="cpu")
+    assert tm._fused_cut_refuses(rx.shape[-1])
+    called = counting(monkeypatch, gather_cut,
+                      ("gather_cut", "gather_cut_group", "cut_symbols"))
+    bits, d = tm.demodulate(torch.as_tensor(rx))
+    assert called == ["gather_cut_group"]
+    assert np.array_equal(bits.numpy(), j_bits)
+    for b in bits.numpy():
+        res = tm._result(b, None)
+        assert res.crc_ok and res.payload == payload
+    assert np.max(np.abs(d.sync_start.numpy()
+                         - np.asarray(jd.sync_start))) <= 2
+
+    def rel(a, b):
+        return np.max(np.abs(a - b)) / np.max(np.abs(b))
+
+    Hj = np.asarray(jd.H)[..., 0] + 1j * np.asarray(jd.H)[..., 1]
+    assert rel(d.H.numpy(), Hj) <= 1e-3
+    assert rel(d.noise_var.numpy(), np.asarray(jd.noise_var)) <= 1e-3
+    assert rel(d.isi_var.numpy(), np.asarray(jd.isi_var)) <= 1e-3
+    assert np.max(np.abs(d.pilot_slope.numpy()
+                         - np.asarray(jd.pilot_slope))) <= 1e-4
+    assert np.max(np.abs(d.common_phase.numpy()
+                         - np.asarray(jd.common_phase))) <= 1e-4
+    for name in ("evm", "mean_abs_llr", "sc_metric"):
+        assert np.allclose(getattr(d, name).numpy(),
+                           np.asarray(getattr(jd, name)), rtol=1e-3), name
+    assert np.array_equal(d.fec_unsat.numpy(), np.asarray(jd.fec_unsat))
+    assert not d.fec_unsat.numpy().any()
+    assert np.array_equal(d.llr_hist.numpy().sum(-1),
+                          np.asarray(jd.llr_hist).sum(-1))
+    assert np.abs(d.llr_hist.numpy() - np.asarray(jd.llr_hist)).sum() <= 4
+
+
+def test_wide_use_cut_dft_takes_the_two_stage_cut(batch, monkeypatch):
+    """With `use_cut_dft=True` the band's plain decode yields to the
+    two-stage cut, as gf3x's `cut_dft_spectra` does: kernel 6 cuts, kernel
+    8 never runs, and the bits equal gf3x's."""
+    cfg, rx, _, j_bits, _ = batch
+    tm = Modem(cfg, max_delay=MARGIN + cfg.cp, device="cpu",
+               use_cut_dft=True)
+    assert not tm._takes_cut_dft(rx.shape[-1])
+    called = counting(monkeypatch, gather_cut, ("gather_cut_group",))
+    dft = counting(monkeypatch, cut_dft, ("cut_dft",))
+    bits, _ = tm.demodulate(torch.as_tensor(rx))
+    assert called == ["gather_cut_group"] and dft == []
+    assert np.array_equal(bits.numpy(), j_bits)
+
+
+@pytest.mark.parametrize("name", sorted(ALIGNED))
+def test_use_cut_dft_route_turns_on_kernel_8s_n_fft(name, monkeypatch):
+    """On a cut gf3x's fused kernels take, `use_cut_dft` takes kernel 8 at
+    n_fft = 4096 and declines it at 8192 (kernel 8's FFT takes n_fft up to
+    4096; gf3x's declines by its VMEM budget): there the cut is kernel 1's
+    and `cut_dft.cut_dft` is never called. Either way the bits equal the
+    two-stage decode's, with every row CRC-ok."""
+    cfg = GF3_STANDARD.replace(n_data_symbols=4, **ALIGNED[name])
+    rx, payload = build_batch(Modem(cfg, device="cpu"), 8,
+                              np.random.default_rng(1))
+    T = rx.shape[-1]
+    tm = Modem(cfg, max_delay=MARGIN + cfg.cp, device="cpu",
+               use_cut_dft=True)
+    assert not tm._fused_cut_refuses(T)
+    takes = cfg.n_fft <= 4096
+    assert tm._takes_cut_dft(T) == takes == cut_dft.takes(cfg)
+    cut = counting(monkeypatch, gather_cut, ("cut_symbols",
+                                             "gather_cut_group"))
+    dft = counting(monkeypatch, cut_dft, ("cut_dft",))
+    bits, _ = tm.demodulate(torch.as_tensor(rx))
+    assert dft == (["cut_dft"] if takes else [])
+    assert cut == ([] if takes else ["cut_symbols"])
+    two_stage, _ = Modem(cfg, max_delay=MARGIN + cfg.cp,
+                         device="cpu").demodulate(torch.as_tensor(rx))
+    assert torch.equal(bits, two_stage)
+    for b in bits.numpy():
+        res = tm._result(b, None)
+        assert res.crc_ok and res.payload == payload
+
+
+# gf3-16384's tail is held on the card only: a Modem at U = 7616 builds
+# its U × U float64 host tables (the ISI operator's solve) for ~50 s here
+TAILS = {"gf3-4096": WIDE["gf3-4096"], "gf3-8192": WIDE["gf3-8192"],
+         "gf3-8192 loaded": loaded(WIDE["gf3-8192"])}
+
+
+@pytest.mark.parametrize("name", list(TAILS))
+def test_wide_tail_plain_versions_match_gf3x_xla(name):
+    """Kernels 2, A and B's plain versions at U = 1120 and 2240 against gf3x's XLA tail (`_eq_tail`, then `_xla_demap`) on the same
+    spectra: hard decisions exact, LLRs ≤ 2e-4·mean|LLR|, slope and cpe
+    ≤ 1e-4 rad, evm, mean|llr| and the effective noise ≤ 1e-4 rel. A
+    uniform band runs both tails (kernel 2's and A + B; `streamed` only
+    picks the card's layout, so the plain versions ignore it), a loaded one
+    the split."""
+    cfg = TAILS[name].replace(n_data_symbols=4, fec="none")
+    jcfg = J_STANDARD.replace(**{k: getattr(cfg, k) for k in (
+        "n_fft", "cp", "bin_lo", "bin_hi", "pilot_spacing", "bits_per_symbol",
+        "bit_loading", "n_data_symbols", "fec")})
+    Y, H, nv = tail_inputs(cfg, jcfg, B=2)
+    jm = JModem(jcfg)
+    data_r, nveff_r, (slope_r, cpe_r) = jax.tree.map(
+        np.asarray, jm._eq_tail(jnp.asarray(Y), jnp.asarray(H),
+                                jnp.asarray(nv)))
+    llr_r, evm_r, mabs_r, _ = (np.asarray(x) for x in jm._xla_demap(
+        jnp.asarray(data_r), jnp.asarray(nveff_r), (Y.shape[0],)))
+    Yt, Ht, nvt = (torch.as_tensor(x.copy()) for x in (Y, H, nv))
+
+    eq, slope, cpe, nv_sym = split_eq.eq_track(cfg, Yt, Ht, nvt,
+                                               streamed=True)
+    _, data = tframe.split_pilots(cfg, eq)
+    _, inv_csi = tframe.split_pilots(cfg, 1.0 / torch.clamp(Ht.abs() ** 2,
+                                                            min=1e-12))
+    nveff = (nv_sym[..., None] * inv_csi[:, None, :]).numpy()
+    assert np.max(np.abs(data.numpy() - data_r)) \
+        <= 1e-4 * np.mean(np.abs(data_r))
+    assert np.max(np.abs(nveff - nveff_r)) <= 1e-4 * np.mean(np.abs(nveff_r))
+    tables = tuple(torch.as_tensor(t) for t in tframe.demap_bin_tables(cfg))
+    llr, evm, mabs = split_eq.demap_bins(cfg, eq, Ht, nv_sym, tables,
+                                         streamed=True)
+    tails = [(llr, slope, cpe, evm, mabs)]
+    if cfg.bit_loading is None:
+        tails.append(fused_eq.fused_eq_demap(cfg, Yt, Ht, nvt,
+                                             streamed=True))
+    for llr, sl, cp, evm, mabs in tails:
+        llr = llr.numpy()
+        assert llr.shape == llr_r.shape
+        assert np.array_equal(llr < 0, llr_r < 0)
+        assert np.max(np.abs(llr - llr_r)) <= 2e-4 * np.mean(np.abs(llr_r))
+        assert np.max(np.abs(sl.numpy() - slope_r)) <= 1e-4
+        assert np.max(np.abs(cp.numpy() - cpe_r)) <= 1e-4
+        assert np.allclose(evm.numpy(), evm_r, rtol=1e-4)
+        assert np.allclose(mabs.numpy(), mabs_r, rtol=1e-4)
+
+
+def synthetic_tables(n_bins: int, seed: int = 3):
+    """Per-data-bin tables (used-bin index, bits, wire offset) of n_bins
+    data bins at used bins 0..n_bins−1, loaded 0/2/4/6 at random and
+    group-sorted on the wire as `demap_bin_tables` orders them."""
+    rng = np.random.default_rng(seed)
+    bits = rng.choice([0, 2, 4, 6], size=n_bins)
+    bits[-1] = 6
+    order = np.lexsort((np.arange(n_bins), bits))
+    off = np.zeros(n_bins, dtype=np.int64)
+    off[order] = np.concatenate([[0], np.cumsum(bits[order])[:-1]])
+    return np.arange(n_bins), bits, off
+
+
+SLOTS = {"U = 16383": synthetic_tables(16383),
+         "gf3-16384 loaded": tframe.demap_bin_tables(
+             loaded(WIDE["gf3-16384"])),
+         "gf3-16384": tframe.demap_bin_tables(WIDE["gf3-16384"])}
+
+
+@pytest.mark.parametrize("name", list(SLOTS))
+def test_slot_table_round_trips_wide_bins(name):
+    """Kernel B's two-word slots give back every active bin's used-bin
+    index, order and wire offset (the per-bin `off` table) past the old
+    10-bit bin field and 2¹⁴ wire offsets: used bins up to 16 382, offsets
+    up to ~6·U."""
+    used, bits, off = (np.asarray(t) for t in SLOTS[name])
+    slots = split_eq.slot_table(used, bits, off)
+    k, m, offs = split_eq.unpack_slots(slots)
+    active = np.nonzero(bits)[0]
+    assert slots.dtype == np.int32 and slots.shape == (active.size, 2)
+    by_bin = {int(u): j for j, u in enumerate(used)}
+    j = np.array([by_bin[int(u)] for u in k])
+    assert sorted(j.tolist()) == sorted(active.tolist())
+    assert np.array_equal(2 * m, bits[j]) and np.array_equal(offs, off[j])
+    assert np.all(np.diff(offs) == 2 * m[:-1]) and np.all(np.diff(m) >= 0)
+    assert offs.max() >= 1 << 14 and k.max() >= 1 << 10
+    if name.startswith("U = "):
+        assert k.max() == 16382
+
+
+@pytest.mark.parametrize("name", list(WIDE))
+def test_wide_geometry_picks_its_layout(name):
+    """Kernels 2 and A (`fused_eq_geometry`, both `demap` values) and kernel
+    B (`demap_geometry`, uniform and loaded) take the staged layout at
+    gf3-4096 and gf3-8192 and the streamed one at gf3-16384, whose staged
+    layout fits no warp count; the forced streamed layout keeps the staged
+    warps (so the frame sums keep their order) and no symbol buffers."""
+    cfg = WIDE[name]
+    B = 64 if name == "gf3-16384" else 1024
+    streamed = name == "gf3-16384"
+    geos = [fused_eq.fused_eq_geometry(cfg, B, demap=d) for d in (True, False)]
+    forced = [fused_eq.fused_eq_geometry(cfg, B, demap=d, streamed=True)
+              for d in (True, False)]
+    for c in (cfg, loaded(cfg)):
+        geos.append(split_eq.demap_geometry(c, B))
+        forced.append(split_eq.demap_geometry(c, B, streamed=True))
+    for geo, f in zip(geos, forced):
+        assert geo.streamed == streamed and f.streamed
+        assert f.nbuf == 0 and (f.warps, f.passes) == (geo.warps, geo.passes)
+        assert f.smem <= geo.smem <= fused_eq.SMEM_BLOCK
+    if streamed:
+        assert geos[0] == forced[0] and geos[2].smem == 4 * 16
+
+
+def test_streamed_layout_refuses_past_the_pilot_scratch_bound():
+    """The streamed layout's one limit is one warp's pilot scratch and the
+    pilot positions (5P words) in a block: a band with more pilots than
+    MAX_STREAMED_PILOTS (n_fft = 65536 at spacing 2) is refused with a
+    ValueError naming that bound; at spacing 3 it fits one warp."""
+    bound = fused_eq.MAX_STREAMED_PILOTS
+    assert 4 * (5 * bound + 2) <= fused_eq.SMEM_BLOCK \
+        < 4 * (5 * (bound + 1) + 2)
+    band = dict(n_fft=65536, cp=16384, bin_lo=1536, bin_hi=31999)
+    over = GF3_STANDARD.replace(pilot_spacing=2, **band)
+    under = GF3_STANDARD.replace(pilot_spacing=3, **band)
+    assert under.n_pilots <= bound < over.n_pilots
+    for demap in (True, False):
+        with pytest.raises(ValueError, match=f"bound of {bound}"):
+            fused_eq.fused_eq_geometry(over, 8, demap=demap)
+        geo = fused_eq.fused_eq_geometry(under, 8, demap=demap)
+        assert geo.streamed and geo.smem <= fused_eq.SMEM_BLOCK
