@@ -59,6 +59,25 @@ drives the receive paths once each through the port's entry points:
   bit against A + B; `use_cut_dft` on each band and on an aligned CP
   (kernel 8 at n_fft 4096 only) and `Modem.decode` of one gf3-4096
   recording (kernels 7, 2, 3);
+  and, on each uniform band, its other routes: `demodulate_sfo` and
+  `demodulate_sc` with the clock-offset loop on the batch recipe at +150
+  ppm, `demodulate_dd` on the band's batch, `decode(dd='on')` and
+  `decode(sync='sc', sfo='on')` of one recording, the warped DFT held to
+  its float32 formula evaluated on the host (its error against float64
+  printed), and each band's `Modem(cfg)` construction timed;
+- kernels 2 and A past the streamed layout's pilot bound (the spilled
+  layout, pilot scratch in global memory): forced at config 5 against the
+  staged layout's sha256, and at a synthetic n_fft = 65536 band of 15 616
+  pilots (inputs built in the frequency domain, B = 4) against their plain
+  versions;
+- kernel 3 above z = 512 ("lifts"): bit for bit against its plain version
+  at z = 520, 600, 768, 1024, 2048, 2400 and 9000 (every layout of both
+  passes), and gf3-4096 at z = 768 (B = 1024) and gf3-16384 at z = 1024
+  (B = 64) through `Modem.demodulate`, every row CRC-ok;
+- the three evaluation reports ("reports": `gf3x_torch.bench.stress`,
+  `perf_report`, `adapt_report`) through their command lines at 2 trials,
+  each writing only its --out file, with the tools' tables and gf3
+  closing at its top SNR;
 - multi-GPU ("mesh", `gf3x_torch.parallel`): `sharded_decode` on the
   one-card mesh and on a two-shard mesh of this card against
   `Modem.demodulate`, and `sharded_pipeline_step` at 25 dB;
@@ -89,9 +108,10 @@ Two other modes time kernels 2, 3, A, B and 8 alone (`time_tree`):
 TREE, and `python3 chip_smoke.py --against TREE` TREE's and this
 checkout's in turns on one card, each in its own process (for a before
 and after on one machine: unpack the parent commit into TREE); the outputs
-of kernels 2 (config 5 and gf3-turbo), A and B (bit-loaded) must hash the
-same in every run, and each kernel's profiler µs of this tree over TREE's
-is printed.
+of kernels 2 (config 5 and gf3-turbo), 3 (0 sweeps, σ = 0.8, mixed), A
+and B (bit-loaded) must hash the same in every run, and each kernel's
+profiler µs of this tree over TREE's is printed, with each tree's ptxas
+report.
 
 A fourth, `python3 chip_smoke.py --mesh`, runs the mesh phase alone
 across every card of the machine (the one-card mesh against all cards).
@@ -593,18 +613,22 @@ def in_turns(fns: dict, blocks: int = 8, runs: int = 10):
     return {n: float(np.median(v)) for n, v in meds.items()}, meds
 
 
-def run_path(modem, rx, payload, delays, counters, label, entry=None):
-    """Drive one entry point (default `modem.demodulate`) once with every
-    launch counter at 0 and check it: every row CRC-ok with the planted
-    payload, every codeword satisfied, finite diagnostics, sync within
-    cp/4, and the first 4 rows decoded the same on the CPU (plain
-    versions). Returns (launch counts, bits, diag, sync error)."""
+def run_path(modem, rx, payload, delays, counters, label, entry=None,
+             entry_kw=None, sync_tol=None):
+    """Drive one entry point (default `modem.demodulate`, with `entry_kw`)
+    once with every launch counter at 0 and check it: every row CRC-ok with
+    the planted payload, every codeword satisfied, finite diagnostics, sync
+    within `sync_tol` (default cp/4), and the first 4 rows decoded the same
+    on the CPU (plain versions). Returns (launch counts, bits, diag, sync
+    error)."""
     from gf3x_torch import Modem
 
     cfg = modem.cfg
     entry = entry or "demodulate"
+    entry_kw = entry_kw or {}
+    sync_tol = cfg.cp // 4 if sync_tol is None else sync_tol
     (bits, diag), launches = launch_counts(
-        counters, lambda: getattr(modem, entry)(rx))
+        counters, lambda: getattr(modem, entry)(rx, **entry_kw))
     bits_np = bits.cpu().numpy()
     check(bits_np.shape == (rx.shape[0], cfg.payload_bits_per_frame),
           f"{label}: bits shape")
@@ -612,19 +636,22 @@ def run_path(modem, rx, payload, delays, counters, label, entry=None):
         res = modem._result(bits_np[i], None)
         check(res.crc_ok and res.payload == payload,
               f"{label}: row {i} did not decode to the planted payload")
+    # SC timing has no chirp metric: its sync_metric is NaN, as gf3x's
     for name in ("sync_metric", "sc_metric", "H", "noise_var", "pilot_slope",
                  "common_phase", "evm", "mean_abs_llr", "clock_ppm",
                  "isi_var", "isi_db"):
+        if name == "sync_metric" and entry == "demodulate_sc":
+            continue
         check(bool(torch.isfinite(getattr(diag, name)).all()),
               f"{label}: diag.{name} is not finite")
     check(int(diag.fec_unsat.sum()) == 0, f"{label}: codewords left "
           "unsatisfied")
     sync_err = int((diag.sync_start.cpu() - torch.as_tensor(delays)).abs()
                    .max())
-    check(sync_err <= cfg.cp // 4, f"{label}: sync off by {sync_err} samples")
+    check(sync_err <= sync_tol, f"{label}: sync off by {sync_err} samples")
     cpu = Modem(cfg, max_delay=MARGIN + cfg.cp, device="cpu",
                 use_cut_dft=modem.use_cut_dft)
-    bits_cpu, _ = getattr(cpu, entry)(rx[:4].cpu())
+    bits_cpu, _ = getattr(cpu, entry)(rx[:4].cpu(), **entry_kw)
     check(torch.equal(bits_cpu, bits[:4].cpu()),
           f"{label}: card and CPU decodes of the first rows differ")
     return launches, bits, diag, sync_err
@@ -1411,6 +1438,268 @@ WIDE_CASES = (("gf3-4096", "gf3-4096", False, 1024),
 WIDE_ALIGNED_CP = {"gf3-4096": 768, "gf3-8192": 1792}
 
 
+# kernels 2 and A past the streamed layout's pilot bound (11 621 pilots):
+# the GF3 band widened to n_fft 65536 at pilot spacing 2 (U = 31 232, P =
+# 15 616), a band no Modem reaches (its U x U host solves would need 7.8 GB
+# a matrix), held at B = 4 on inputs built in the frequency domain
+SPILL_BAND = dict(n_fft=65536, cp=16384, bin_lo=1536, bin_hi=32767,
+                  pilot_spacing=2)
+SPILL_B = 4
+
+
+def spill_inputs(cfg, Bk: int, dev, seed: int = 11):
+    """Spectra of Bk frames of `cfg` built directly (no Modem): every
+    symbol's data bins random Gray QAM and its pilots the layout's values,
+    through a random channel Ĥ with a per-symbol phase ramp (0.2 mrad a bin
+    and a random common phase, which the pilot fit tracks) and AWGN of
+    variance 1e-3. Returns (Y (Bk, K+D, U), Ĥ (Bk, U) complex64, the noise
+    variance (Bk,))."""
+    from gf3x_torch.config import layout
+    from gf3x_torch.ops.constellation import qam_map
+
+    lay = layout(cfg)
+    S, U = cfg.n_known_symbols + cfg.n_data_symbols, cfg.n_used
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bits = torch.randint(0, 2, (Bk, S, lay.data_pos.size,
+                                cfg.bits_per_symbol), generator=g,
+                         device=dev, dtype=torch.uint8)
+    X = torch.zeros(Bk, S, U, dtype=torch.complex64, device=dev)
+    X[..., torch.as_tensor(lay.data_pos, device=dev).long()] = qam_map(
+        bits, cfg.bits_per_symbol)
+    X[..., torch.as_tensor(lay.pilot_pos, device=dev).long()] = \
+        torch.as_tensor(lay.pilot_vals, device=dev)
+    H = torch.complex(1.0 + 0.3 * torch.randn(Bk, U, generator=g, device=dev),
+                      0.3 * torch.randn(Bk, U, generator=g, device=dev))
+    k = torch.arange(U, device=dev, dtype=torch.float32)
+    cpe = 0.3 * torch.randn(Bk, S, 1, generator=g, device=dev)
+    rot = torch.polar(torch.ones_like(cpe * k), 2e-4 * k + cpe)
+    nvar = 1e-3
+    noise = torch.complex(torch.randn(Bk, S, U, generator=g, device=dev),
+                          torch.randn(Bk, S, U, generator=g, device=dev))
+    Y = H[:, None] * X * rot + noise * float(np.sqrt(nvar / 2))
+    return (Y.to(torch.complex64).contiguous(), H.contiguous(),
+            torch.full((Bk,), nvar, device=dev))
+
+
+def hold_spilled(label, fn) -> list:
+    """fn(spilled) in the layout its geometry picks and with the spill
+    forced: every output's sha256 equal. Returns the sha256s."""
+    sha = [sha256_of(t) for t in fn(False)]
+    check([sha256_of(t) for t in fn(True)] == sha, f"{label}: the spilled "
+          "layout's outputs differ from the picked one's")
+    return sha
+
+
+def run_spill(dev, rows) -> dict:
+    """Kernels 2 and A past the streamed layout's pilot bound: at
+    SPILL_BAND (P = 15 616 > MAX_STREAMED_PILOTS) on SPILL_B frames built by
+    `spill_inputs`, the geometry picks the spilled layout and each kernel
+    holds to its plain version with `hold_fused`'s and `hold_eq_track`'s
+    checks; µs beside the bound (`tail_bytes`). Adds the rows' `spilled`
+    entries and returns them."""
+    from gf3x_torch import GF3_STANDARD
+    from gf3x_torch.ops.kernels import fused_eq, split_eq
+
+    cfg = GF3_STANDARD.replace(**SPILL_BAND)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    Y, H, nv = spill_inputs(cfg, SPILL_B, dev)
+    out = {}
+    for name, demap in (("fused_eq_demap", True), ("eq_track", False)):
+        geo = fused_eq.fused_eq_geometry(cfg, SPILL_B, sms, demap=demap)
+        check(geo.spill, f"{name} at P = {cfg.n_pilots}: {geo} is not the "
+              "spilled layout")
+        if demap:
+            _, err, scale = hold_fused(cfg, Y, H, nv, None, "spilled")
+            fn = lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv)  # noqa: E731
+        else:
+            hold_eq_track(cfg, Y, H, nv, None, "spilled")
+            a_k = split_eq.eq_track(cfg, Y, H, nv)
+            a_p = split_eq.eq_track_plain(cfg, Y, H, nv)
+            err = float((a_k[0] - a_p[0]).abs().max())
+            scale = float(a_p[0].abs().mean())
+            fn = lambda: split_eq.eq_track(cfg, Y, H, nv)  # noqa: E731
+        out[name] = dict(
+            n_used=cfg.n_used, n_pilots=cfg.n_pilots, batch=SPILL_B,
+            geometry=str(geo), max_abs_err=err, mean_abs=scale,
+            kernel_us=kernel_us(fn, [f"{name}_kernel"])["us"],
+            **bound(tail_bytes(cfg, SPILL_B, name)))
+        rows[name]["spilled"] = out[name]
+    print(f"spilled layout (n_fft {cfg.n_fft}, U = {cfg.n_used}, P = "
+          f"{cfg.n_pilots}, B = {SPILL_B}): kernels 2 and A held against "
+          f"their plain versions; "
+          f"{ {n: (o['geometry'], round(o['kernel_us'], 1), round(1e3 * o['bound_ms'], 1)) for n, o in out.items()} } "
+          "(layout, kernel us, bound us)", flush=True)
+    return out
+
+
+# the wide bands' other routes: a clock offset planted in the batch recipe
+# (the port's channel.sims.resample_sfo); and the warped DFT's error
+# against float64 that its float32 formula (2π/N)·n·k·(1+δ), gf3x's
+# order, gives at each n_fft (tests/test_torch_wide_routes.py measures
+# 4096 and 8192 on the CPU), printed beside this run's
+SFO_PPM = 150.0
+WARPED_DFT_FORMULA_DB = {4096: -78.5, 8192: -72.4, 16384: -62.0}
+
+
+def resample_sinc(x: np.ndarray, ppm: float, taps: int = 64,
+                  beta: float = 8.0) -> np.ndarray:
+    """A sampling-clock offset of `ppm` by band-limited interpolation:
+    output sample n reads input time n·(1 + ppm·1e-6), as
+    `channel.sims.resample_sfo` does, through a Kaiser-windowed sinc of
+    `taps` taps instead of a straight line. Linear interpolation filters
+    each sample by a fractional delay that cycles every 1/δ samples (6667
+    at 150 ppm) and errs by −11 dB at 13 kHz
+    (tests/test_torch_wide_routes.py): within one gf3-16384 symbol
+    (16 384 samples) that is a channel varying 2.5 times, whose
+    inter-carrier interference alone leaves its 64-QAM frames undecodable
+    after the loop has found δ. A real clock resamples the band-limited
+    signal, which the windowed sinc does far below the frames' 20 dB
+    noise up to 0.3·fs."""
+    ratio = 1.0 + ppm * 1e-6
+    n_out = int(np.floor((len(x) - 1) / ratio)) + 1
+    half = taps // 2
+    j = np.arange(-half + 1, half + 1)
+    xp = np.concatenate([np.zeros(half), x, np.zeros(half)])
+    out = np.empty(n_out)
+    for a in range(0, n_out, 1 << 15):
+        t = np.arange(a, min(n_out, a + (1 << 15))) * ratio
+        i0 = np.floor(t).astype(np.int64)
+        d = (t - i0)[:, None] - j[None, :]
+        w = np.sinc(d) * np.i0(beta * np.sqrt(np.clip(
+            1.0 - (d / half) ** 2, 0.0, 1.0))) / np.i0(beta)
+        out[a: a + len(t)] = np.sum(xp[i0[:, None] + j[None, :] + half] * w,
+                                    axis=1)
+    return out
+
+
+def sfo_batch(modem, Bk: int, ppm: float, rng):
+    """`build_batch`'s recipe with the frame through a sampling-clock
+    offset of `ppm` (`resample_sinc`): (rx, payload, delays)."""
+    cfg = modem.cfg
+    payload = rng.integers(0, 256, 540, dtype=np.uint8).tobytes()
+    wav = resample_sinc(np.asarray(modem.encode(payload, "bench.bin"),
+                                   np.float64), ppm).astype(np.float32)
+    T = cfg.frame_len + MARGIN
+    rx = np.zeros((Bk, T), dtype=np.float32)
+    delays = rng.integers(0, MARGIN, size=Bk)
+    for i in range(Bk):
+        n = min(wav.size, T - delays[i])
+        rx[i, delays[i]: delays[i] + n] = wav[:n]
+    p = float(np.mean(wav ** 2))
+    rx += (rng.standard_normal((Bk, T)) * np.sqrt(p / 100.0)).astype(
+        np.float32)
+    return rx, payload, delays
+
+
+def hold_warped_dft(cfg, syms, delta) -> dict:
+    """The δ-warped DFT on the card against its own formula evaluated by
+    NumPy on the host — the tables in float32 in gf3x's order, the product
+    in float64 — within 1e-4·mean|Y|; and its error against a float64 DFT
+    in dB (the formula's own, WARPED_DFT_FORMULA_DB)."""
+    from gf3x_torch.ops.ofdm import ofdm_dft
+
+    d32 = np.float32(float(delta))
+    got = ofdm_dft(cfg, syms, torch.tensor(d32, device=syms.device)).cpu(
+        ).numpy().astype(np.complex128)
+    x64 = syms.cpu().numpy().astype(np.float64)
+    n = np.arange(cfg.n_fft, dtype=np.float32)[:, None]
+    k = np.arange(cfg.bin_lo, cfg.bin_hi + 1, dtype=np.float32)[None, :]
+    th = np.float32(2.0 * np.pi / cfg.n_fft) * n * k * (np.float32(1.0) + d32)
+    inv = 1.0 / cfg.ofdm_scale
+    host = (x64 @ np.cos(th).astype(np.float64)
+            - 1j * (x64 @ np.sin(th).astype(np.float64))) * inv
+    del th
+    th64 = (2.0 * np.pi / cfg.n_fft * np.arange(cfg.n_fft)[:, None]
+            * np.arange(cfg.bin_lo, cfg.bin_hi + 1)[None, :]
+            * (1.0 + float(d32)))
+    exact = (x64 @ np.cos(th64) - 1j * (x64 @ np.sin(th64))) * inv
+    del th64
+    err = float(np.max(np.abs(got - host)))
+    scale = float(np.mean(np.abs(host)))
+    check(err <= 1e-4 * scale, f"warped DFT at n_fft {cfg.n_fft}: {err} "
+          f"from its host formula > 1e-4 x mean|Y| {scale}")
+
+    def db(y):
+        return float(10 * np.log10(np.sum(np.abs(y - exact) ** 2)
+                                   / np.sum(np.abs(exact) ** 2)))
+
+    return dict(max_abs_err=err, mean_abs=scale, delta_ppm=float(d32) * 1e6,
+                db_vs_float64=db(got), formula_db_vs_float64=db(host),
+                formula_db_cpu_test=WARPED_DFT_FORMULA_DB.get(cfg.n_fft))
+
+
+def run_wide_routes(counters, total, modem, rx, payload, delays,
+                    label) -> dict:
+    """A wide band's other routes on the card, each once through
+    `run_path` with every launch counter at 0 (every row CRC-ok, the first
+    rows the CPU's): `demodulate_sfo` of the band's batch recipe at
+    +SFO_PPM (clock_ppm within 10 ppm of it), the warped DFT at the loop's
+    δ̂ against its host formula (`hold_warped_dft`), `demodulate_sc` with
+    the loop on the same batch (SC timing starts early at CP = N/4, by up to
+    0.36·cp in gf3x too: held within the CP), `demodulate_dd` on the band's
+    batch, and `decode(dd='on')` and `decode(sync='sc', sfo='on')` of one
+    recording of each; step ms of the three batch routes. Adds the
+    launches to `total`."""
+    cfg = modem.cfg
+    Bk = rx.shape[0]
+    rx_np, pay_s, del_s = sfo_batch(modem, Bk, SFO_PPM,
+                                    np.random.default_rng(2))
+    rx_s = torch.as_tensor(rx_np, device=rx.device)
+    del rx_np
+    out = {}
+    for route, x, pay, dl, entry, kw, tol in (
+            ("sfo", rx_s, pay_s, del_s, "demodulate_sfo", None, None),
+            ("sc_sfo", rx_s, pay_s, del_s, "demodulate_sc",
+             dict(sfo_correct=True), cfg.cp),
+            ("dd", rx, payload, delays, "demodulate_dd", None, None)):
+        launches, _, diag, sync_err = run_path(
+            modem, x, pay, dl, counters, f"wide {label}, {route}",
+            entry=entry, entry_kw=kw, sync_tol=tol)
+        for name in ("minsum_totals", "fused_eq_demap"):
+            check(launches[name] > 0, f"wide {label}, {route}: {name} did "
+                  f"not launch: {launches}")
+        sum_counts(total, launches)
+        ppm = diag.clock_ppm.float()
+        if route != "dd":
+            check(float((ppm - SFO_PPM).abs().max()) < 10.0,
+                  f"wide {label}, {route}: clock_ppm off the planted "
+                  f"{SFO_PPM} by {float((ppm - SFO_PPM).abs().max())}")
+        out[route] = dict(
+            launches=launches, sync_err=sync_err,
+            clock_ppm_median=float(ppm.median()),
+            step_ms=median_ms(lambda: getattr(modem, entry)(
+                x, **(kw or {})), runs=5))
+    syms, sc_win, roll = modem._cut_frame(rx_s, modem._sync(rx_s)[0])
+    delta = modem._two_pass_delta(syms, sc_win, roll)
+    out["warped_dft"] = hold_warped_dft(cfg, syms[:2].contiguous(), delta)
+    del syms, sc_win, roll
+    for kw, x, pay in ((dict(dd="on"), rx, payload),
+                       (dict(sync="sc", sfo="on"), rx_s, pay_s)):
+        res, launches = launch_counts(counters, lambda: modem.decode(
+            x[0].cpu().numpy(), **kw))
+        check(res.crc_ok and res.payload == pay, f"decode of one {label} "
+              f"recording with {kw}: not CRC-ok")
+        sum_counts(total, launches)
+        out["decode " + ", ".join(f"{k}={v}" for k, v in kw.items())] = \
+            launches
+    w = out["warped_dft"]
+    print(f"wide {label} routes: demodulate_sfo at +{SFO_PPM:.0f} ppm "
+          f"(clock_ppm median {out['sfo']['clock_ppm_median']:.2f}), "
+          f"demodulate_sc with the loop (sync within "
+          f"{out['sc_sfo']['sync_err']} samples), demodulate_dd: "
+          f"{Bk}/{Bk} rows CRC-ok each, steps "
+          f"{ {r: round(out[r]['step_ms'], 3) for r in ('sfo', 'sc_sfo', 'dd')} } "
+          f"ms; warped DFT at {w['delta_ppm']:.2f} ppm within "
+          f"{w['max_abs_err'] / w['mean_abs']:.2g} x mean|Y| of its host "
+          f"formula, {w['db_vs_float64']:.1f} dB vs float64 (the formula "
+          f"itself {w['formula_db_vs_float64']:.1f} dB; "
+          f"{w['formula_db_cpu_test']} dB in the CPU test); decode(dd='on') "
+          f"and decode(sync='sc', sfo='on') of one recording CRC-ok",
+          flush=True)
+    del rx_s
+    return out
+
+
 def wide_config(key: str, loaded: bool):
     from gf3x_torch import GF3_STANDARD
 
@@ -1490,7 +1779,9 @@ def run_wide(dev, counters, rows):
     total, out = {name: 0 for name in counters}, {}
     for label, key, loaded, Bk in WIDE_CASES:
         cfg = wide_config(key, loaded)
+        t0 = time.perf_counter()
         modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
+        build_s = time.perf_counter() - t0
         rx_np, payload, delays = build_batch(modem, Bk, MARGIN,
                                              np.random.default_rng(0))
         rx = torch.as_tensor(rx_np, device=dev)
@@ -1499,7 +1790,8 @@ def run_wide(dev, counters, rows):
         pv = modem.pilot_vals
         tables = (modem.demap_used, modem.demap_bits, modem.demap_off)
         held = dict(n_used=cfg.n_used, n_pilots=cfg.n_pilots,
-                    n_data_bins=cfg.n_data_bins, batch=Bk)
+                    n_data_bins=cfg.n_data_bins, batch=Bk,
+                    modem_build_s=build_s)
 
         def track(streamed):
             return split_eq.eq_track(cfg, Y, H, nv, pv, streamed=streamed)
@@ -1572,7 +1864,11 @@ def run_wide(dev, counters, rows):
               f"{ {n: (t['layout'], round(t['kernel_us'], 1), t.get('streamed_kernel_us'), round(1e3 * t['bound_ms'], 1)) for n, t in times.items()} } "
               f"(layout, kernel us, streamed us, bound us); demodulate "
               f"{Bk}/{Bk} rows CRC-ok, sync within {sync_err} samples, "
-              f"launches {launches}; {step:.3f} ms/step", flush=True)
+              f"launches {launches}; {step:.3f} ms/step; Modem({label}) "
+              f"built in {build_s:.1f} s", flush=True)
+        if not loaded:
+            held["routes"] = run_wide_routes(counters, total, modem, rx,
+                                             payload, delays, label)
         if not loaded and key in WIDE_ALIGNED_CP:
             held["use_cut_dft"] = run_wide_cut_dft(dev, counters, total,
                                                    modem, rx, payload,
@@ -1792,6 +2088,231 @@ def run_examples(dev, counters):
     return total, out
 
 
+# kernel 3 at lifts above 512 ("lifts"): (z, rate, codewords) held bit for
+# bit at σ = 0.8 — z = 520 (several checks a thread, messages in shared
+# memory), 600 (z % 32 ≠ 0, messages in global memory), 768, 1024, 2048
+# (past the check pass's 1076: four codewords a block), 2400 (the totals
+# in global memory too) and 9000 (past 8609: the check pass's hard
+# decisions in global memory); above z = 1024 on the all-zero codeword,
+# since the host encoder's dense parity solve grows as z³ (tens of
+# seconds at 2048, out of reach at 9000)
+LIFTS = ((520, "1/2", 256), (600, "1/2", 256), (768, "1/2", 256),
+         (1024, "1/2", 256), (2048, "1/2", 256), (2400, "1/2", 64),
+         (9000, "1/2", 16))
+# and the two wide configs whose codewords need those lifts, end to end:
+# (WIDE_BANDS key, ldpc_z, frames per batch)
+LIFT_PATHS = (("gf3-4096", 768, 1024), ("gf3-16384", 1024, 64))
+
+
+class Lift:
+    """Kernel 3's call at a lift and rate without an encoder (what
+    `hold_minsum` needs of an LdpcCode)."""
+
+    def __init__(self, z: int, rate: str):
+        self.z, self.rate = z, rate
+
+    def decode_totals(self, lam, iters):
+        from gf3x_torch.ops.kernels import ldpc_bp
+
+        return ldpc_bp.minsum_totals(lam, self.z, self.rate, iters)
+
+
+def lift_llrs(z: int, rate: str, L: int, dev, sigma: float = 0.8):
+    """L codewords' BPSK LLRs at σ, seeded by z: random codewords of
+    `LdpcCode(z, rate)` up to z = 1024, else the all-zero codeword (any
+    linear code's; min-sum treats every codeword alike)."""
+    from gf3x_torch.fec.ldpc import LdpcCode
+
+    g = torch.Generator(device=dev).manual_seed(z)
+    if z <= 1024:
+        code = LdpcCode(z, rate)
+        u = torch.randint(0, 2, (L, code.k), generator=g, device=dev,
+                          dtype=torch.uint8)
+        bpsk = 1.0 - 2.0 * code.encode(u).to(torch.float32)
+    else:
+        code = Lift(z, rate)
+        bpsk = torch.ones(L, 24 * z, device=dev)
+    lam = (2.0 / sigma ** 2) * (bpsk + sigma * torch.randn(
+        bpsk.shape, generator=g, device=dev))
+    return code, lam.contiguous()
+
+
+def run_lifts(dev, counters, rows) -> tuple:
+    """Kernel 3 at lifts above 512: held bit for bit to its plain version
+    at each of LIFTS (both passes launched), its µs per pass beside the
+    bound (the LLRs in and the totals out, 2·L·24z·4 bytes over HBM_BPS)
+    and the passes per codeword; then each of LIFT_PATHS through
+    `Modem.demodulate` with every launch counter at 0: every row CRC-ok,
+    kernel 3's check and decode passes launched. Returns (the launch
+    counts summed, what was held and timed)."""
+    from gf3x_torch import Modem
+    from gf3x_torch.ops.kernels import ldpc_bp
+
+    out = {}
+    for z, rate, L in LIFTS:
+        code, lam = lift_llrs(z, rate, L, dev)
+        iters = 50
+        held = hold_minsum(code, lam, iters, f"z = {z}, rate {rate}")
+        k = kernel_us(lambda: code.decode_totals(lam, iters), MINSUM_KERNELS)
+        geo = ldpc_bp.decode_geometry(z, rate)
+        out[f"z={z}"] = dict(
+            rate=rate, codewords=L, geometry=str(geo),
+            check_warps=ldpc_bp.check_warps(z), kernel_us=k["us"],
+            kernel_us_by_name=k["by_name"],
+            passes_per_codeword=held["passes_sum"] / L, held=held,
+            **bound(2 * L * 24 * z * 4))
+        print(f"lifts z = {z} (rate {rate}, {L} codewords at sigma 0.8): "
+              f"totals, unsat and passes bit-identical; {geo}, check pass "
+              f"{ldpc_bp.check_warps(z)} codewords a block; kernel us "
+              f"{k['by_name']}, bound {1e3 * out[f'z={z}']['bound_ms']:.1f} "
+              f"us; {held['passes_sum'] / L:.2f} passes a codeword", flush=True)
+        del lam
+    rows["minsum_totals"]["lifts"] = out
+    total = {name: 0 for name in counters}
+    for key, z, Bk in LIFT_PATHS:
+        cfg = wide_config(key, False).replace(ldpc_z=z)
+        t0 = time.perf_counter()
+        modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
+        build_s = time.perf_counter() - t0
+        rx_np, payload, delays = build_batch(modem, Bk, MARGIN,
+                                             np.random.default_rng(0))
+        rx = torch.as_tensor(rx_np, device=dev)
+        del rx_np
+        label = f"{key} at z = {z}"
+        launches, _, _, sync_err = run_path(modem, rx, payload, delays,
+                                            counters, label)
+        for name in ("minsum_totals", "minsum_check", "minsum_decode"):
+            check(launches[name] > 0, f"{label}: {name} did not launch")
+        sum_counts(total, launches)
+        step = median_ms(lambda: modem.demodulate(rx))
+        out[label] = dict(codewords_per_frame=cfg.n_codewords,
+                          n=cfg.ldpc_n, batch=Bk, step_ms=step,
+                          modem_build_s=build_s, launches=launches)
+        print(f"lifts {label}: {cfg.n_codewords} codewords of n = "
+              f"{cfg.ldpc_n} a frame, {Bk}/{Bk} rows CRC-ok, sync within "
+              f"{sync_err} samples, launches {launches}; {step:.3f} ms/step; "
+              f"Modem built in {build_s:.1f} s", flush=True)
+        del modem, rx
+    return total, out
+
+
+# the reports' tables as gf3x's tools write them (tools/stress.py,
+# tools/perf_report.py, tools/adapt_report.py; docs/ holds edited copies):
+# per report, each table's heading (a prefix), its column headings and its
+# first column, at the gf3 preset; and the cell that says gf3 closes at
+# its top SNR ((table, row label, column, value))
+STRESS_TABLES = (
+    ("Sampling-clock offset (18 dB SNR)", "| clock offset | success |",
+     [f"{p:+d} ppm" for p in (0, 500, 1000, 1500, 2000, 3000, -1500)]),
+    ("Reverberation (15 dB SNR, DRR 5 dB)", "| room | success |",
+     [f"rt60 = {r:.2f} s" for r in (0.0, 0.04, 0.08, 0.12, 0.20, 0.30)]),
+    ("AWGN-only SNR (rate-1/2 LDPC QPSK waterfall)", "| SNR | success |",
+     [f"{s} dB" for s in (4, 2, 1, 0, -1, -2)]),
+    ("Impulse/burst interference (16 dB SNR, 0 dB burst)",
+     "| burst | success |",
+     [f"{n} symbols (of 20) destroyed" for n in (1, 3, 5, 7, 9, 11)]),
+    ("Hard clipping (16 dB SNR)", "| limiter | success |",
+     [f"clip at {v:.0%} of peak" for v in (0.5, 0.25, 0.1, 0.05, 0.03,
+                                           0.02)]),
+    ("Clock drift within the frame (18 dB SNR, +150 ppm base, 10 ppm "
+     "wobble)", "| drift rate | success |",
+     [f"{d:+d} ppm/s" for d in (0, 25, 50, 100, 200, 400, -200)]),
+    ("Speaker/mic response (15 dB SNR, 4th-order LP at 15 kHz, 3 dB "
+     "ripple)", "| transducer | success |",
+     [f"highpass corner {c} Hz" for c in (150, 400, 800, 1200, 2000,
+                                          3000)]),
+)
+PERF_GRIDS = {"gf3-robust": [-2, -1, 0, 1, 2, 3, 4],
+              "gf3": [-1, 0, 1, 2, 3, 4, 6],
+              "gf3-fast": [4, 6, 7, 8, 9, 10, 12],
+              "gf3-hicap": [8, 9, 10, 11, 12, 14, 16],
+              "gf3-turbo": [10, 12, 13, 14, 15, 16, 18]}
+PERF_TABLES = tuple(
+    (f"{name} — ", "| SNR (dB) | pre-FEC BER | post-FEC BER | FER | room "
+     "FER |", [str(s) for s in snrs]) for name, snrs in PERF_GRIDS.items())
+ADAPT_SNRS = (8, 10, 12, 14, 16, 18, 20)
+ADAPT_TABLES = (
+    ("Uniform presets (fixed rate, one clearing SNR each)",
+     "| config | net kbit/s | " + " | ".join(f"{s} dB" for s in ADAPT_SNRS)
+     + " |", ["gf3", "gf3-fast", "gf3-hicap", "gf3-turbo"]),
+    ("Adaptive (probe at the operating SNR → per-bin table → run there)",
+     "| SNR | net kbit/s | FER |", [f"{s} dB" for s in ADAPT_SNRS]),
+)
+REPORTS = {"stress": (STRESS_TABLES, (2, "4 dB", 1, "100%"), []),
+           "perf_report": (PERF_TABLES, (1, "6", 3, "0.00"),
+                           ["--no-plots"]),
+           "adapt_report": (ADAPT_TABLES, (0, "gf3", 8, "0.00"), [])}
+REPORT_TRIALS = 2
+
+
+def report_tables(text: str) -> list:
+    """A markdown report's tables: [(heading, column headings, [row cells,
+    ...])], each row's cells stripped."""
+    tables, heading, cols, body = [], None, None, None
+    for ln in text.splitlines() + [""]:
+        if ln.startswith("## "):
+            heading = ln[3:]
+        elif ln.startswith("|") and cols is None:
+            cols, body = ln, []
+        elif ln.startswith("|---"):
+            continue
+        elif ln.startswith("|"):
+            body.append([c.strip() for c in ln.strip("|").split("|")])
+        elif cols is not None:
+            tables.append((heading, cols, body))
+            cols = None
+    return tables
+
+
+def run_reports(dev, counters) -> tuple:
+    """The three evaluation reports (`gf3x_torch.bench.stress`,
+    `perf_report`, `adapt_report`) through their command lines on the card
+    at REPORT_TRIALS trials, each into a temporary directory with every
+    launch counter at 0: each writes only its --out file; its tables have
+    the tool's headings, columns and first column (REPORTS); gf3 closes at
+    its top SNR (the cell REPORTS names); kernels launched. Returns (the
+    launch counts summed, seconds and launches per report)."""
+    total, out = {name: 0 for name in counters}, {}
+    for name, (tables, (ti, label, col, value), extra) in REPORTS.items():
+        mod = importlib.import_module(f"gf3x_torch.bench.{name}")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "report" / f"{name}.md"
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                _, launches = launch_counts(counters, lambda: mod.main(
+                    ["--trials", str(REPORT_TRIALS), "--out", str(path)]
+                    + extra))
+            secs = time.perf_counter() - t0
+            written = sorted(str(p.relative_to(tmp))
+                             for p in Path(tmp).rglob("*") if p.is_file())
+            check(written == [f"report/{name}.md"], f"report {name} wrote "
+                  f"{written}")
+            got = report_tables(path.read_text())
+        check(len(got) == len(tables), f"report {name}: {len(got)} tables, "
+              f"the tool writes {len(tables)}")
+        for (head, cols, body), (want_head, want_cols, labels) in zip(
+                got, tables):
+            check(head.startswith(want_head) and cols == want_cols
+                  and [r[0] for r in body] == labels,
+                  f"report {name}: table {head!r} {cols!r} "
+                  f"{[r[0] for r in body]} is not the tool's {want_head!r} "
+                  f"{want_cols!r} {labels}")
+        row = {r[0]: r for r in got[ti][2]}[label]
+        check(row[col] == value, f"report {name}: gf3 at its top SNR "
+              f"({label}) reads {row[col]}, not {value}")
+        check(launches["minsum_totals"] > 0, f"report {name}: kernel 3 did "
+              f"not launch: {launches}")
+        sum_counts(total, launches)
+        out[name] = dict(seconds=secs, launches=launches,
+                         top_snr_cell=row[col])
+        print(f"report {name}: {len(got)} tables with the tool's headings, "
+              f"columns and rows at {REPORT_TRIALS} trials, gf3 at {label}: "
+              f"{row[col]}; only --out written; {secs:.2f} s; launches "
+              f"{launches}", flush=True)
+    return total, out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; there is no CPU "
@@ -1890,6 +2411,19 @@ def main() -> None:
                  lambda: False)
     r2["streamed_kernel_us"] = kernel_us(lambda: fused_eq.fused_eq_demap(
         cfg, Y, H, nv, pv, streamed=True), ["fused_eq_demap_kernel"])["us"]
+    # the spilled layout (pilot scratch in global memory) forced at config
+    # 5: kernels 2 and A give the picked layout's bytes
+    r2["spilled_sha256"] = hold_spilled(
+        "fused_eq_demap config 5", lambda spilled: fused_eq.fused_eq_demap(
+            cfg, Y, H, nv, pv, spilled=spilled))
+    spilled_A5 = hold_spilled(
+        "eq_track config 5", lambda spilled: split_eq.eq_track(
+            cfg, Y, H, nv, pv, spilled=spilled))
+    r2["spilled_kernel_us"] = kernel_us(lambda: fused_eq.fused_eq_demap(
+        cfg, Y, H, nv, pv, spilled=True), ["fused_eq_demap_kernel"])["us"]
+    print(f"spilled layout forced at config 5: kernels 2 and A equal the "
+          f"staged layout's sha256; kernel 2 "
+          f"{r2['spilled_kernel_us']:.1f} us spilled", flush=True)
     print(f"fused_eq_demap: hard decisions equal, max |dLLR| {err:.3g} "
           f"(mean |LLR| {scale:.3g}), held at B = 1 and 7 too; llr, slope "
           f"and cpe bit-identical to the split pair's (evm, mean|llr| within "
@@ -2174,6 +2708,7 @@ def main() -> None:
                 lambda: split_eq.eq_track_plain(cfg, Y, H, nv, pv),
                 8 * B * D_ * U_ * 2 + 8 * B * U_ + 4 * B + 3 * 4 * B * D_,
                 12.0 * B * D_ * U_, kernel="eq_track_kernel"))
+    rA["spilled_sha256_config5"] = spilled_A5
     print(f"eq_track: held at B = {B}, 1 and 7; {rA['geometry']}; "
           f"{rA['ms']:.3f} ms vs plain {rA['plain_ms']:.3f} ms; device "
           f"{rA['device_ms']:.4f} ms, kernel {rA['kernel_us']:.1f} us, bound "
@@ -2216,6 +2751,9 @@ def main() -> None:
           f"({EXPECTED['demap_bins']}); streamed layouts (same bytes): A "
           f"{rA['streamed_kernel_us']:.1f} us, B "
           f"{rB['streamed_kernel_us']:.1f} us", flush=True)
+
+    # ---- kernels 2 and A past the streamed layout's pilot bound
+    spill = run_spill(dev, rows)
 
     # ---- kernel 3 on the loaded path's LLRs, which carry raw bit errors
     lam = modem._codeword_llrs(b_k[0]).contiguous()
@@ -2278,6 +2816,10 @@ def main() -> None:
     launchesM, mesh = run_mesh(dev, counters, {"one card": make_mesh(),
                                                "two shards": (dev, dev)})
     launchesE, examples = run_examples(dev, counters)
+
+    # ---- kernel 3 above z = 512, and the three evaluation reports
+    launchesLf, lifts = run_lifts(dev, counters, rows)
+    launchesRp, reports = run_reports(dev, counters)
     rows["gather_cut"] = dict(
         name="gather_cut", route="cuda",
         source="gf3x_torch/csrc/gather_cut.cu",
@@ -2294,7 +2836,8 @@ def main() -> None:
                "routes": launchesR, "harq": launchesH, "arq": launchesA,
                "long_recordings": launchesT, "sweep": launchesW,
                "cli": launchesI, "golden": launchesG, "pilots": launchesP,
-               "wide": launchesWd, "mesh": launchesM, "examples": launchesE}
+               "wide": launchesWd, "mesh": launchesM, "examples": launchesE,
+               "lifts": launchesLf, "reports": launchesRp}
     check(len(rows) == 8 and all(
         sum(c[name] for c in by_path.values()) > 0 for name in rows),
           "a kernel has no row or never launched on a path")
@@ -2317,7 +2860,9 @@ def main() -> None:
                       "arq_s": arq_s, "long_recording_s": long_s,
                       "sweep": sweep, "cli": cli, "golden": golden,
                       "pilots": pilots, "wide": wide, "mesh": mesh,
-                      "examples": examples, "decision_ties": DECISION_TIES,
+                      "examples": examples, "lifts": lifts,
+                      "reports": reports, "spilled": spill,
+                      "decision_ties": DECISION_TIES,
                       "build_s": build_s, "package": gf3x_torch.__name__}),
           flush=True)
     print(smi, flush=True)
@@ -2402,9 +2947,12 @@ def time_tree(tree: Path) -> dict:
 
     check(Path(gf3x_torch.__file__).resolve().is_relative_to(tree.resolve()),
           f"gf3x_torch imported from {gf3x_torch.__file__}, not {tree}")
+    from gf3x_torch.utils.device import library_path
+
     dev = torch.device("cuda", 0)
     kernel_lib()
-    out = {}
+    out = {"build": {"registers": build_report(
+        (library_path().parent / "build.log").read_text())}}
     for cfg, label in ((GF3_STANDARD, "config5"), (GF3_TURBO, "gf3_turbo"),
                        (GF3_STANDARD.replace(bit_loading=loading_table(
                            GF3_STANDARD.n_data_bins)), "bit_loaded")):
@@ -2452,6 +3000,7 @@ def time_tree(tree: Path) -> dict:
                   f"{name}: passes differ between calls")
             out[name] = dict(readings(
                 lambda: code.decode_totals(x, cfg.ldpc_iters), ["minsum"]),
+                sha256=[sha256_of(t) for t in runs[0]],
                 by_kernel=kernel_us(
                     lambda: code.decode_totals(x, cfg.ldpc_iters),
                     ["minsum_check", "minsum_decode", "minsum_kernel"],
@@ -2485,6 +3034,8 @@ def compare_trees(other: Path) -> None:
         check(res.returncode == 0, f"--time {tree} failed:\n{res.stderr}")
         got = json.loads(res.stdout.splitlines()[-1])
         for name, row in got.items():
+            if "kernel_us" not in row:
+                continue
             if "sha256" in row:
                 sha.setdefault(name, set()).add(tuple(row["sha256"]))
             us.setdefault(name, {}).setdefault(label, []).extend(
@@ -2494,8 +3045,8 @@ def compare_trees(other: Path) -> None:
     ratio = {name: float(np.mean(v["this"]) / np.mean(v["other"]))
              for name, v in us.items() if v.get("this") and v.get("other")}
     print(json.dumps({"kernel_us_this_over_other": ratio}), flush=True)
-    check(len(sha) == 4 and all(len(v) == 1 for v in sha.values()),
-          f"the outputs of kernels 2, A and B differ between the trees: "
+    check(len(sha) == 7 and all(len(v) == 1 for v in sha.values()),
+          f"the outputs of kernels 2, 3, A and B differ between the trees: "
           f"{sha}")
     print(f"outputs of {sorted(sha)} hash the same in all four runs",
           flush=True)

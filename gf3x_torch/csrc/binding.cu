@@ -35,20 +35,21 @@ int gf3x_fused_eq_demap(const float*, const float*, const float*,
                         const float*, const int*, float*, float*, float*,
                         float*, float*, long long, int, int, int, int, int,
                         const float*, int, int, float, int, float, float, int,
-                        int, int, float, float, void*);
+                        int, int, float, float, float*, void*);
 int gf3x_eq_track(const float*, const float*, const float*, const float*,
                   const int*, float*, float*, float*, float*, long long, int,
                   int, int, int, int, int, float, int, float, float, int, int,
-                  int, void*);
+                  int, float*, void*);
 int gf3x_demap_bins(const float*, const float*, const float*, const int*,
                     float*, float*, float*, long long, int, int, int, int,
                     float, float, const float*, int, int, int, void*);
 int gf3x_minsum_check(const float*, float*, unsigned char*, int*, int*,
                       const int*, const int*, const int*, long long, int, int,
-                      int, int, void*);
+                      int, int, int, void*);
+int gf3x_minsum_decode_blocks(int*, int, int, int, void*);
 int gf3x_minsum_decode(const float*, float*, unsigned char*, int*, int*,
-                       const int*, const int*, const int*, long long, int,
-                       int, int, int, void*);
+                       float*, const int*, const int*, const int*, long long,
+                       int, int, int, int, int, int, int, int, void*);
 const char* gf3x_error_string(int);
 }
 
@@ -122,25 +123,29 @@ ENTRY(gf3x_cut_dft, "ppppppllllllllllllflllllllp",
                    I(9), I(10), I(11), I(12), I(13), I(14), I(15), I(16),
                    I(17), F(18), I(19), I(20), I(21), I(22), I(23), I(24),
                    I(25), P(26)))
-ENTRY(gf3x_fused_eq_demap, "ppppppppppllllllpllflfflllffp",
+ENTRY(gf3x_fused_eq_demap, "ppppppppppllllllpllflfflllffpp",
       gf3x_fused_eq_demap(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7),
                           P(8), P(9), L(10), I(11), I(12), I(13), I(14),
                           I(15), P(16), I(17), I(18), F(19), I(20), F(21),
-                          F(22), I(23), I(24), I(25), F(26), F(27), P(28)))
-ENTRY(gf3x_eq_track, "ppppppppplllllllflfflllp",
+                          F(22), I(23), I(24), I(25), F(26), F(27), P(28),
+                          P(29)))
+ENTRY(gf3x_eq_track, "ppppppppplllllllflfflllpp",
       gf3x_eq_track(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), P(8),
                     L(9), I(10), I(11), I(12), I(13), I(14), I(15), F(16),
-                    I(17), F(18), F(19), I(20), I(21), I(22), P(23)))
+                    I(17), F(18), F(19), I(20), I(21), I(22), P(23), P(24)))
 ENTRY(gf3x_demap_bins, "ppppppplllllffplllp",
       gf3x_demap_bins(P(0), P(1), P(2), P(3), P(4), P(5), P(6), L(7), I(8),
                       I(9), I(10), I(11), F(12), F(13), P(14), I(15), I(16),
                       I(17), P(18)))
-ENTRY(gf3x_minsum_check, "pppppppplllllp",
+ENTRY(gf3x_minsum_check, "ppppppppllllllp",
       gf3x_minsum_check(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), L(8),
-                        I(9), I(10), I(11), I(12), P(13)))
-ENTRY(gf3x_minsum_decode, "pppppppplllllp",
-      gf3x_minsum_decode(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), L(8),
-                         I(9), I(10), I(11), I(12), P(13)))
+                        I(9), I(10), I(11), I(12), I(13), P(14)))
+ENTRY(gf3x_minsum_decode_blocks, "plllp",
+      gf3x_minsum_decode_blocks(P(0), I(1), I(2), I(3), P(4)))
+ENTRY(gf3x_minsum_decode, "ppppppppplllllllllp",
+      gf3x_minsum_decode(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7),
+                         P(8), L(9), I(10), I(11), I(12), I(13), I(14),
+                         I(15), I(16), I(17), P(18)))
 
 PyObject* py_gf3x_error_string(PyObject*, PyObject* const* a, Py_ssize_t n) {
     Val v[1];
@@ -158,7 +163,8 @@ PyMethodDef kMethods[] = {
     METHOD(gf3x_gather_cut_group), METHOD(gf3x_cut_dft),
     METHOD(gf3x_fused_eq_demap), METHOD(gf3x_eq_track),
     METHOD(gf3x_demap_bins),     METHOD(gf3x_minsum_check),
-    METHOD(gf3x_minsum_decode),  METHOD(gf3x_error_string),
+    METHOD(gf3x_minsum_decode_blocks), METHOD(gf3x_minsum_decode),
+    METHOD(gf3x_error_string),
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "gf3x_kernels", nullptr, -1,

@@ -22,7 +22,9 @@
 //   in place first.
 //
 // Kernels A and 2 have one block per frame, each of its warps walking its
-// data symbols, in one of two layouts. Staged: Ĥ, |Ĥ|² and the layout table
+// data symbols, in one of two layouts (and a third past the streamed one's
+// pilot bound, where the pilot scratch and positions live in global
+// memory: BinsLayout). Staged: Ĥ, |Ĥ|² and the layout table
 // sit in shared memory once, and each symbol is copied into its warp's
 // shared buffer and equalized there (gf3x_track_symbol_warp). Streamed, for
 // a band whose staged layout fits no warp count: shared memory holds only
@@ -249,6 +251,23 @@ __device__ __forceinline__ SymbolFit gf3x_track_symbol_warp(
     __syncwarp();
     return gf3x_fit_symbol_warp(a, b, StagedBins{cur, h2s}, kp, zr, zi, dr,
                                 di, lane);
+}
+
+// Kernels 2 and A's three layouts: staged, streamed (nbuf = 0) and
+// spilled (nbuf = 0 with a global pilot scratch), the streamed one with
+// the warps' pilot scratch and the pilot positions in global memory.
+enum BinsLayout { kStagedBins, kStreamedBins, kSpilledBins };
+
+__host__ __forceinline__ int gf3x_bins_layout(int nbuf, const float* scratch) {
+    return nbuf != 0 ? kStagedBins
+                     : (scratch == nullptr ? kStreamedBins : kSpilledBins);
+}
+
+// Warp w of frame b's slice (zr, zi, dr, di: 4P floats) of the spilled
+// layout's global pilot scratch, W warps a frame.
+__device__ __forceinline__ float* gf3x_spilled_scratch(float* scratch, int b,
+                                                       int W, int w, int P) {
+    return scratch + (static_cast<size_t>(b) * W + w) * 4 * P;
 }
 
 // The frame's layout table (`pos`, n ints) into shared memory by the block.

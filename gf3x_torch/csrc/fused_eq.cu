@@ -46,6 +46,15 @@
 // pilots' bins are read twice (fit, residuals) and the data bins once.
 // Shared memory keeps only the pilot positions, the warps' pilot scratch
 // and sums. Its outputs equal the staged layout's bit for bit.
+//
+// Past MAX_STREAMED_PILOTS pilots (11 621: one warp's 4P floats of pilot
+// scratch and the P positions no longer fit a block) the wrapper picks the
+// spilled layout: the streamed one with each warp's pilot scratch in its
+// own slice of a global buffer (frame b, warp w at (b·W + w)·4P floats)
+// and the pilot positions read from the layout table in global memory.
+// The chain is the same code on other pointers (__syncwarp orders a warp's
+// global accesses as it does its shared ones), reading the scratch in the
+// same order, so the bits do not depend on the layout.
 #include <cstdint>
 
 #include "eq_demap.cuh"
@@ -67,6 +76,7 @@ struct FusedArgs {
                          // 0 for the streamed layout
     float evm_div;       // D · n_data_bins
     float abs_div;       // D · R
+    float* scratch;      // the spilled layout's pilot scratch, else null
     float lv[kMaxLevels];   // PAM level of each Gray label
 };
 
@@ -93,10 +103,13 @@ __device__ __forceinline__ void store_llrs(float* out, const float* l) {
 // warps' two sums | the layout table (U ints: P pilot positions, U − P
 // data positions). Streamed (nbuf = 0): the pilot scratches, the sums and
 // the P pilot positions alone; Ĥ, the bins and the data positions are read
-// from global memory.
-template <int m, bool kStreamed>
+// from global memory. Spilled: the sums alone; the pilot scratch in
+// a.scratch and the positions in the table.
+template <int m, int kLayout>
 __global__ void __launch_bounds__(1024)
 fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
+    constexpr bool kStreamed = kLayout != kStagedBins;
+    constexpr bool kSpilled = kLayout == kSpilledBins;
     extern __shared__ __align__(16) float sm[];
     const TrackArgs& t = a.t;
     const int U = t.U, P = t.P, D = t.D, W = a.warps;
@@ -107,17 +120,19 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     float2* buf = hs + U + static_cast<size_t>(w) * a.nbuf * U;
     float* h2s = sm + 2 * U + 2 * U * W * a.nbuf;
     float* inv_csi = h2s + U;
-    float* zr = sm + rows + 4 * P * w;
+    float* zr = kSpilled ? gf3x_spilled_scratch(a.scratch, b, W, w, P)
+                         : sm + rows + 4 * P * w;
     float* zi = zr + P;
     float* dr = zi + P;
     float* di = dr + P;
-    float* red = sm + rows + 4 * P * W;
-    int* kp = reinterpret_cast<int*>(red + 2 * W);
+    float* red = kSpilled ? sm : sm + rows + 4 * P * W;
+    int* s_pos = reinterpret_cast<int*>(red + 2 * W);
+    const int* kp = kSpilled ? t.pos : s_pos;
     const int* dpos = kStreamed ? t.pos + P : kp + P;
     const float2* hrow = t.h + static_cast<long long>(b) * U;
 
     if constexpr (kStreamed) {
-        gf3x_stage_layout(t, kp, P);
+        if constexpr (!kSpilled) gf3x_stage_layout(t, s_pos, P);
     } else {
         // the warp's first symbol is in flight while the block stages Ĥ
         gf3x_fetch_symbol(t, b, w, buf, lane);
@@ -128,7 +143,7 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
             h2s[k] = h2;
             inv_csi[k] = gf3x_inv_csi(h2);
         }
-        gf3x_stage_layout(t, kp, U);
+        gf3x_stage_layout(t, s_pos, U);
     }
     __syncthreads();
 
@@ -204,16 +219,16 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     }
 }
 
-template <int m, bool kStreamed>
+template <int m, int kLayout>
 cudaError_t launch_layout(const FusedArgs& a, long long B, int smem,
                           cudaStream_t stream) {
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            fused_eq_demap_kernel<m, kStreamed>,
+            fused_eq_demap_kernel<m, kLayout>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return e;
     }
-    fused_eq_demap_kernel<m, kStreamed>
+    fused_eq_demap_kernel<m, kLayout>
         <<<static_cast<unsigned>(B), 32 * a.warps, smem, stream>>>(a);
     return cudaGetLastError();
 }
@@ -221,8 +236,12 @@ cudaError_t launch_layout(const FusedArgs& a, long long B, int smem,
 template <int m>
 cudaError_t launch_fused(const FusedArgs& a, long long B, int smem,
                          cudaStream_t stream) {
-    return a.nbuf == 0 ? launch_layout<m, true>(a, B, smem, stream)
-                       : launch_layout<m, false>(a, B, smem, stream);
+    switch (gf3x_bins_layout(a.nbuf, a.scratch)) {
+    case kStagedBins: return launch_layout<m, kStagedBins>(a, B, smem, stream);
+    case kStreamedBins:
+        return launch_layout<m, kStreamedBins>(a, B, smem, stream);
+    default: return launch_layout<m, kSpilledBins>(a, B, smem, stream);
+    }
 }
 
 }  // namespace
@@ -233,7 +252,7 @@ GF3X_EXPORT int gf3x_fused_eq_demap(
         float* mabs, long long B, int S, int K, int U, int P, int m,
         const float* levels, int n_ladder, int q0, float base0, int q1,
         float base1, float mean_dk, int warps, int nbuf, int smem,
-        float evm_div, float abs_div, void* stream) {
+        float evm_div, float abs_div, float* scratch, void* stream) {
     FusedArgs a;
     a.t.y = reinterpret_cast<const float2*>(y);
     a.t.h = reinterpret_cast<const float2*>(h);
@@ -261,6 +280,7 @@ GF3X_EXPORT int gf3x_fused_eq_demap(
     a.nbuf = nbuf;
     a.evm_div = evm_div;
     a.abs_div = abs_div;
+    a.scratch = scratch;
     for (int i = 0; i < kMaxLevels; ++i) a.lv[i] = i < (1 << m) ? levels[i] : 0.0f;
     if (B <= 0) return static_cast<int>(cudaGetLastError());
     const cudaStream_t s = static_cast<cudaStream_t>(stream);

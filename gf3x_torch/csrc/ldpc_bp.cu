@@ -53,6 +53,31 @@
 // Within a block row each circulant column appears once, so thread c reads
 // and writes total (c + s) mod z of each column it touches and no two
 // threads of a row collide.
+//
+// Every lift z ≥ 1 runs, as gf3x's kernel and XLA twin do. The layouts
+// above are those of z ≤ 512 (one check a thread, everything in shared
+// memory; decode layout 0) and z ≤ 1076 (eight codewords a check block).
+// Past them the wrapper (ops/kernels/ldpc_bp.py: decode_geometry,
+// check_warps) picks, and the entries take, these:
+// - decode layout 1 (z > 512): a block of T ≤ 512 threads (a multiple of
+//   32), thread t taking checks t, t + T, ... of each block row. The rows
+//   of a block row are independent and each is updated by the same code,
+//   so the layer order and every rounding are layout 0's: the same bits.
+// - decode layout 2: where (E + 24)·z floats and the bit words no longer
+//   fit a block's 227 KB (z > 576 at rate 1/2, 647 at 2/3, 633 at 3/4,
+//   619 at 5/6), the totals stay in shared memory and the c2v messages go
+//   to a global scratch, one slice of E·z floats per resident block (the
+//   wrapper allocates grid × slice on the caller's stream; only check c
+//   ever reads or writes its messages, so they need no barrier of their
+//   own).
+// - decode layout 3: where the totals and bit words no longer fit either
+//   (z ≥ 2348), the totals are the codeword's row of the output, which the
+//   check pass has filled with its LLRs, and the bit words join c2v in the
+//   scratch slice.
+// - check pass: fewer codewords a block where eight warps' hard decisions
+//   exceed 227 KB, down to one (z ≤ 8609); past that one warp reads the
+//   hard decisions as the signs of the totals it has just written to
+//   global memory.
 #include <cstdint>
 
 #include "common.cuh"
@@ -66,7 +91,10 @@ constexpr int kMaxDeg = 18;      // the largest block-row degree over RATES
 constexpr int kCheckWarps = 8;   // codewords per block of the check pass
 constexpr int kChunk = 18;       // 16-byte loads a lane keeps in flight
 constexpr int kLaneChecks = 3;   // checks of a block row per lane, in turn
-constexpr int kMaxZ = 512;       // the decode pass's block: z threads
+constexpr int kMaxThreads = 512; // the decode pass's block: at most 512
+// the largest lift whose indices fit an int: a scratch slice of
+// (kMaxEdges + 1)·z floats, 27·z bytes of hard decisions
+constexpr int kMaxLift = 0x7fffffff / 128;
 constexpr float kAlpha = 0.8f;
 constexpr float kBig = 1e30f;
 
@@ -129,6 +157,12 @@ __host__ __device__ __forceinline__ int check_stride(int z) {
     return (27 * z + 15) & ~15;
 }
 
+// The check pass's layouts: eight warps a block with the hard decisions in
+// shared memory (z ≤ 1076), fewer warps a block (blockDim.x / 32), or one
+// warp reading them from the totals it wrote (kCheckGlobal).
+enum CheckLayout { kCheckEight, kCheckFew, kCheckGlobal };
+
+template <int kLayout>
 __global__ void __launch_bounds__(32 * kCheckWarps)
 minsum_check_kernel(const float* __restrict__ lam, float* __restrict__ totals,
                     unsigned char* __restrict__ unsat,
@@ -138,8 +172,34 @@ minsum_check_kernel(const float* __restrict__ lam, float* __restrict__ totals,
     extern __shared__ __align__(16) unsigned char hard_sm[];
     const int z = code.z, n = kBlockCols * z, n4 = n / 4;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    const long long cw = static_cast<long long>(blockIdx.x) * kCheckWarps + w;
+    const int warps = kLayout == kCheckEight ? kCheckWarps
+                                             : static_cast<int>(blockDim.x >> 5);
+    const long long cw = static_cast<long long>(blockIdx.x) * warps + w;
     if (cw >= L) return;   // the whole warp
+    if constexpr (kLayout == kCheckGlobal) {
+        // the LLRs to the totals, then the hard decisions as their signs
+        const float* src = lam + cw * n;
+        float* dst = totals + cw * n;
+        for (int i = lane; i < n; i += 32) dst[i] = src[i];
+        __syncwarp();
+        int bad = 0;
+        for (int i = 0; i < code.mb; ++i) {
+            for (int c = lane; c < z; c += 32) {
+                int par = 0;
+                for (int e = code.row_ptr[i]; e < code.row_ptr[i + 1]; ++e)
+                    par ^= dst[code.colz[e] + wrap(c + code.shift[e], z)] < 0.0f
+                               ? 1 : 0;
+                bad |= par;
+            }
+        }
+        bad = __any_sync(0xffffffffu, bad);
+        if (lane == 0) {
+            unsat[cw] = bad ? 1 : 0;
+            passes[cw] = 0;
+            if (bad && iters > 0) work[2 + atomicAdd(work, 1)] = static_cast<int>(cw);
+        }
+        return;
+    }
     // the warp's hard decisions: n bytes, then n / 32 bit words
     unsigned char* hard = hard_sm + static_cast<size_t>(w) * check_stride(z);
     const float* src = lam + cw * n;
@@ -217,7 +277,9 @@ minsum_check_kernel(const float* __restrict__ lam, float* __restrict__ totals,
 // True for every thread of the block when any parity check of the current
 // hard decisions is violated. Where z % 32 = 0 each warp packs its share
 // of the totals' signs into bit words by ballots, and a thread takes a
-// (row, 32 checks) word; otherwise thread c takes check c of every row.
+// (row, 32 checks) word; otherwise thread c takes check c of every row
+// (kOneRow: the block has z threads) or checks c, c + blockDim.x, ...
+template <bool kOneRow>
 __device__ __forceinline__ bool unsatisfied(const float* tot, unsigned* words,
                                             const Code& code, int z) {
     const int c = threadIdx.x;
@@ -236,11 +298,14 @@ __device__ __forceinline__ bool unsatisfied(const float* tot, unsigned* words,
             bad |= row_word_bad(words, code, i, 32 * (t - i * (z >> 5)), z);
         }
     } else {
-        for (int i = 0; i < code.mb; ++i) {
-            int par = 0;
-            for (int e = code.row_ptr[i]; e < code.row_ptr[i + 1]; ++e)
-                par ^= tot[code.colz[e] + wrap(c + code.shift[e], z)] < 0.0f ? 1 : 0;
-            bad |= par;
+        for (int r = c; r < z; r += blockDim.x) {
+            for (int i = 0; i < code.mb; ++i) {
+                int par = 0;
+                for (int e = code.row_ptr[i]; e < code.row_ptr[i + 1]; ++e)
+                    par ^= tot[code.colz[e] + wrap(r + code.shift[e], z)] < 0.0f ? 1 : 0;
+                bad |= par;
+            }
+            if (kOneRow) break;   // blockDim.x = z
         }
     }
     return __syncthreads_or(bad) != 0;
@@ -303,12 +368,19 @@ __device__ __forceinline__ void update_row(float* tot, float* c2v,
     }
 }
 
-#define GF3X_ROW(D)                                     \
-    case D:                                             \
-        update_row<D>(tot, c2v, code, e0, c, z);        \
+#define GF3X_ROW(D)                                             \
+    case D:                                                     \
+        if (kOneRow) {                                          \
+            update_row<D>(tot, c2v, code, e0, c, z);            \
+        } else {                                                \
+            for (int r = c; r < z; r += blockDim.x)             \
+                update_row<D>(tot, c2v, code, e0, r, z);        \
+        }                                                       \
         break;
 
-// One sweep's block rows, each compiled for its degree.
+// One sweep's block rows, each compiled for its degree; thread c updates
+// check c of each (kOneRow) or checks c, c + blockDim.x, ...
+template <bool kOneRow>
 __device__ __forceinline__ void sweep(float* tot, float* c2v, const Code& code,
                                       int c, int z) {
     for (int i = 0; i < code.mb; ++i) {
@@ -326,19 +398,33 @@ __device__ __forceinline__ void sweep(float* tot, float* c2v, const Code& code,
 
 #undef GF3X_ROW
 
+// The decode pass's layouts (see the top of the file).
+enum DecodeLayout { kOneCheck, kRowsShared, kC2vGlobal, kAllGlobal };
+
 // Dynamic shared memory: the totals (24·z floats), c2v (E·z), then the
-// hard decisions' bit words (24·z / 32, used where z % 32 = 0).
-__global__ void __launch_bounds__(kMaxZ)
+// hard decisions' bit words (24·z / 32, used where z % 32 = 0); with
+// kC2vGlobal the totals and the bit words (c2v in the block's slice of
+// `scratch`); with kAllGlobal none (c2v, then the bit words, in the slice;
+// the totals in place in the output row).
+template <int kLayout>
+__global__ void __launch_bounds__(kMaxThreads)
 minsum_decode_kernel(const float* __restrict__ lam, float* __restrict__ totals,
                      unsigned char* __restrict__ unsat,
                      int* __restrict__ passes_out, int* __restrict__ work,
+                     float* __restrict__ scratch,
                      const __grid_constant__ Code code, int iters) {
+    constexpr bool kOneRow = kLayout == kOneCheck;
     extern __shared__ __align__(16) float sm[];
     __shared__ int s_cw;
     const int z = code.z, n = kBlockCols * z, n4 = n / 4, ez = code.E * z;
+    float* slice = kLayout < kC2vGlobal ? nullptr
+        : scratch + static_cast<size_t>(blockIdx.x) *
+                        (kLayout == kAllGlobal ? ez + n / 32 + 1 : ez);
     float* tot = sm;
-    float* c2v = sm + n;
-    unsigned* words = reinterpret_cast<unsigned*>(c2v + ez);
+    float* c2v = kLayout >= kC2vGlobal ? slice : sm + n;
+    unsigned* words = reinterpret_cast<unsigned*>(
+        kLayout == kAllGlobal ? slice + ez
+                              : (kLayout == kC2vGlobal ? sm + n : c2v + ez));
     const int c = threadIdx.x;
     const bool vec = aligned16(lam);
     for (;;) {
@@ -349,7 +435,10 @@ minsum_decode_kernel(const float* __restrict__ lam, float* __restrict__ totals,
         __syncthreads();
         const long long cw = s_cw;
         if (cw < 0) return;   // every thread read the same s_cw
-        if (vec) {
+        if constexpr (kLayout == kAllGlobal) {
+            // the check pass copied the LLRs into the totals
+            tot = totals + cw * n;
+        } else if (vec) {
             const float4* s4 = reinterpret_cast<const float4*>(lam + cw * n);
             for (int i = c; i < n4; i += blockDim.x)
                 reinterpret_cast<float4*>(tot)[i] = s4[i];
@@ -363,28 +452,31 @@ minsum_decode_kernel(const float* __restrict__ lam, float* __restrict__ totals,
         int passes = 0;
         bool bad = true;
         while (bad && passes < iters) {
-            sweep(tot, c2v, code, c, z);
+            sweep<kOneRow>(tot, c2v, code, c, z);
             ++passes;
-            bad = unsatisfied(tot, words, code, z);
+            bad = unsatisfied<kOneRow>(tot, words, code, z);
         }
-        float4* d4 = reinterpret_cast<float4*>(totals + cw * n);
-        for (int i = c; i < n4; i += blockDim.x)
-            d4[i] = reinterpret_cast<const float4*>(tot)[i];
+        if constexpr (kLayout != kAllGlobal) {
+            float4* d4 = reinterpret_cast<float4*>(totals + cw * n);
+            for (int i = c; i < n4; i += blockDim.x)
+                d4[i] = reinterpret_cast<const float4*>(tot)[i];
+        }
         if (c == 0) {
             unsat[cw] = bad ? 1 : 0;
             passes_out[cw] = passes;
         }
-        // tot is rewritten only after the next pull's barrier
+        // tot and the slice are rewritten only after the next pull's barrier
     }
 }
 
 // The code from the host's edge tables; false where it exceeds the
 // parameter bank's arrays, a block-row degree is outside 1 ... kMaxDeg or
-// z is outside 1 ... kMaxZ.
+// z is outside 1 ... kMaxLift.
 bool make_code(const int* row_ptr, const int* col, const int* shift, int mb,
                int E, int z, Code* code) {
     if (mb < 1 || mb > kMaxRows || E < 1 || E > kMaxEdges || z < 1
-        || z > kMaxZ || row_ptr[0] != 0 || row_ptr[mb] != E)
+        || z > kMaxLift || row_ptr[0] != 0
+        || row_ptr[mb] != E)
         return false;
     code->mb = mb;
     code->E = E;
@@ -401,73 +493,136 @@ bool make_code(const int* row_ptr, const int* col, const int* shift, int mb,
     return true;
 }
 
-// Blocks of the decode kernel resident on the current device at once,
-// computed once per (device, block size, shared memory).
-int decode_grid(int z, size_t smem, long long L) {
-    static int dev_k = -1, z_k = -1, blocks = 0;
-    static size_t smem_k = 0;
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-    if (dev != dev_k || z != z_k || smem != smem_k) {
-        int sms = 0, per_sm = 0;
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, minsum_decode_kernel, z, smem);
-        blocks = sms * (per_sm > 0 ? per_sm : 1);
-        dev_k = dev;
-        z_k = z;
-        smem_k = smem;
+const void* decode_kernel(int layout) {
+    switch (layout) {
+    case kOneCheck: return reinterpret_cast<const void*>(minsum_decode_kernel<kOneCheck>);
+    case kRowsShared: return reinterpret_cast<const void*>(minsum_decode_kernel<kRowsShared>);
+    case kC2vGlobal: return reinterpret_cast<const void*>(minsum_decode_kernel<kC2vGlobal>);
+    case kAllGlobal: return reinterpret_cast<const void*>(minsum_decode_kernel<kAllGlobal>);
+    default: return nullptr;
     }
-    return static_cast<int>(L < blocks ? L : blocks);
+}
+
+const void* check_kernel(int layout) {
+    switch (layout) {
+    case kCheckEight: return reinterpret_cast<const void*>(minsum_check_kernel<kCheckEight>);
+    case kCheckFew: return reinterpret_cast<const void*>(minsum_check_kernel<kCheckFew>);
+    case kCheckGlobal: return reinterpret_cast<const void*>(minsum_check_kernel<kCheckGlobal>);
+    default: return nullptr;
+    }
 }
 
 }  // namespace
 
+// The check pass: `warps` codewords a block (8 where z ≤ 1076; the wrapper's
+// check_warps), 0 for one warp with the hard decisions in global memory.
 GF3X_EXPORT int gf3x_minsum_check(const float* lam, float* totals,
                                   unsigned char* unsat, int* passes,
                                   int* work, const int* row_ptr,
                                   const int* col, const int* shift,
                                   long long L, int mb, int E, int z,
-                                  int iters, void* stream) {
+                                  int iters, int warps, void* stream) {
     Code code;
-    if (!make_code(row_ptr, col, shift, mb, E, z, &code))
+    if (!make_code(row_ptr, col, shift, mb, E, z, &code) || warps < 0
+        || warps > kCheckWarps)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaMemsetAsync(work, 0, 2 * sizeof(int), s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t smem = static_cast<size_t>(kCheckWarps) * check_stride(z);
-    static size_t smem_set[kMaxDevices] = {};
-    err = gf3x_allow_smem(minsum_check_kernel, smem, smem_set);
+    const int layout = warps == 0 ? kCheckGlobal
+                                  : (warps == kCheckWarps ? kCheckEight : kCheckFew);
+    const int per_block = warps == 0 ? 1 : warps;
+    const size_t smem = static_cast<size_t>(warps) * check_stride(z);
+    static size_t smem_set[3][kMaxDevices] = {};
+    err = gf3x_allow_smem(check_kernel(layout), smem, smem_set[layout]);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (L > 0) {
-        const long long blocks = (L + kCheckWarps - 1) / kCheckWarps;
-        minsum_check_kernel<<<static_cast<unsigned>(blocks), 32 * kCheckWarps,
-                              smem, s>>>(lam, totals, unsat, passes, work,
-                                         code, L, iters);
+        const long long blocks = (L + per_block - 1) / per_block;
+        const dim3 grid(static_cast<unsigned>(blocks)), block(32 * per_block);
+        switch (layout) {
+        case kCheckEight:
+            minsum_check_kernel<kCheckEight><<<grid, block, smem, s>>>(
+                lam, totals, unsat, passes, work, code, L, iters);
+            break;
+        case kCheckFew:
+            minsum_check_kernel<kCheckFew><<<grid, block, smem, s>>>(
+                lam, totals, unsat, passes, work, code, L, iters);
+            break;
+        default:
+            minsum_check_kernel<kCheckGlobal><<<grid, block, smem, s>>>(
+                lam, totals, unsat, passes, work, code, L, iters);
+            break;
+        }
     }
     return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of the decode kernel of `layout` (threads, smem bytes) resident
+// on the current device at once, into out[0]: the wrapper's grid is the
+// smaller of this and the codewords, and the scratch has a slice per block.
+GF3X_EXPORT int gf3x_minsum_decode_blocks(int* out, int layout, int threads,
+                                          int smem, void* stream) {
+    (void)stream;
+    const void* fn = decode_kernel(layout);
+    if (fn == nullptr || threads < 1 || threads > kMaxThreads || smem < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    static size_t smem_set[4][kMaxDevices] = {};
+    err = gf3x_allow_smem(fn, smem, smem_set[layout]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = sms * (per_sm > 0 ? per_sm : 1);
+    return 0;
+}
+
+// The decode pass over the check pass's work list: `grid` blocks of
+// `threads` in `layout` with `smem` bytes (the wrapper's decode_geometry
+// and gf3x_minsum_decode_blocks), c2v (and, kAllGlobal, the bit words) in
+// `scratch`, a slice per block.
 GF3X_EXPORT int gf3x_minsum_decode(const float* lam, float* totals,
                                    unsigned char* unsat, int* passes,
-                                   int* work, const int* row_ptr,
-                                   const int* col, const int* shift,
-                                   long long L, int mb, int E, int z,
-                                   int iters, void* stream) {
+                                   int* work, float* scratch,
+                                   const int* row_ptr, const int* col,
+                                   const int* shift, long long L, int mb,
+                                   int E, int z, int iters, int layout,
+                                   int threads, int smem, int grid,
+                                   void* stream) {
     Code code;
-    if (!make_code(row_ptr, col, shift, mb, E, z, &code))
+    const void* fn = decode_kernel(layout);
+    if (!make_code(row_ptr, col, shift, mb, E, z, &code) || fn == nullptr
+        || threads < 1 || threads > kMaxThreads || smem < 0 || grid < 0
+        || (layout == kOneCheck && threads != z)
+        || (layout != kOneCheck && threads % 32 != 0)
+        || (layout >= kC2vGlobal && grid > 0 && scratch == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = ((static_cast<size_t>(E) + kBlockCols) * z +
-                         kBlockCols * z / 32) * sizeof(float);
-    static size_t smem_set[kMaxDevices] = {};
-    const cudaError_t err = gf3x_allow_smem(minsum_decode_kernel, smem,
-                                            smem_set);
+    static size_t smem_set[4][kMaxDevices] = {};
+    const cudaError_t err = gf3x_allow_smem(fn, smem, smem_set[layout]);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int grid = decode_grid(z, smem, L);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (grid > 0) {
-        minsum_decode_kernel<<<grid, z, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-            lam, totals, unsat, passes, work, code, iters);
+        switch (layout) {
+        case kOneCheck:
+            minsum_decode_kernel<kOneCheck><<<grid, threads, smem, s>>>(
+                lam, totals, unsat, passes, work, scratch, code, iters);
+            break;
+        case kRowsShared:
+            minsum_decode_kernel<kRowsShared><<<grid, threads, smem, s>>>(
+                lam, totals, unsat, passes, work, scratch, code, iters);
+            break;
+        case kC2vGlobal:
+            minsum_decode_kernel<kC2vGlobal><<<grid, threads, smem, s>>>(
+                lam, totals, unsat, passes, work, scratch, code, iters);
+            break;
+        default:
+            minsum_decode_kernel<kAllGlobal><<<grid, threads, smem, s>>>(
+                lam, totals, unsat, passes, work, scratch, code, iters);
+            break;
+        }
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -75,16 +75,21 @@ struct TrackOut {
     float* nv_sym;       // (B, D)
     int warps;           // W: warp w takes data symbols w, w + W, ...
     int nbuf;            // symbol buffers per warp: 2 when W < D, else 1
+    float* scratch;      // the spilled layout's pilot scratch, else null
 };
 
 // Dynamic shared memory, in floats (the wrapper's fused_eq_geometry with
 // demap=False computes the same). Staged: Ĥ (2U) | W·nbuf symbol buffers
 // (2U each) | |Ĥ|² (U) | W pilot scratches (4P each) | the pilot positions
 // (P ints). Streamed (nbuf = 0): the pilot scratches and positions alone.
+// Spilled (past the streamed layout's pilot bound): none; the pilot
+// scratch in a.scratch, the positions read from the table (fused_eq.cu).
 // Below two pilots the bins are not derotated.
-template <bool kStreamed>
+template <int kLayout>
 __global__ void __launch_bounds__(1024)
 eq_track_kernel(const __grid_constant__ TrackOut a) {
+    constexpr bool kStreamed = kLayout != kStagedBins;
+    constexpr bool kSpilled = kLayout == kSpilledBins;
     extern __shared__ __align__(16) float sm[];
     const TrackArgs& t = a.t;
     const int U = t.U, P = t.P, D = t.D, W = a.warps;
@@ -94,11 +99,13 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
     float2* hs = reinterpret_cast<float2*>(sm);
     float2* buf = hs + U + static_cast<size_t>(w) * a.nbuf * U;
     float* h2s = sm + 2 * U + 2 * U * W * a.nbuf;
-    float* zr = sm + rows + 4 * P * w;
+    float* zr = kSpilled ? gf3x_spilled_scratch(a.scratch, b, W, w, P)
+                         : sm + rows + 4 * P * w;
     float* zi = zr + P;
     float* dr = zi + P;
     float* di = dr + P;
-    int* kp = reinterpret_cast<int*>(sm + rows + 4 * P * W);
+    int* s_pos = reinterpret_cast<int*>(sm + rows + 4 * P * W);
+    const int* kp = kSpilled ? t.pos : s_pos;
     const float2* hrow = t.h + static_cast<long long>(b) * U;
 
     if constexpr (!kStreamed) {
@@ -110,7 +117,7 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
             h2s[k] = gf3x_abs2(h);
         }
     }
-    gf3x_stage_layout(t, kp, P);
+    if constexpr (!kSpilled) gf3x_stage_layout(t, s_pos, P);
     __syncthreads();
     const bool derotate = P >= 2;
 
@@ -286,17 +293,17 @@ demap_bins_kernel(const __grid_constant__ DemapArgs a) {
     }
 }
 
-template <bool kStreamed>
+template <int kLayout>
 cudaError_t launch_track(const TrackOut& a, long long B, int smem,
                          cudaStream_t stream) {
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            eq_track_kernel<kStreamed>,
+            eq_track_kernel<kLayout>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return e;
     }
     if (B > 0) {
-        eq_track_kernel<kStreamed>
+        eq_track_kernel<kLayout>
             <<<static_cast<unsigned>(B), 32 * a.warps, smem, stream>>>(a);
     }
     return cudaGetLastError();
@@ -323,7 +330,7 @@ GF3X_EXPORT int gf3x_eq_track(
         const int* pos, float* eq, float* slope, float* cpe, float* nv_sym,
         long long B, int S, int K, int U, int P, int n_ladder, int q0,
         float base0, int q1, float base1, float mean_dk, int warps, int nbuf,
-        int smem, void* stream) {
+        int smem, float* scratch, void* stream) {
     TrackOut a;
     a.t.y = reinterpret_cast<const float2*>(y);
     a.t.h = reinterpret_cast<const float2*>(h);
@@ -347,9 +354,16 @@ GF3X_EXPORT int gf3x_eq_track(
     a.nv_sym = nv_sym;
     a.warps = warps;
     a.nbuf = nbuf;
+    a.scratch = scratch;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return static_cast<int>(nbuf == 0 ? launch_track<true>(a, B, smem, st)
-                                      : launch_track<false>(a, B, smem, st));
+    switch (gf3x_bins_layout(nbuf, scratch)) {
+    case kStagedBins:
+        return static_cast<int>(launch_track<kStagedBins>(a, B, smem, st));
+    case kStreamedBins:
+        return static_cast<int>(launch_track<kStreamedBins>(a, B, smem, st));
+    default:
+        return static_cast<int>(launch_track<kSpilledBins>(a, B, smem, st));
+    }
 }
 
 GF3X_EXPORT int gf3x_demap_bins(

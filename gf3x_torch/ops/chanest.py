@@ -34,18 +34,24 @@ def denoise_projection(cfg: ModemConfig) -> np.ndarray:
     return P.astype(np.complex64)
 
 
-@functools.lru_cache(maxsize=None)
 def _isi_operator(cfg: ModemConfig):
     """Host tables of the beyond-CP ISI measure: (M, q, t0), or None when
     the geometry leaves no tail window. M maps the raw Ĥ to the response of
     the taps beyond t0 + (cp − backoff); q[k] = Σ_j |M_kj|² is its per-bin
-    noise gain."""
-    U, N, cp = cfg.n_used, cfg.n_fft, cfg.cp
+    noise gain. Cached by the band's geometry alone, so configs that differ
+    only past the channel estimate (FEC, loading, constellation) share its
+    U × U solve (about 45 s on the host at U = 7616)."""
+    return _isi_tables(cfg.n_fft, cfg.cp, cfg.bin_lo, cfg.bin_hi)
+
+
+@functools.lru_cache(maxsize=None)
+def _isi_tables(N: int, cp: int, bin_lo: int, bin_hi: int):
+    U = bin_hi - bin_lo + 1
     t0 = min(16, U // 8)
     safe = t0 + cp - cp // 4
     if safe >= U - 4:
         return None
-    k = np.arange(cfg.bin_lo, cfg.bin_hi + 1, dtype=np.float64)
+    k = np.arange(bin_lo, bin_hi + 1, dtype=np.float64)
     t = np.arange(U, dtype=np.float64)
     W = np.exp(-2j * np.pi * np.outer(k, t) / N)
     G = W.conj().T @ W + 1e-6 * U * np.eye(U)

@@ -20,13 +20,17 @@ the layout and the shared memory of either for a batch, and the CPU tests
 reach it. The staged layout holds Ĥ and each warp's symbols in shared
 memory; a band whose staged layout fits no warp count (gf3-16384, U =
 7616) takes the streamed one, which reads them from global memory and
-gives the same bits. Both kernels read the pilot layout from a table
-(`layout_table`), so every layout runs on them: strided, offset, a
-spacing that does not tile the band, one pilot or none.
+gives the same bits. Past MAX_STREAMED_PILOTS pilots, where even one
+warp's pilot scratch does not fit a block, the spilled layout keeps it in
+a global buffer the wrapper allocates (and reads the pilot positions from
+the layout table there), again with the same bits. Both kernels read the
+pilot layout from a table (`layout_table`), so every layout runs on them:
+strided, offset, a spacing that does not tile the band, one pilot or none.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 
@@ -40,7 +44,8 @@ from .split_eq import (check_track_inputs, demap_bins_plain, eq_track_plain,
                        track_constants)
 
 __all__ = ["fused_eq_demap", "fused_eq_demap_plain", "fused_eq_geometry",
-           "FusedGeometry", "launch_constants", "layout_table", "pick_warps"]
+           "FusedGeometry", "launch_constants", "layout_table", "pick_warps",
+           "spill_scratch"]
 
 SMEM_BLOCK = 232_448     # dynamic shared memory one block may use (227 KB)
 SMEM_SM = 233_472        # shared memory of one SM (228 KB)
@@ -71,12 +76,14 @@ class FusedGeometry:
     `nbuf` shared-memory symbol buffers (2: the next symbol's copy overlaps
     the current one's work; 0: the streamed layout, which stages no
     symbol and reads every bin from global memory); `smem` bytes of dynamic
-    shared memory per block."""
+    shared memory per block. `spill` (kernels 2 and A, streamed): the warps'
+    pilot scratch lives in a global buffer of `scratch_floats(B, P)`."""
 
     warps: int
     passes: int
     nbuf: int
     smem: int
+    spill: bool = False
 
     @property
     def streamed(self) -> bool:
@@ -85,6 +92,11 @@ class FusedGeometry:
     def symbols(self, warp: int, D: int) -> range:
         """The data symbols warp `warp` of a block takes."""
         return range(warp, D, self.warps)
+
+    def scratch_floats(self, B: int, P: int) -> int:
+        """The spilled layout's global pilot scratch: 4P floats for each
+        warp of each of B frames (0 for the other layouts)."""
+        return B * self.warps * 4 * P if self.spill else 0
 
 
 def _smem_bytes(U: int, P: int, warps: int, nbuf: int,
@@ -99,7 +111,8 @@ def _smem_bytes(U: int, P: int, warps: int, nbuf: int,
 
 
 # the streamed layout's one limit: a warp's pilot scratch (4P floats), the
-# pilot positions (P ints) and kernel 2's two sums in one block
+# pilot positions (P ints) and kernel 2's two sums in one block; past it
+# the spilled layout
 MAX_STREAMED_PILOTS = (SMEM_BLOCK // 4 - 2) // 5
 
 
@@ -107,6 +120,11 @@ def _streamed_smem_bytes(P: int, warps: int, demap: bool = True) -> int:
     """The streamed layout: the warps' pilot scratch (4P each) and the pilot
     positions (P ints); kernel 2 (`demap`) adds the warps' two sums."""
     return 4 * (P + warps * (4 * P + (2 if demap else 0)))
+
+
+def _spilled_smem_bytes(warps: int, demap: bool = True) -> int:
+    """The spilled layout: kernel 2's warps' two sums alone."""
+    return 4 * 2 * warps if demap else 0
 
 
 def streamed_geometry(staged: FusedGeometry | None, D: int, B: int, sms: int,
@@ -149,26 +167,28 @@ def pick_warps(D: int, B: int, sms: int, smem_of) -> FusedGeometry | None:
 
 @functools.lru_cache(maxsize=None)
 def fused_eq_geometry(cfg: ModemConfig, B: int, sms: int = H100_SMS,
-                      demap: bool = True,
-                      streamed: bool = False) -> FusedGeometry:
+                      demap: bool = True, streamed: bool = False,
+                      spilled: bool = False) -> FusedGeometry:
     """Warps per block for a batch of B frames on `sms` SMs, for kernel 2
     (`demap`) or kernel A (`pick_warps`): the staged layout where a warp
     count fits it, else (or with `streamed`, which only the tests and
-    chip_smoke.py pass) the streamed one (`streamed_geometry`). Raises past
-    MAX_STREAMED_PILOTS pilots, where neither fits."""
+    chip_smoke.py pass) the streamed one (`streamed_geometry`), else — past
+    MAX_STREAMED_PILOTS pilots, or with `spilled` — the spilled one, the
+    streamed layout with the pilot scratch in global memory. A forced
+    layout keeps the warps of the one the batch would take, so each frame's
+    sums keep their order."""
     U, P, D = cfg.n_used, cfg.n_pilots, cfg.n_data_symbols
     best = pick_warps(D, B, sms,
                       lambda warps, nbuf: _smem_bytes(U, P, warps, nbuf,
                                                       demap))
-    if best is None or streamed:
+    if best is None or streamed or spilled:
         best = streamed_geometry(best, D, B, sms,
                                  lambda warps: _streamed_smem_bytes(P, warps,
                                                                     demap))
-    if best is None:
-        raise ValueError(f"fused_eq_geometry: P={P} pilots exceed the "
-                         f"streamed layout's bound of {MAX_STREAMED_PILOTS} "
-                         f"(one warp's pilot scratch in {SMEM_BLOCK} bytes "
-                         "of shared memory)")
+    if best is None or spilled:
+        best = dataclasses.replace(streamed_geometry(
+            best, D, B, sms, lambda warps: _spilled_smem_bytes(warps, demap)),
+            spill=True)
     return best
 
 
@@ -202,6 +222,15 @@ def layout_table(cfg: ModemConfig, device: torch.device) -> torch.Tensor:
                            .astype(np.int32), device=device)
 
 
+def spill_scratch(geo: FusedGeometry, B: int, P: int,
+                  dev: torch.device) -> torch.Tensor | None:
+    """The spilled layout's global pilot scratch on the caller's stream
+    (None for the other layouts); freed after the launch, its memory is
+    reused only by later work on that stream."""
+    n = geo.scratch_floats(B, P)
+    return torch.empty(n, device=dev) if n else None
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -210,10 +239,10 @@ def _sm_count(index: int) -> int:
 def fused_eq_demap(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
                    noise_var: torch.Tensor,
                    pilot_vals: torch.Tensor | None = None, *,
-                   streamed: bool = False):
+                   streamed: bool = False, spilled: bool = False):
     """`fused_eq_demap_plain` for CPU tensors; the CUDA kernel otherwise
     (any pilot layout and band, QPSK to 64-QAM), in the layout
-    `fused_eq_geometry` picks (`streamed` forces the streamed one). A
+    `fused_eq_geometry` picks (`streamed` and `spilled` force those). A
     bit-loaded config takes the split tail (`split_eq`) on either
     device."""
     if cfg.bit_loading is not None:
@@ -230,7 +259,8 @@ def fused_eq_demap(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
                              .contiguous()))
     (mean_dk, n_ladder, q0, b0, q1, b1), _, levels, evm_div, abs_div = \
         launch_constants(cfg)
-    geo = fused_eq_geometry(cfg, B, _sm_count(dev.index), streamed=streamed)
+    geo = fused_eq_geometry(cfg, B, _sm_count(dev.index), streamed=streamed,
+                            spilled=spilled)
     # the inputs stay bound until the launch: a temporary's memory could be
     # handed to the next allocation before the kernel reads it
     y, h = Y.contiguous(), H.contiguous()
@@ -238,12 +268,14 @@ def fused_eq_demap(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
     llr = torch.empty(B, cfg.raw_bits_per_frame, device=dev)
     slope, cpe = torch.empty(2, B, D, device=dev)
     evm, mabs = torch.empty(2, B, device=dev)
+    scratch = spill_scratch(geo, B, cfg.n_pilots, dev)
     launch("gf3x_fused_eq_demap", dev.index, y.data_ptr(), h.data_ptr(),
            nv.data_ptr(), pv.data_ptr(), layout_table(cfg, dev).data_ptr(),
            llr.data_ptr(), slope.data_ptr(), cpe.data_ptr(), evm.data_ptr(),
            mabs.data_ptr(), B, S, cfg.n_known_symbols, U, cfg.n_pilots,
            cfg.bits_per_symbol // 2, levels, n_ladder, q0, b0, q1, b1, mean_dk,
-           geo.warps, geo.nbuf, geo.smem, evm_div, abs_div)
+           geo.warps, geo.nbuf, geo.smem, evm_div, abs_div,
+           0 if scratch is None else scratch.data_ptr())
     fused_eq_demap.launches += 1
     return llr, slope, cpe, evm, mabs
 

@@ -14,11 +14,22 @@ to (totals (L, 24·z) f32, unsat (L,) bool — a parity check of the final
 hard decisions is still violated —, passes (L,) int32 — message sweeps the
 codeword ran before it froze or hit `iters`). With the freeze rule each
 codeword decodes independently of the batch, so decoding the failing ones
-alone gives the whole batch's result."""
+alone gives the whole batch's result.
+
+Every lift z ≥ 1 launches. `check_warps` and `decode_geometry` give the
+two passes' layouts: up to z = 512 a thread per check with everything in
+shared memory; above it a block of at most 512 threads, each taking
+several checks of a block row; where the messages no longer fit shared
+memory (z > 576 at rate 1/2) they move to a global scratch that the
+wrapper allocates, a slice per resident block, and where the totals do
+not fit either (z > 2348) those too. The check pass takes fewer codewords
+a block past z = 1076 and reads its hard decisions from global memory
+past 8609. Every layout gives the plain version's bits."""
 
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -28,10 +39,17 @@ from ...utils.device import launch
 
 __all__ = ["minsum_totals", "minsum_totals_plain", "minsum_check",
            "minsum_check_plain", "minsum_decode", "minsum_decode_plain",
-           "row_edges", "kernel_edges"]
+           "row_edges", "kernel_edges", "check_warps", "decode_geometry",
+           "DecodeGeometry"]
 
 _ALPHA = 0.8
 _BIG = 1e30
+SMEM_BLOCK = 232_448     # dynamic shared memory one block may use (227 KB)
+CHECK_WARPS = 8          # codewords a block of the check pass, where they fit
+MAX_THREADS = 512        # the decode pass's block
+MAX_LIFT = 0x7FFFFFFF // 128   # the kernels' int32 indices (csrc kMaxLift)
+# the decode pass's layouts (csrc/ldpc_bp.cu's DecodeLayout)
+ONE_CHECK, ROWS_SHARED, C2V_GLOBAL, ALL_GLOBAL = range(4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,14 +142,82 @@ def kernel_edges(z: int, rate: str) -> tuple:
     return (ptr, col, shf), tuple(a.ctypes.data for a in (ptr, col, shf))
 
 
+def check_stride(z: int) -> int:
+    """Shared memory per codeword of the check pass: its hard decisions as
+    bytes (24·z) and bit words (3·z bytes), rounded up to 16 bytes."""
+    return (27 * z + 15) & ~15
+
+
+def check_warps(z: int) -> int:
+    """Codewords (warps) a block of the check pass takes: 8 where their
+    hard decisions fit a block's shared memory (z ≤ 1076), else as many as
+    fit (z ≤ 8609); 0 past that: one warp a block reading the hard
+    decisions from the totals it wrote to global memory."""
+    return min(CHECK_WARPS, SMEM_BLOCK // check_stride(z))
+
+
+@dataclass(frozen=True)
+class DecodeGeometry:
+    """The decode pass's launch at one lift: `layout` (ONE_CHECK: a thread
+    per check, everything in shared memory; ROWS_SHARED: several checks a
+    thread; C2V_GLOBAL: the messages in a global scratch; ALL_GLOBAL: the
+    totals too, in place in the output), `threads` a block, checks of a
+    block row per thread at most (`rows`), dynamic shared memory bytes
+    (`smem`) and scratch floats per resident block (`slice`)."""
+
+    layout: int
+    threads: int
+    rows: int
+    smem: int
+    slice: int
+
+    def checks(self, thread: int, z: int) -> range:
+        """The checks of a block row that `thread` updates."""
+        return range(thread, z, self.threads)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_geometry(z: int, rate: str) -> DecodeGeometry:
+    """The decode pass's layout for lift z at `rate` (E edges): shared
+    memory holds the totals (24·z floats), the messages (E·z) and the hard
+    decisions' bit words (24·z / 32) where they fit a block's 227 KB, the
+    totals and bit words where only those fit, else nothing."""
+    E = sum(len(r) for r in row_edges(z, rate))
+    words = N_BLOCK_COLS * z // 32
+    shared = 4 * ((E + N_BLOCK_COLS) * z + words)
+    if z <= MAX_THREADS:
+        return DecodeGeometry(ONE_CHECK, z, 1, shared, 0)
+    per = -(-z // -(-z // MAX_THREADS))          # checks over ⌈z/512⌉ rows
+    threads = -(-per // 32) * 32
+    rows = -(-z // threads)
+    if shared <= SMEM_BLOCK:
+        return DecodeGeometry(ROWS_SHARED, threads, rows, shared, 0)
+    tot = 4 * (N_BLOCK_COLS * z + words)
+    if tot <= SMEM_BLOCK:
+        return DecodeGeometry(C2V_GLOBAL, threads, rows, tot, E * z)
+    return DecodeGeometry(ALL_GLOBAL, threads, rows, 0, E * z + words + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(index: int, layout: int, threads: int,
+                     smem: int) -> int:
+    """Blocks of the decode kernel of this layout resident on CUDA device
+    `index` at once (the kernel's occupancy times the SMs)."""
+    out = np.zeros(1, np.int32)
+    launch("gf3x_minsum_decode_blocks", index, out.ctypes.data, layout,
+           threads, smem)
+    return int(out[0])
+
+
 def _check_lam(name: str, lam: torch.Tensor, z: int) -> None:
     if lam.device.type != "cuda":
         raise ValueError(f"{name}: lam on {lam.device}")
     if lam.dtype != torch.float32 or lam.dim() != 2 \
             or lam.shape[1] != N_BLOCK_COLS * z \
-            or not lam.is_contiguous() or not 1 <= z <= 512:
+            or not lam.is_contiguous() or not 1 <= z <= MAX_LIFT:
         raise ValueError(f"{name}: needs contiguous lam (L, 24·z) float32 "
-                         "with 1 ≤ z ≤ 512 (the decode pass's block)")
+                         f"with 1 ≤ z ≤ {MAX_LIFT} (the kernels' int32 "
+                         "indices)")
 
 
 def _check_pass(lam: torch.Tensor, z: int, rate: str, iters: int):
@@ -147,7 +233,7 @@ def _check_pass(lam: torch.Tensor, z: int, rate: str, iters: int):
     launch("gf3x_minsum_check", lam.device.index, lam.data_ptr(),
            totals.data_ptr(), unsat.data_ptr(), passes.data_ptr(),
            work.data_ptr(), ptr_a, col_a, shf_a, L, block_rows(rate),
-           col.size, z, iters)
+           col.size, z, iters, check_warps(z))
     minsum_check.launches += 1
     return totals, unsat, passes, work
 
@@ -181,10 +267,18 @@ def minsum_decode(lam: torch.Tensor, totals: torch.Tensor,
         raise ValueError("minsum_decode: needs the check pass's totals, "
                          "unsat, passes and work list")
     (_, col, _), (ptr_a, col_a, shf_a) = kernel_edges(z, rate)
-    launch("gf3x_minsum_decode", lam.device.index, lam.data_ptr(),
-           totals.data_ptr(), unsat.data_ptr(), passes.data_ptr(),
-           work.data_ptr(), ptr_a, col_a, shf_a, L, block_rows(rate),
-           col.size, z, iters)
+    geo = decode_geometry(z, rate)
+    index = lam.device.index
+    grid = min(L, _resident_blocks(index, geo.layout, geo.threads, geo.smem))
+    # the messages' scratch, a slice per resident block, on the caller's
+    # stream: freed after the launch, it is reused only by later work there
+    scratch = (torch.empty(grid * geo.slice, device=lam.device)
+               if geo.slice and grid else None)
+    launch("gf3x_minsum_decode", index, lam.data_ptr(), totals.data_ptr(),
+           unsat.data_ptr(), passes.data_ptr(), work.data_ptr(),
+           0 if scratch is None else scratch.data_ptr(), ptr_a, col_a, shf_a,
+           L, block_rows(rate), col.size, z, iters, geo.layout, geo.threads,
+           geo.smem, grid)
     minsum_decode.launches += 1
     return totals, unsat, passes
 

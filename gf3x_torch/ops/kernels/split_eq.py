@@ -121,15 +121,15 @@ def check_track_inputs(name: str, cfg: ModemConfig, Y, H, noise_var):
 
 def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
              noise_var: torch.Tensor, pilot_vals: torch.Tensor | None = None,
-             *, streamed: bool = False):
+             *, streamed: bool = False, spilled: bool = False):
     """`eq_track_plain` for CPU tensors; kernel A otherwise, launched with
     kernel 2's per-config constants and its layout
-    (`fused_eq.fused_eq_geometry(..., demap=False)`; `streamed` forces the
-    streamed one)."""
+    (`fused_eq.fused_eq_geometry(..., demap=False)`; `streamed` and
+    `spilled` force those)."""
     if Y.device.type == "cpu":
         return eq_track_plain(cfg, Y, H, noise_var, pilot_vals)
     from .fused_eq import (_pilot_floats, _sm_count, fused_eq_geometry,
-                           launch_constants, layout_table)
+                           launch_constants, layout_table, spill_scratch)
 
     check_track_inputs("eq_track", cfg, Y, H, noise_var)
     dev = Y.device
@@ -140,18 +140,20 @@ def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
                              .contiguous()))
     mean_dk, n_ladder, q0, b0, q1, b1 = launch_constants(cfg)[0]
     geo = fused_eq_geometry(cfg, B, _sm_count(dev.index), demap=False,
-                            streamed=streamed)
+                            streamed=streamed, spilled=spilled)
     # the inputs stay bound until the launch: a temporary's memory could be
     # handed to the next allocation before the kernel reads it
     y, h = Y.contiguous(), H.contiguous()
     nv = noise_var.to(torch.float32).contiguous()
     eq = torch.empty(B, D, U, dtype=torch.complex64, device=dev)
     slope, cpe, nv_sym = torch.empty(3, B, D, device=dev)
+    scratch = spill_scratch(geo, B, cfg.n_pilots, dev)
     launch("gf3x_eq_track", dev.index, y.data_ptr(), h.data_ptr(),
            nv.data_ptr(), pv.data_ptr(), layout_table(cfg, dev).data_ptr(),
            eq.data_ptr(), slope.data_ptr(), cpe.data_ptr(), nv_sym.data_ptr(),
            B, S, cfg.n_known_symbols, U, cfg.n_pilots, n_ladder, q0, b0, q1,
-           b1, mean_dk, geo.warps, geo.nbuf, geo.smem)
+           b1, mean_dk, geo.warps, geo.nbuf, geo.smem,
+           0 if scratch is None else scratch.data_ptr())
     eq_track.launches += 1
     return eq, slope, cpe, nv_sym
 

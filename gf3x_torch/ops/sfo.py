@@ -10,6 +10,9 @@ waveform is the transmitted one resampled by (1 + δ).
    δ·(N/2) samples apart, so each occupied half-grid bin q sees
    Y₂[q] = Y₁[q]·e^{iθq}; the phase slope over q, read unwrap-free from
    adjacent-bin increments and refined on a quarter-band baseline, gives δ.
+   At the wide bands (n_fft ≥ 4096) a stage at a 32-bin baseline comes
+   between the two, where gf3x's single step aliases
+   (SC_SINGLE_STAGE_MAX_LAG).
 2. `slope_clock_offset`: per-symbol pilot phase slopes (rad/bin) are
    2π·(window shift)/N, and the shift grows by δ·symbol_len per symbol; a
    least-squares line over the frame's D symbols gives δ."""
@@ -30,6 +33,18 @@ __all__ = ["sc_clock_offset", "slope_clock_offset", "SLOPE_PPM_RANGE",
 #: |δ| (ppm) beyond which the per-symbol pilot-slope fit starts aliasing on
 #: GF3-like geometry: the sfo='auto' threshold for the correction loop.
 SLOPE_PPM_RANGE = 350.0
+
+#: The SC estimator's refinement lag (nq // 4 half-grid bins) up to which
+#: one refinement follows the adjacent-bin estimate, as in gf3x; above it
+#: a stage at lag SC_MID_LAG comes first. The adjacent-bin estimate carries
+#: a leakage bias of up to ~0.03 rad a bin at the wide bands (the guarded
+#: window is half a symbol, so neighbouring half-grid bins mix), and a
+#: single refinement at lag Q aliases once Q times that error passes π:
+#: gf3x's estimator then lands one ambiguity step (2π/Q a bin) off, on
+#: every window at gf3-8192 (Q = 280). Every geometry gf3x's tests run
+#: (Q = 35 at n_fft 1024, 70 at 2048) keeps gf3x's single stage.
+SC_SINGLE_STAGE_MAX_LAG = 96
+SC_MID_LAG = 32
 
 
 def auto_retry_needed(crc_ok: bool, clock_ppm) -> bool:
@@ -100,10 +115,12 @@ def sc_clock_offset(cfg: ModemConfig, sc_win: torch.Tensor,
     a = torch.angle(torch.sum(inc, dim=-1)) / dq                 # rad per q
     nq = q.shape[0]
     Q = max(2, nq // 4)
-    zd = rho * torch.exp(-1j * a[..., None] * qt)
-    corr = torch.sum(zd[..., Q:] * torch.conj(zd[..., :-Q]), dim=-1)
-    base = np.float32(np.mean(q[Q:] - q[:-Q]))
-    a = a + torch.angle(corr) / base
+    lags = [Q] if Q <= SC_SINGLE_STAGE_MAX_LAG else [SC_MID_LAG, Q]
+    for lag in lags:
+        zd = rho * torch.exp(-1j * a[..., None] * qt)
+        corr = torch.sum(zd[..., lag:] * torch.conj(zd[..., :-lag]), dim=-1)
+        base = np.float32(np.mean(q[lag:] - q[:-lag]))
+        a = a + torch.angle(corr) / base
     tau = a * np.float32(half / (2.0 * np.pi))                   # samples
     return tau / np.float32(half)
 

@@ -17,6 +17,8 @@ holds them, in both layouts, against these plain versions there. Here:
 their launch geometry (staged where a warp count fits, else streamed),
 kernel B's slot table past 2¹⁴ bins, and kernel 8's route."""
 
+from collections import Counter
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -263,20 +265,62 @@ def test_wide_geometry_picks_its_layout(name):
         assert geos[0] == forced[0] and geos[2].smem == 4 * 16
 
 
-def test_streamed_layout_refuses_past_the_pilot_scratch_bound():
+def test_spilled_layout_past_the_pilot_scratch_bound():
     """The streamed layout's one limit is one warp's pilot scratch and the
-    pilot positions (5P words) in a block: a band with more pilots than
-    MAX_STREAMED_PILOTS (n_fft = 65536 at spacing 2) is refused with a
-    ValueError naming that bound; at spacing 3 it fits one warp."""
+    pilot positions (5P words) in a block: past MAX_STREAMED_PILOTS pilots
+    (n_fft = 65536 at spacing 2, chip_smoke.SPILL_BAND) kernels 2 and A
+    take the spilled layout — no symbol buffers, the pilot scratch (4P
+    floats a warp) in a global buffer, shared memory only for kernel 2's
+    two sums a warp — whose launch covers every (frame, data symbol) once
+    and gives every warp a symbol; at spacing 3 the streamed layout still
+    fits. Forced (`spilled=True`) at config 5 the spill keeps the staged
+    warps, so each frame's sums keep their order."""
     bound = fused_eq.MAX_STREAMED_PILOTS
     assert 4 * (5 * bound + 2) <= fused_eq.SMEM_BLOCK \
         < 4 * (5 * (bound + 1) + 2)
-    band = dict(n_fft=65536, cp=16384, bin_lo=1536, bin_hi=31999)
-    over = GF3_STANDARD.replace(pilot_spacing=2, **band)
-    under = GF3_STANDARD.replace(pilot_spacing=3, **band)
+    over = GF3_STANDARD.replace(**chip_smoke.SPILL_BAND)
+    under = over.replace(pilot_spacing=3)
+    assert (over.n_used, over.n_pilots) == (31232, 15616)
     assert under.n_pilots <= bound < over.n_pilots
+    D, P = over.n_data_symbols, over.n_pilots
     for demap in (True, False):
-        with pytest.raises(ValueError, match=f"bound of {bound}"):
-            fused_eq.fused_eq_geometry(over, 8, demap=demap)
+        for B in (1, 4, 64):
+            geo = fused_eq.fused_eq_geometry(over, B, demap=demap)
+            assert geo.spill and geo.streamed and geo.nbuf == 0
+            assert geo.smem == (8 * geo.warps if demap else 0)
+            assert geo.scratch_floats(B, P) == B * geo.warps * 4 * P
+            seen = Counter((b, d) for b in range(B)
+                           for w in range(geo.warps)
+                           for d in geo.symbols(w, D))
+            assert len(seen) == B * D and set(seen.values()) == {1}
+            assert all(geo.symbols(w, D) for w in range(geo.warps))
         geo = fused_eq.fused_eq_geometry(under, 8, demap=demap)
-        assert geo.streamed and geo.smem <= fused_eq.SMEM_BLOCK
+        assert geo.streamed and not geo.spill
+        assert geo.smem <= fused_eq.SMEM_BLOCK
+        staged = fused_eq.fused_eq_geometry(GF3_STANDARD, 1024, demap=demap)
+        forced = fused_eq.fused_eq_geometry(GF3_STANDARD, 1024, demap=demap,
+                                            spilled=True)
+        assert not staged.spill and staged.scratch_floats(1024, 35) == 0
+        assert forced.spill and forced.nbuf == 0
+        assert (forced.warps, forced.passes) == (staged.warps, staged.passes)
+
+
+def test_spilled_layout_plain_tail_at_its_pilot_count():
+    """At the spilled layout's band (U = 31 232, P = 15 616, built in the
+    frequency domain as chip_smoke.spill_inputs builds it on the card) the
+    plain tails the kernels are held to there agree: kernel 2's plain
+    version is A's then B's (`fused_eq_demap_plain`), with the pilot fit
+    tracking the planted 2e-4 rad/bin slope and every data bin decided as
+    sent at 30 dB; `spilled` only picks the card's layout."""
+    cfg = GF3_STANDARD.replace(n_data_symbols=2, **chip_smoke.SPILL_BAND)
+    Y, H, nv = chip_smoke.spill_inputs(cfg, 1, torch.device("cpu"))
+    llr, slope, cpe, evm, mabs = fused_eq.fused_eq_demap(cfg, Y, H, nv,
+                                                         spilled=True)
+    eq, slope_a, cpe_a, nv_sym = split_eq.eq_track(cfg, Y, H, nv,
+                                                   spilled=True)
+    assert torch.equal(slope, slope_a) and torch.equal(cpe, cpe_a)
+    assert llr.shape == (1, cfg.raw_bits_per_frame)
+    assert torch.all((slope - 2e-4).abs() < 2e-6)
+    assert torch.all(torch.isfinite(evm)) and float(evm.max()) < 0.01
+    llr_b, _, _ = split_eq.demap_bins_plain(cfg, eq, H, nv_sym)
+    assert torch.equal(llr_b < 0, llr < 0)
