@@ -54,9 +54,12 @@ drives the receive paths once each through the port's entry points:
   and 16384, CP = N/4): config 5's batch recipe at gf3-4096 (QPSK, B =
   1024), gf3-8192 (64-QAM and bit-loaded, B = 1024) and gf3-16384 (64-QAM
   and bit-loaded, pilot spacing 4, B = 64) — kernels 6, 2 or A and B, and
-  3; kernels 2, A and B held against their plain versions and in both
-  layouts (staged and streamed, sha256 of every output), kernel 2 bit for
-  bit against A + B; `use_cut_dft` on each band and on an aligned CP
+  3; kernels 2, A and B held against their plain versions and the layout
+  each picks against the forced ones (kernels 2 and A: teamed against
+  streamed and spilled; B: staged against streamed; sha256), kernel 2 bit
+  for bit against A + B; a torch.profiler trace of one gf3-8192 and one
+  gf3-16384 step ("wide trace": device-busy share, top five device ops);
+  `use_cut_dft` on each band and on an aligned CP
   (kernel 8 at n_fft 4096 only) and `Modem.decode` of one gf3-4096
   recording (kernels 7, 2, 3);
   and, on each uniform band, its other routes: `demodulate_sfo` and
@@ -65,11 +68,17 @@ drives the receive paths once each through the port's entry points:
   `decode(sync='sc', sfo='on')` of one recording, the warped DFT held to
   its float32 formula evaluated on the host (its error against float64
   printed), and each band's `Modem(cfg)` construction timed;
-- kernels 2 and A past the streamed layout's pilot bound (the spilled
+- kernels 2 and A past the pilot bound of shared memory (the spilled
   layout, pilot scratch in global memory): forced at config 5 against the
   staged layout's sha256, and at a synthetic n_fft = 65536 band of 15 616
   pilots (inputs built in the frequency domain, B = 4) against their plain
   versions;
+- kernels 2 and A in every candidate launch ("layouts":
+  `layout_candidates`: staged, streamed, and the teamed launches of each
+  team size with Ĥ through L2 or in shared memory) at config 5, the wide
+  bands and the spilled band (LAYOUT_BANDS, spectra built in the frequency
+  domain), each launch's outputs hashed against the picked one's and its
+  µs printed — the timings the geometry's rule rests on;
 - kernel 3 above z = 512 ("lifts"): bit for bit against its plain version
   at z = 520, 600, 768, 1024, 2048, 2400 and 9000 (every layout of both
   passes), and gf3-4096 at z = 768 (B = 1024) and gf3-16384 at z = 1024
@@ -113,8 +122,13 @@ and B (bit-loaded) must hash the same in every run, and each kernel's
 profiler µs of this tree over TREE's is printed, with each tree's ptxas
 report.
 
+`--time` and `--against` also time and hash kernels 2 and A at the
+bands of TREE_BANDS (gf3-4096, gf3-8192 uniform and loaded, gf3-16384 at
+B = 64, the spilled band at B = 4).
+
 A fourth, `python3 chip_smoke.py --mesh`, runs the mesh phase alone
-across every card of the machine (the one-card mesh against all cards).
+across every card of the machine (the one-card mesh against all cards);
+a fifth, `python3 chip_smoke.py --layouts`, the layouts phase alone.
 
 Phases print one line each. The last lines are a JSON object with every
 kernel's measurements (host-clock and CUDA-event times, the kernel's own
@@ -387,7 +401,7 @@ def tail_timed(cfg, fn_k, fn_p, Y) -> dict:
     nbytes = (8 * Bk * D * U + 8 * Bk * U + 4 * Bk
               + 4 * Bk * cfg.raw_bits_per_frame + 4 * 2 * Bk * D + 4 * 2 * Bk)
     return timed(fn_k, fn_p, nbytes, 14.0 * Bk * D * U,
-                 kernel="fused_eq_demap_kernel")
+                 kernel="fused_eq_demap")
 
 
 def check(ok: bool, what: str) -> None:
@@ -405,11 +419,16 @@ def build_report(log: str) -> str:
     out, name, stack = [], "?", ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = ln.split("'")[1]
+            full = ln.split("'")[1]
             name = max((short for short in (
                 "cut_symbols", "gather_cut", "gather_cut_group", "cut_dft",
-                "fused_eq_demap", "eq_track", "demap_bins", "minsum")
-                if short in name), key=len, default=name)
+                "fused_eq_demap", "fused_eq_demap_team", "eq_track",
+                "eq_track_team", "demap_bins", "minsum")
+                if short in full), key=len, default=full)
+            # the template arguments of the instantiation, mangled
+            args = full.split("_kernel", 1)[-1].split("Ev", 1)[0]
+            if args.startswith("I"):
+                name += args
         elif "stack frame" in ln:
             stack = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -1436,6 +1455,8 @@ WIDE_CASES = (("gf3-4096", "gf3-4096", False, 1024),
 # offset on the 128 grid; the N/4 CP puts the SC window off it): there
 # `use_cut_dft` turns on kernel 8's n_fft range alone
 WIDE_ALIGNED_CP = {"gf3-4096": 768, "gf3-8192": 1792}
+# the wide steps traced with torch.profiler ("wide trace" lines)
+WIDE_TRACED = ("gf3-8192", "gf3-16384")
 
 
 # kernels 2 and A past the streamed layout's pilot bound (11 621 pilots):
@@ -1521,7 +1542,7 @@ def run_spill(dev, rows) -> dict:
         out[name] = dict(
             n_used=cfg.n_used, n_pilots=cfg.n_pilots, batch=SPILL_B,
             geometry=str(geo), max_abs_err=err, mean_abs=scale,
-            kernel_us=kernel_us(fn, [f"{name}_kernel"])["us"],
+            kernel_us=kernel_us(fn, [name])["us"],
             **bound(tail_bytes(cfg, SPILL_B, name)))
         rows[name]["spilled"] = out[name]
     print(f"spilled layout (n_fft {cfg.n_fft}, U = {cfg.n_used}, P = "
@@ -1529,6 +1550,131 @@ def run_spill(dev, rows) -> dict:
           f"their plain versions; "
           f"{ {n: (o['geometry'], round(o['kernel_us'], 1), round(1e3 * o['bound_ms'], 1)) for n, o in out.items()} } "
           "(layout, kernel us, bound us)", flush=True)
+    return out
+
+
+# the layouts phase: each band of kernels 2 and A at its batch — the wide
+# bands (on spectra built in the frequency domain, `spill_inputs`), config
+# 5 and the spilled band: (label, the band's replace keywords, bit-loaded,
+# frames)
+LAYOUT_BANDS = (("config 5", {}, False, 1024),
+                ("gf3-4096", WIDE_BANDS["gf3-4096"], False, 1024),
+                ("gf3-4096 B = 1", WIDE_BANDS["gf3-4096"], False, 1),
+                ("gf3-8192", WIDE_BANDS["gf3-8192"], False, 1024),
+                ("gf3-8192 loaded", WIDE_BANDS["gf3-8192"], True, 1024),
+                ("gf3-16384", WIDE_BANDS["gf3-16384"], False, 64),
+                ("spill", SPILL_BAND, False, SPILL_B))
+# which outputs every layout must give bit for bit: kernel 2's llr, slope
+# and cpe (its frame sums are added in another order where the teamed
+# layout runs), all four of kernel A's
+LAYOUT_HASHED = {"fused_eq_demap": 3, "eq_track": 4}
+# the bands `time_tree` times and hashes kernels 2 and A at (A alone when
+# loaded)
+TREE_BANDS = ("gf3-4096", "gf3-8192", "gf3-8192 loaded", "gf3-16384",
+              "spill")
+
+
+def layout_config(replace: dict, loaded: bool):
+    from gf3x_torch import GF3_STANDARD
+
+    cfg = GF3_STANDARD.replace(**replace)
+    if loaded:
+        cfg = cfg.replace(bit_loading=loading_table(cfg.n_data_bins))
+    return cfg
+
+
+def layout_candidates(cfg, Bk: int, sms: int, demap: bool,
+                      grid: bool = False) -> dict:
+    """The launches of kernel 2 (`demap`) or A worth timing on a batch of
+    Bk frames of `cfg`, by label: the one the geometry picks, the staged
+    one where it fits, the forced streamed one, and for each team size the
+    teamed launch `teamed_geometry` gives, with Ĥ read through L2 and
+    staged in shared memory (" H"); past the pilot bound only the spilled
+    ones. With `grid`, for each team size, Ĥ placement and count of blocks
+    a frame the launch of most resident warps an SM (then fewest passes),
+    labelled "T{team}{ H} x{blocks}". Equal launches are listed once."""
+    from gf3x_torch.ops.kernels import fused_eq as fe
+
+    U, P, D = cfg.n_used, cfg.n_pilots, cfg.n_data_symbols
+    spill = P > fe.MAX_STREAMED_PILOTS
+    out = {"picked": fe.fused_eq_geometry(cfg, Bk, sms, demap=demap)}
+    if not spill:
+        staged = fe.pick_warps(D, Bk, sms, lambda w, nb: fe._smem_bytes(
+            U, P, w, nb, demap))
+        if staged is not None:
+            out["staged"] = staged
+        out["streamed"] = fe.fused_eq_geometry(cfg, Bk, sms, demap=demap,
+                                               streamed=True)
+    for T in fe.TEAMS:
+        for sh in (False,) if spill else (False, True):
+            if grid:
+                if T == 1 and not sh:   # a warp a block: slowest of all
+                    continue
+                for b in sorted({g.blocks for g in fe.teamed_launches(
+                        U, P, D, demap, T, sh, spill)}):
+                    out[f"T{T}{' H' if sh else ''} x{b}"] = \
+                        fe.teamed_geometry(U, P, D, Bk, sms, demap, T, b, sh,
+                                           spill)
+                continue
+            g = fe.teamed_geometry(U, P, D, Bk, sms, demap, T, stage_h=sh,
+                                   spill=spill)
+            if g is not None:
+                out[f"T{T}{' H' if sh else ''}"] = g
+    seen, uniq = set(), {}
+    for k, g in out.items():
+        if g not in seen:
+            seen.add(g)
+            uniq[k] = g
+    return uniq
+
+
+def run_layouts(dev, grid: bool = False) -> dict:
+    """Kernels 2 and A in every candidate launch (`layout_candidates`,
+    `grid` passed on) on each band of LAYOUT_BANDS: every launch's
+    LAYOUT_HASHED outputs hash as the picked one's (kernel 2's frame sums
+    within 1e-4 rel), and each launch's µs (profiler). The picked launch
+    is held against the plain version in the wide and spill phases.
+    Returns {band: {kernel: {label: (layout, team, blocks, warps, passes,
+    Ĥ staged, µs)}}}."""
+    from gf3x_torch.ops.kernels import fused_eq, split_eq
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, replace, loaded, Bk in LAYOUT_BANDS:
+        cfg = layout_config(replace, loaded)
+        Y, H, nv = spill_inputs(cfg, Bk, dev)
+        out[label] = {}
+        for name, demap in (("fused_eq_demap", True), ("eq_track", False)):
+            if demap and loaded:
+                continue
+            call = fused_eq.fused_eq_demap if demap else split_eq.eq_track
+            ref = None
+            res = {}
+            for key, geo in layout_candidates(cfg, Bk, sms, demap,
+                                              grid).items():
+                got = call(cfg, Y, H, nv, geometry=geo)
+                sha = [sha256_of(t) for t in got[:LAYOUT_HASHED[name]]]
+                if ref is None:
+                    ref = (sha, got)
+                check(sha == ref[0], f"layouts {label}, {name}: {key} "
+                      f"({geo}) differs from the picked launch")
+                for a, b in zip(got[LAYOUT_HASHED[name]:],
+                                ref[1][LAYOUT_HASHED[name]:]):
+                    rel = float(((a - b).abs() / b.abs()).max())
+                    check(rel <= 1e-4, f"layouts {label}, {name}: {key}'s "
+                          f"frame sums differ by {rel} rel")
+                del got
+                res[key] = (geo.layout, geo.team, geo.blocks, geo.warps,
+                            geo.passes, geo.stage_h, kernel_us(
+                                lambda: call(cfg, Y, H, nv, geometry=geo),
+                                [name], runs=10)["us"])
+            out[label][name] = res
+            print(f"layouts {label} (U = {cfg.n_used}, P = {cfg.n_pilots}, "
+                  f"B = {Bk}) {name}: every launch hashes the same; "
+                  + "; ".join(f"{k} {v[0]} T{v[1]} x{v[2]} {v[3]}w "
+                              f"{v[4]}p{' H' if v[5] else ''}: {v[6]:.1f} us"
+                              for k, v in res.items()), flush=True)
+        del Y, H, nv
     return out
 
 
@@ -1700,15 +1846,6 @@ def run_wide_routes(counters, total, modem, rx, payload, delays,
     return out
 
 
-def wide_config(key: str, loaded: bool):
-    from gf3x_torch import GF3_STANDARD
-
-    cfg = GF3_STANDARD.replace(**WIDE_BANDS[key])
-    if loaded:
-        cfg = cfg.replace(bit_loading=loading_table(cfg.n_data_bins))
-    return cfg
-
-
 def tail_bytes(cfg, Bk: int, kernel: str) -> float:
     """The bytes kernel 2, A or B must move on a batch of Bk frames: 2 reads
     the data symbols' spectra, Ĥ and the noise floor and writes the LLRs,
@@ -1727,34 +1864,65 @@ def tail_bytes(cfg, Bk: int, kernel: str) -> float:
             + 4 * Bk * cfg.raw_bits_per_frame + 2 * 4 * Bk * D)
 
 
-def hold_layouts(label, fn, layout_of):
-    """fn(streamed) in the layout its geometry picks and in the forced
-    streamed layout: every output's sha256 equal where the picked layout
-    is the staged one. Returns (the picked layout's outputs, whether it is
-    streamed, the sha256s)."""
-    natural = fn(False)
-    sha = [sha256_of(t) for t in natural]
-    streamed = layout_of()
-    if not streamed:
-        forced = fn(True)
-        check([sha256_of(t) for t in forced] == sha, f"{label}: the "
-              "streamed layout's outputs differ from the staged one's")
-    return natural, streamed, sha
+def hold_layouts(label, fn, n_hashed: int):
+    """fn(force) in the layout its geometry picks and in each forced one
+    (the keywords "streamed", "teamed", "spilled"): the first `n_hashed`
+    outputs' sha256 equal, the rest (kernel 2's frame sums, added in
+    another order by the teamed layout) within 1e-4 rel. Returns (the
+    picked layout's outputs, the sha256s)."""
+    natural = fn(None)
+    sha = [sha256_of(t) for t in natural[:n_hashed]]
+    for force in ("streamed", "teamed", "spilled"):
+        got = fn(force)
+        check([sha256_of(t) for t in got[:n_hashed]] == sha, f"{label}: "
+              f"the {force} layout's outputs differ from the picked one's")
+        for a, b in zip(got[n_hashed:], natural[n_hashed:]):
+            rel = float(((a - b).abs() / b.abs()).max())
+            check(rel <= 1e-4, f"{label}: the {force} layout's frame sums "
+                  f"differ by {rel} rel")
+    return natural, sha
 
 
-def wide_timed(cfg, Bk, name, fn, layout_of) -> dict:
-    """A tail kernel's µs (profiler) in the layout its geometry picks and,
-    where that is the staged one, in the forced streamed layout, beside its
-    bound (bytes over HBM_BPS)."""
-    kern = {"fused_eq_demap": "fused_eq_demap_kernel",
-            "eq_track": "eq_track_kernel",
-            "demap_bins": "demap_bins_kernel"}[name]
-    row = dict(layout="streamed" if layout_of() else "staged",
-               kernel_us=kernel_us(lambda: fn(False), [kern])["us"],
-               **bound(tail_bytes(cfg, Bk, name)))
-    if not layout_of():
-        row["streamed_kernel_us"] = kernel_us(lambda: fn(True), [kern])["us"]
-    return row
+def wide_timed(cfg, Bk, name, fn, geo) -> dict:
+    """A tail kernel's µs (profiler) in the layout its geometry picks,
+    beside its bound (bytes over HBM_BPS); the other layouts' times are
+    the layouts phase's."""
+    return dict(layout=geo.layout, geometry=str(geo),
+                kernel_us=kernel_us(lambda: fn(None), [name])["us"],
+                **bound(tail_bytes(cfg, Bk, name)))
+
+
+def trace_step(fn, steps: int = 3) -> dict:
+    """torch.profiler over `steps` synchronised calls of fn after a
+    warm-up: the device-busy share (the kernels' summed device time over
+    the window's host-clock time; one stream, so kernels do not overlap)
+    and the five device ops of most device time, in µs per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = {}
+    for ev in prof.key_averages():
+        # the kernels and copies themselves; a host op's device time is
+        # theirs again
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = float(getattr(ev, "self_device_time_total", None)
+                   or getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0.0:
+            dev_us[ev.key] = dev_us.get(ev.key, 0.0) + us
+    busy = sum(dev_us.values()) / 1e6
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
+    return dict(step_ms=1e3 * wall / steps, device_ms=1e3 * busy / steps,
+                busy_share=busy / wall,
+                top5_us_per_step=[(k[:60], v / steps) for k, v in top])
 
 
 def run_wide(dev, counters, rows):
@@ -1778,7 +1946,7 @@ def run_wide(dev, counters, rows):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     total, out = {name: 0 for name in counters}, {}
     for label, key, loaded, Bk in WIDE_CASES:
-        cfg = wide_config(key, loaded)
+        cfg = layout_config(WIDE_BANDS[key], loaded)
         t0 = time.perf_counter()
         modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
         build_s = time.perf_counter() - t0
@@ -1793,48 +1961,52 @@ def run_wide(dev, counters, rows):
                     n_data_bins=cfg.n_data_bins, batch=Bk,
                     modem_build_s=build_s)
 
-        def track(streamed):
-            return split_eq.eq_track(cfg, Y, H, nv, pv, streamed=streamed)
+        def track(force):
+            return split_eq.eq_track(cfg, Y, H, nv, pv,
+                                     **({force: True} if force else {}))
 
         hold_eq_track(cfg, Y, H, nv, pv, label)
-        a_k, a_streamed, held["eq_track_sha256"] = hold_layouts(
-            f"eq_track {label}", track, lambda: fused_eq.fused_eq_geometry(
-                cfg, Bk, sms, demap=False).streamed)
+        a_k, held["eq_track_sha256"] = hold_layouts(
+            f"eq_track {label}", track, LAYOUT_HASHED["eq_track"])
         eq, nv_sym = a_k[0], a_k[3]
 
-        def demap(streamed):
+        def demap(force):
             return split_eq.demap_bins(cfg, eq, H, nv_sym, tables,
-                                       streamed=streamed)
-
-        def b_streamed():
-            return split_eq.demap_geometry(cfg, Bk, sms).streamed
+                                       streamed=force is not None)
 
         _, errB, scaleB = hold_demap(cfg, eq, H, nv_sym, tables, label)
-        b_k, _, held["demap_bins_sha256"] = hold_layouts(
-            f"demap_bins {label}", demap, b_streamed)
+        b_k = demap(None)
+        held["demap_bins_sha256"] = [sha256_of(t) for t in b_k]
+        check([sha256_of(t) for t in demap("streamed")]
+              == held["demap_bins_sha256"], f"demap_bins {label}: the "
+              "streamed layout's outputs differ from the staged one's")
         held.update(demap_bins_max_abs_err=errB, demap_bins_mean_abs=scaleB)
-        times = {"eq_track": wide_timed(cfg, Bk, "eq_track", track, lambda:
-                                        a_streamed),
-                 "demap_bins": wide_timed(cfg, Bk, "demap_bins", demap,
-                                          b_streamed)}
+        geoB = split_eq.demap_geometry(cfg, Bk, sms)
+        times = {"eq_track": wide_timed(
+                     cfg, Bk, "eq_track", track, fused_eq.fused_eq_geometry(
+                         cfg, Bk, sms, demap=False)),
+                 "demap_bins": dict(
+                     layout="streamed" if geoB.streamed else "staged",
+                     geometry=str(geoB), kernel_us=kernel_us(
+                         lambda: demap(None), ["demap_bins"])["us"],
+                     **bound(tail_bytes(cfg, Bk, "demap_bins")))}
         tail = ("eq_track", "demap_bins")
         if cfg.bit_loading is None:
-            def fused(streamed):
-                return fused_eq.fused_eq_demap(cfg, Y, H, nv, pv,
-                                               streamed=streamed)
-
-            def f_streamed():
-                return fused_eq.fused_eq_geometry(cfg, Bk, sms).streamed
+            def fused(force):
+                return fused_eq.fused_eq_demap(
+                    cfg, Y, H, nv, pv, **({force: True} if force else {}))
 
             _, err2, scale2 = hold_fused(cfg, Y, H, nv, pv, label)
-            out2, _, held["fused_eq_demap_sha256"] = hold_layouts(
-                f"fused_eq_demap {label}", fused, f_streamed)
+            out2, held["fused_eq_demap_sha256"] = hold_layouts(
+                f"fused_eq_demap {label}", fused,
+                LAYOUT_HASHED["fused_eq_demap"])
             held.update(fused_eq_demap_max_abs_err=err2,
                         fused_eq_demap_mean_abs=scale2,
                         split_pair_rel=hold_split(modem, Y, H, nv, out2,
                                                   f"wide {label}"))
-            times["fused_eq_demap"] = wide_timed(cfg, Bk, "fused_eq_demap",
-                                                 fused, f_streamed)
+            times["fused_eq_demap"] = wide_timed(
+                cfg, Bk, "fused_eq_demap", fused,
+                fused_eq.fused_eq_geometry(cfg, Bk, sms))
             tail = ("fused_eq_demap",)
             del out2
         for name, t in times.items():
@@ -1857,12 +2029,20 @@ def run_wide(dev, counters, rows):
         step = median_ms(lambda: modem.demodulate(rx))
         held.update(step_ms=step, sync_err=sync_err, launches=launches,
                     data_symbols_per_s=Bk * cfg.n_data_symbols / (step / 1e3))
+        if label in WIDE_TRACED:
+            held["trace"] = trace_step(lambda: modem.demodulate(rx))
+            print(f"wide trace {label}: step {held['trace']['step_ms']:.3f} "
+                  f"ms, device {held['trace']['device_ms']:.3f} ms, busy "
+                  f"{held['trace']['busy_share']:.3f}; top five device ops "
+                  f"(us per step) {held['trace']['top5_us_per_step']}",
+                  flush=True)
         print(f"wide {label} (n_fft {cfg.n_fft}, {cfg.n_used} used bins, "
               f"{cfg.n_pilots} pilots, {cfg.n_codewords} codewords, B {Bk}, "
               f"T {rx.shape[-1]}): kernels {', '.join(times)} held against "
-              f"their plain versions and staged against streamed (sha256); "
-              f"{ {n: (t['layout'], round(t['kernel_us'], 1), t.get('streamed_kernel_us'), round(1e3 * t['bound_ms'], 1)) for n, t in times.items()} } "
-              f"(layout, kernel us, streamed us, bound us); demodulate "
+              f"their plain versions and the layouts against each other "
+              f"(sha256); "
+              f"{ {n: (t['layout'], round(t['kernel_us'], 1), round(1e3 * t['bound_ms'], 1)) for n, t in times.items()} } "
+              f"(layout, kernel us, bound us); demodulate "
               f"{Bk}/{Bk} rows CRC-ok, sync within {sync_err} samples, "
               f"launches {launches}; {step:.3f} ms/step; Modem({label}) "
               f"built in {build_s:.1f} s", flush=True)
@@ -2170,7 +2350,7 @@ def run_lifts(dev, counters, rows) -> tuple:
     rows["minsum_totals"]["lifts"] = out
     total = {name: 0 for name in counters}
     for key, z, Bk in LIFT_PATHS:
-        cfg = wide_config(key, False).replace(ldpc_z=z)
+        cfg = layout_config(WIDE_BANDS[key], False).replace(ldpc_z=z)
         t0 = time.perf_counter()
         modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
         build_s = time.perf_counter() - t0
@@ -2405,12 +2585,17 @@ def main() -> None:
         **tail_timed(cfg, lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv, pv),
                      lambda: fused_eq.fused_eq_demap_plain(cfg, Y, H, nv,
                                                            pv), Y))
-    # the streamed layout at config 5: the same bytes, its own time
-    hold_layouts("fused_eq_demap config 5", lambda streamed: fused_eq
-                 .fused_eq_demap(cfg, Y, H, nv, pv, streamed=streamed),
-                 lambda: False)
-    r2["streamed_kernel_us"] = kernel_us(lambda: fused_eq.fused_eq_demap(
-        cfg, Y, H, nv, pv, streamed=True), ["fused_eq_demap_kernel"])["us"]
+    # the streamed and teamed layouts at config 5: the same bytes, their
+    # own times
+    hold_layouts("fused_eq_demap config 5", lambda force: fused_eq
+                 .fused_eq_demap(cfg, Y, H, nv, pv,
+                                 **({force: True} if force else {})),
+                 LAYOUT_HASHED["fused_eq_demap"])
+    for force in ("streamed", "teamed"):
+        r2[f"{force}_kernel_us"] = kernel_us(
+            lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv, pv,
+                                            **{force: True}),
+            ["fused_eq_demap"])["us"]
     # the spilled layout (pilot scratch in global memory) forced at config
     # 5: kernels 2 and A give the picked layout's bytes
     r2["spilled_sha256"] = hold_spilled(
@@ -2420,7 +2605,7 @@ def main() -> None:
         "eq_track config 5", lambda spilled: split_eq.eq_track(
             cfg, Y, H, nv, pv, spilled=spilled))
     r2["spilled_kernel_us"] = kernel_us(lambda: fused_eq.fused_eq_demap(
-        cfg, Y, H, nv, pv, spilled=True), ["fused_eq_demap_kernel"])["us"]
+        cfg, Y, H, nv, pv, spilled=True), ["fused_eq_demap"])["us"]
     print(f"spilled layout forced at config 5: kernels 2 and A equal the "
           f"staged layout's sha256; kernel 2 "
           f"{r2['spilled_kernel_us']:.1f} us spilled", flush=True)
@@ -2429,8 +2614,9 @@ def main() -> None:
           f"and cpe bit-identical to the split pair's (evm, mean|llr| within "
           f"{split_rel:.2g} rel); {r2['geometry']}; {r2['ms']:.3f} ms vs "
           f"plain {r2['plain_ms']:.3f} ms; device {r2['device_ms']:.4f} ms, "
-          f"kernel {r2['kernel_us']:.1f} us (streamed layout, same bytes: "
-          f"{r2['streamed_kernel_us']:.1f} us), bound {r2['bound_ms']:.4f} ms "
+          f"kernel {r2['kernel_us']:.1f} us (same bytes: streamed "
+          f"{r2['streamed_kernel_us']:.1f} us, teamed "
+          f"{r2['teamed_kernel_us']:.1f} us), bound {r2['bound_ms']:.4f} ms "
           f"({EXPECTED['fused_eq_demap']})", flush=True)
 
     # ---- kernel 3 vs plain: the path's codeword LLRs (20 dB, every
@@ -2707,7 +2893,7 @@ def main() -> None:
         **timed(lambda: split_eq.eq_track(cfg, Y, H, nv, pv),
                 lambda: split_eq.eq_track_plain(cfg, Y, H, nv, pv),
                 8 * B * D_ * U_ * 2 + 8 * B * U_ + 4 * B + 3 * 4 * B * D_,
-                12.0 * B * D_ * U_, kernel="eq_track_kernel"))
+                12.0 * B * D_ * U_, kernel="eq_track"))
     rA["spilled_sha256_config5"] = spilled_A5
     print(f"eq_track: held at B = {B}, 1 and 7; {rA['geometry']}; "
           f"{rA['ms']:.3f} ms vs plain {rA['plain_ms']:.3f} ms; device "
@@ -2734,13 +2920,17 @@ def main() -> None:
     rB["geometry"] = str(split_eq.demap_geometry(cfg, B, sms))
     # A and B in the streamed layout on the loaded batch: the same bytes,
     # their own times
-    hold_layouts("eq_track bit-loaded", lambda streamed: split_eq.eq_track(
-        cfg, Y, H, nv, pv, streamed=streamed), lambda: False)
-    hold_layouts("demap_bins bit-loaded", lambda streamed: split_eq
-                 .demap_bins(cfg, eq, H, nv_sym, tables, streamed=streamed),
-                 lambda: False)
+    hold_layouts("eq_track bit-loaded", lambda force: split_eq.eq_track(
+        cfg, Y, H, nv, pv, **({force: True} if force else {})),
+        LAYOUT_HASHED["eq_track"])
+    check([sha256_of(t) for t in split_eq.demap_bins(
+        cfg, eq, H, nv_sym, tables, streamed=True)]
+        == [sha256_of(t) for t in split_eq.demap_bins(
+            cfg, eq, H, nv_sym, tables)],
+        "demap_bins bit-loaded: the streamed layout's outputs differ from "
+        "the staged one's")
     rA["streamed_kernel_us"] = kernel_us(lambda: split_eq.eq_track(
-        cfg, Y, H, nv, pv, streamed=True), ["eq_track_kernel"])["us"]
+        cfg, Y, H, nv, pv, streamed=True), ["eq_track"])["us"]
     rB["streamed_kernel_us"] = kernel_us(lambda: split_eq.demap_bins(
         cfg, eq, H, nv_sym, tables, streamed=True),
         ["demap_bins_kernel"])["us"]
@@ -2752,8 +2942,10 @@ def main() -> None:
           f"{rA['streamed_kernel_us']:.1f} us, B "
           f"{rB['streamed_kernel_us']:.1f} us", flush=True)
 
-    # ---- kernels 2 and A past the streamed layout's pilot bound
+    # ---- kernels 2 and A past the streamed layout's pilot bound, then
+    # every candidate launch of both at each band
     spill = run_spill(dev, rows)
+    layouts = run_layouts(dev)
 
     # ---- kernel 3 on the loaded path's LLRs, which carry raw bit errors
     lam = modem._codeword_llrs(b_k[0]).contiguous()
@@ -2850,7 +3042,7 @@ def main() -> None:
         check(n == rows["minsum_totals"]["launches"], f"{name} launched {n} "
               f"times in {rows['minsum_totals']['launches']} calls")
         rows["minsum_totals"][f"{name}_launches"] = n
-    print(json.dumps({"kernels": list(rows.values()), "step_ms": step_ms,
+    record("chip_smoke", {"kernels": list(rows.values()), "step_ms": step_ms,
                       "data_symbols_per_s": sps, "loaded_step_ms": stepL_ms,
                       "loaded_data_symbols_per_s": spsL,
                       "in_turns_ms": turns, "sfo_step_ms": sfo_ms,
@@ -2862,13 +3054,26 @@ def main() -> None:
                       "pilots": pilots, "wide": wide, "mesh": mesh,
                       "examples": examples, "lifts": lifts,
                       "reports": reports, "spilled": spill,
+                      "layouts": layouts,
                       "decision_ties": DECISION_TIES,
-                      "build_s": build_s, "package": gf3x_torch.__name__}),
-          flush=True)
+                      "build_s": build_s, "build": build_report(log),
+                      "package": gf3x_torch.__name__},
+           print_too=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def record(name: str, obj, print_too: bool = False) -> None:
+    """Write obj as JSON to chip_records/<name>.json beside this script
+    (the whole record, which may outgrow a terminal's tail), and with
+    `print_too` print it as one line."""
+    out = Path(__file__).resolve().parent / "chip_records"
+    out.mkdir(exist_ok=True)
+    (out / f"{name}.json").write_text(json.dumps(obj))
+    if print_too:
+        print(json.dumps(obj), flush=True)
 
 
 def smi_sampler():
@@ -2938,7 +3143,9 @@ def time_tree(tree: Path) -> dict:
     (B on A's output), each read three ways (`readings`); kernel 3's passes
     checked equal over repeated calls, and the sha256 of the bytes of
     kernel 2's LLRs, slope and cpe, kernel A's eq, slope, cpe and nv_sym and
-    kernel B's LLRs (`sha256`)."""
+    kernel B's LLRs (`sha256`); and kernels 2 and A at the bands of
+    TREE_BANDS (kernel 2's llr, slope and cpe and A's four outputs
+    hashed)."""
     sys.path.insert(0, str(tree))
     import gf3x_torch
     from gf3x_torch import GF3_STANDARD, GF3_TURBO, Modem
@@ -2964,7 +3171,7 @@ def time_tree(tree: Path) -> dict:
         if label == "bit_loaded":
             out["eq_track"] = dict(readings(
                 lambda: split_eq.eq_track(cfg, Y, H, nv, pv),
-                ["eq_track_kernel"]), sha256=[sha256_of(t) for t in
+                ["eq_track"]), sha256=[sha256_of(t) for t in
                                               split_eq.eq_track(cfg, Y, H,
                                                                 nv, pv)])
             eq, _, _, nv_sym = split_eq.eq_track(cfg, Y, H, nv, pv)
@@ -3009,6 +3216,26 @@ def time_tree(tree: Path) -> dict:
                 passes_max=int(runs[0][2].max()),
                 unsat=int(runs[0][1].sum()))
         del rx, Y, H, nv, out2, llr, lam, noise, noisy, mixed
+    # kernels 2 and A at the wide bands and the spilled band, on spectra
+    # built in the frequency domain (this script's `spill_inputs` on the
+    # tree's own config and constellation code)
+    for label, replace, loaded, Bk in LAYOUT_BANDS:
+        if label not in TREE_BANDS:
+            continue
+        cfg = layout_config(replace, loaded)
+        Y, H, nv = spill_inputs(cfg, Bk, dev)
+        key = label.replace(" ", "_")
+        if not loaded:
+            out2 = fused_eq.fused_eq_demap(cfg, Y, H, nv)
+            out[f"fused_eq_demap_{key}"] = dict(readings(
+                lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv),
+                ["fused_eq_demap"]), sha256=[sha256_of(t) for t in out2[:3]])
+            del out2
+        outA = split_eq.eq_track(cfg, Y, H, nv)
+        out[f"eq_track_{key}"] = dict(readings(
+            lambda: split_eq.eq_track(cfg, Y, H, nv), ["eq_track"]),
+            sha256=[sha256_of(t) for t in outA])
+        del Y, H, nv, outA
     return out
 
 
@@ -3025,7 +3252,7 @@ def compare_trees(other: Path) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {smi}", flush=True)
-    sha, us = {}, {}
+    sha, us, runs = {}, {}, []
     for label, tree in (("other", other), ("this", here), ("this", here),
                         ("other", other)):
         res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -3040,16 +3267,37 @@ def compare_trees(other: Path) -> None:
                 sha.setdefault(name, set()).add(tuple(row["sha256"]))
             us.setdefault(name, {}).setdefault(label, []).extend(
                 x for x in row["kernel_us"] if x is not None)
-        print(json.dumps({"tree": label, "path": str(tree), **got}),
-              flush=True)
+        runs.append({"tree": label, "path": str(tree), **got})
+        print(json.dumps(runs[-1]), flush=True)
     ratio = {name: float(np.mean(v["this"]) / np.mean(v["other"]))
              for name, v in us.items() if v.get("this") and v.get("other")}
-    print(json.dumps({"kernel_us_this_over_other": ratio}), flush=True)
-    check(len(sha) == 7 and all(len(v) == 1 for v in sha.values()),
+    record("against", {"kernel_us_this_over_other": ratio, "runs": runs},
+           print_too=True)
+    check(len(sha) == 7 + 2 * len(TREE_BANDS) - 1
+          and all(len(v) == 1 for v in sha.values()),
           f"the outputs of kernels 2, 3, A and B differ between the trees: "
           f"{sha}")
     print(f"outputs of {sorted(sha)} hash the same in all four runs",
           flush=True)
+    print(smi, flush=True)
+
+
+def layouts_only() -> None:
+    """`--layouts`: the layouts phase alone over the whole grid of teamed
+    launches (`run_layouts(grid=True)`) after the build's ptxas report;
+    prints its numbers as one JSON line and the card's name and power
+    limit."""
+    from gf3x_torch.utils.device import kernel_lib, library_path
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"device: {smi}", flush=True)
+    kernel_lib()
+    print("build: " + build_report(
+        (library_path().parent / "build.log").read_text()), flush=True)
+    record("layouts", run_layouts(torch.device("cuda", 0), grid=True))
     print(smi, flush=True)
 
 
@@ -3091,6 +3339,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             raise RuntimeError("chip_smoke needs a CUDA device")
         print(json.dumps(time_tree(Path(sys.argv[2]))), flush=True)
+    elif len(sys.argv) == 2 and sys.argv[1] == "--layouts":
+        if not torch.cuda.is_available():
+            raise RuntimeError("chip_smoke needs a CUDA device")
+        layouts_only()
     elif len(sys.argv) == 3 and sys.argv[1] == "--against":
         if not torch.cuda.is_available():
             raise RuntimeError("chip_smoke needs a CUDA device")

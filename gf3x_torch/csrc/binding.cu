@@ -35,11 +35,12 @@ int gf3x_fused_eq_demap(const float*, const float*, const float*,
                         const float*, const int*, float*, float*, float*,
                         float*, float*, long long, int, int, int, int, int,
                         const float*, int, int, float, int, float, float, int,
-                        int, int, float, float, float*, void*);
+                        int, int, float, float, float*, int, int, int, float*,
+                        int*, void*);
 int gf3x_eq_track(const float*, const float*, const float*, const float*,
                   const int*, float*, float*, float*, float*, long long, int,
                   int, int, int, int, int, float, int, float, float, int, int,
-                  int, float*, void*);
+                  int, float*, int, int, int, void*);
 int gf3x_demap_bins(const float*, const float*, const float*, const int*,
                     float*, float*, float*, long long, int, int, int, int,
                     float, float, const float*, int, int, int, void*);
@@ -55,7 +56,7 @@ const char* gf3x_error_string(int);
 
 namespace {
 
-constexpr int kMaxArgs = 32;
+constexpr int kMaxArgs = 40;
 constexpr long kOtherDevice = -1;   // not a cudaError_t value;
                                     // utils/device.py's _OTHER_DEVICE
 
@@ -123,16 +124,17 @@ ENTRY(gf3x_cut_dft, "ppppppllllllllllllflllllllp",
                    I(9), I(10), I(11), I(12), I(13), I(14), I(15), I(16),
                    I(17), F(18), I(19), I(20), I(21), I(22), I(23), I(24),
                    I(25), P(26)))
-ENTRY(gf3x_fused_eq_demap, "ppppppppppllllllpllflfflllffpp",
+ENTRY(gf3x_fused_eq_demap, "ppppppppppllllllpllflfflllffplllppp",
       gf3x_fused_eq_demap(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7),
                           P(8), P(9), L(10), I(11), I(12), I(13), I(14),
                           I(15), P(16), I(17), I(18), F(19), I(20), F(21),
                           F(22), I(23), I(24), I(25), F(26), F(27), P(28),
-                          P(29)))
-ENTRY(gf3x_eq_track, "ppppppppplllllllflfflllpp",
+                          I(29), I(30), I(31), P(32), P(33), P(34)))
+ENTRY(gf3x_eq_track, "ppppppppplllllllflfflllplllp",
       gf3x_eq_track(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), P(8),
                     L(9), I(10), I(11), I(12), I(13), I(14), I(15), F(16),
-                    I(17), F(18), F(19), I(20), I(21), I(22), P(23), P(24)))
+                    I(17), F(18), F(19), I(20), I(21), I(22), P(23), I(24),
+                    I(25), I(26), P(27)))
 ENTRY(gf3x_demap_bins, "ppppppplllllffplllp",
       gf3x_demap_bins(P(0), P(1), P(2), P(3), P(4), P(5), P(6), L(7), I(8),
                       I(9), I(10), I(11), F(12), F(13), P(14), I(15), I(16),

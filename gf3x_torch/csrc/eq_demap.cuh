@@ -19,32 +19,38 @@
 //   equalized bins, staged (StagedBins) or streamed (StreamedBins);
 //   gf3x_track_symbol_warp runs it on the symbol in the warp's shared
 //   buffer (fetched there by gf3x_fetch_symbol with cp.async), equalized
-//   in place first.
+//   in place first;
+// - gf3x_fit_symbol_team: the same chain by a team of warps (TeamBins:
+//   the symbol in global memory, Ĥ in shared or global memory), the same
+//   bits.
 //
-// Kernels A and 2 have one block per frame, each of its warps walking its
-// data symbols, in one of two layouts (and a third past the streamed one's
-// pilot bound, where the pilot scratch and positions live in global
-// memory: BinsLayout). Staged: Ĥ, |Ĥ|² and the layout table
-// sit in shared memory once, and each symbol is copied into its warp's
-// shared buffer and equalized there (gf3x_track_symbol_warp). Streamed, for
-// a band whose staged layout fits no warp count: shared memory holds only
-// the pilot positions and each warp's pilot scratch, and every bin's Ĥ,
-// |Ĥ|², 1/max(|Ĥ|², 1e-12) and equalized value is read or recomputed from
-// global memory with the staging code's expressions (StreamedBins). The
-// tracking chain is one template over the two (gf3x_fit_symbol_warp), so
-// the layouts give the same bits. A then derotates every used bin, 2
-// derotates and demaps the data bins. Both run the same code in the same
-// order, so slope, cpe, nv_sym and every derotated bin agree bit for bit.
+// Kernels A and 2 run in one of four layouts (the wrappers' geometry picks
+// one). Staged and streamed take a block per frame and a warp per data
+// symbol. Staged: Ĥ, |Ĥ|² and the layout table sit in shared memory once,
+// and each symbol is copied into its warp's shared buffer and equalized
+// there (gf3x_track_symbol_warp). Streamed: shared memory holds only the
+// pilot positions and each warp's pilot scratch, and every bin's Ĥ, |Ĥ|²,
+// 1/max(|Ĥ|², 1e-12) and equalized value is read or recomputed from global
+// memory with the staging code's expressions (StreamedBins). The tracking
+// chain is one template over the two (gf3x_fit_symbol_warp), so the
+// layouts give the same bits. A then derotates every used bin, 2 derotates
+// and demaps the data bins. Both run the same code in the same order, so
+// slope, cpe, nv_sym and every derotated bin agree bit for bit.
 //
-// The layout is a table, not the spacing: `pos` lists the P pilot
-// positions, then the U − P data positions, as used-bin indices
-// (layout(cfg).pilot_pos and .data_pos), so any pilot layout runs here —
-// an offset grid, a spacing that does not tile the band, one pilot or
-// none. On a strided layout the table holds p·sp and the data bins in
-// order, the integers the arithmetic walk computed, so its results are
-// the same bits. Below two pilots there is no fit (slope = cpe = 0 and no
-// derotation, as pilot_phase_correct); with none, no noise floor either
-// (nv_sym = nv, as _eq_tail).
+// Teamed, for the wide bands: a team of T warps takes one data symbol and
+// a frame's symbols are spread over several blocks (gf3x_fit_symbol_team).
+// Every elementwise pass over the symbol's bins — the pilot products, the
+// ladder's and the intercept's rotated terms, the residuals, then the data
+// bins — is spread over the team's 32·T threads, which store each term to
+// the team's one pilot scratch (4P floats) in shared memory; the
+// reductions (gf3x_lag_products, the intercept's sum, the noise floor) stay
+// on the team's first warp in the warp chain's order, lane p mod 32 adding
+// its pilots' stored terms in ascending p. The build has --fmad=false, so
+// a term stored and then added rounds as the inline expression does: the
+// teamed layout gives the warp chain's bits. Spilled, past the pilot bound
+// of shared memory: the teamed layout with each team's scratch in a global
+// buffer and the pilot positions read from the table there.
+//
 #pragma once
 
 #include "common.cuh"
@@ -253,21 +259,164 @@ __device__ __forceinline__ SymbolFit gf3x_track_symbol_warp(
                                 di, lane);
 }
 
-// Kernels 2 and A's three layouts: staged, streamed (nbuf = 0) and
-// spilled (nbuf = 0 with a global pilot scratch), the streamed one with
-// the warps' pilot scratch and the pilot positions in global memory.
-enum BinsLayout { kStagedBins, kStreamedBins, kSpilledBins };
+// Kernels 2 and A's one-warp-a-symbol layouts: staged and streamed (nbuf
+// = 0).
+enum BinsLayout { kStagedBins, kStreamedBins };
 
-__host__ __forceinline__ int gf3x_bins_layout(int nbuf, const float* scratch) {
-    return nbuf != 0 ? kStagedBins
-                     : (scratch == nullptr ? kStreamedBins : kSpilledBins);
+// A team of T warps in a block of G teams: team g's warps are g·T ...
+// g·T + T − 1; thread tt of the team's n = 32·T; its first warp (rank 0)
+// runs the reductions. Synchronised by __syncwarp (T = 1) or by named
+// barrier 1 + g over the team's threads (G ≤ 15 teams a block then).
+struct Team {
+    int T, g, rank, tt, n, lane;
+    __device__ __forceinline__ Team(int T_)
+        : T(T_), g(static_cast<int>(threadIdx.x) / (32 * T_)),
+          rank((static_cast<int>(threadIdx.x) >> 5) % T_),
+          tt(static_cast<int>(threadIdx.x) % (32 * T_)), n(32 * T_),
+          lane(static_cast<int>(threadIdx.x) & 31) {}
+    __device__ __forceinline__ void sync() const {
+        if (T == 1) {
+            __syncwarp();
+        } else {
+            asm volatile("bar.sync %0, %1;\n" :: "r"(1 + g), "r"(n)
+                         : "memory");
+        }
+    }
+    // v from the first warp's lane 0 (the reductions give every lane of
+    // that warp the same value) to every thread of the team, through `slot`
+    __device__ __forceinline__ float share(float v, float* slot) const {
+        if (rank == 0 && lane == 0) *slot = v;
+        sync();
+        return *slot;
+    }
+};
+
+// The teamed layout's bins by used-bin index: y from the symbol's row in
+// global memory; Ĥ, |Ĥ|² and 1/max(|Ĥ|², 1e-12) staged in shared memory
+// (kStageH) or read from global memory (through L2: 20 symbols a frame
+// read one Ĥ row) and recomputed with the staging code's expressions.
+template <bool kStageH>
+struct TeamBins {
+    const float2* y;
+    const float2* h;     // shared (kStageH) or global
+    const float* h2s;    // shared, kStageH only
+    const float* invs;   // shared, kStageH and kernel 2 only
+    __device__ __forceinline__ float2 hk(int k) const {
+        if constexpr (kStageH) return h[k];
+        else return __ldg(h + k);
+    }
+    __device__ __forceinline__ float h2(int k) const {
+        if constexpr (kStageH) return h2s[k];
+        else return gf3x_abs2(hk(k));
+    }
+    __device__ __forceinline__ float2 x(int k) const {
+        return gf3x_eq_bin(__ldg(y + k), hk(k), h2(k));
+    }
+};
+
+// One data symbol of frame b by a team, on its equalized bins `bins`: kp
+// holds the P pilot positions, zr, zi, dr, di P floats each of the team's
+// scratch, bc three floats of the team's. The same values as
+// gf3x_fit_symbol_warp, bit for bit: every term is the warp chain's
+// expression, stored, and the first warp adds the stored terms in the warp
+// chain's order. Every thread of the team gets the fit and the noise floor.
+template <typename Bins>
+__device__ __forceinline__ SymbolFit gf3x_fit_symbol_team(
+        const TrackArgs& a, int b, const Bins& bins, const int* kp, float* zr,
+        float* zi, float* dr, float* di, float* bc, const Team& tm) {
+    SymbolFit f;
+    f.slope = 0.0f;
+    f.cpe = 0.0f;
+    f.nv_sym = a.nv[b];
+    const int P = a.P;
+    if (P == 0) return f;
+    for (int p = tm.tt; p < P; p += tm.n) {
+        const int k = kp[p];
+        const float2 z = gf3x_pilot_product(bins.x(k), a.pv[p], bins.h2(k));
+        zr[p] = z.x;
+        zi[p] = z.y;
+    }
+    tm.sync();
+    const bool fit = P >= 2;
+    if (fit) {
+        float slope = 0.0f;
+        if (tm.rank == 0) {
+            const float2 inc = gf3x_lag_products(zr, zi, P, 1, tm.lane);
+            slope = atan2f(inc.y, inc.x) / a.mean_dk;
+        }
+        slope = tm.share(slope, bc);
+        for (int st = 0; st < a.n_ladder; ++st) {
+            for (int p = tm.tt; p < P; p += tm.n) {
+                float s, c;
+                sincosf(slope * static_cast<float>(kp[p]), &s, &c);
+                dr[p] = zr[p] * c + zi[p] * s;     // z·e^{−i·a·k}
+                di[p] = zi[p] * c - zr[p] * s;
+            }
+            tm.sync();
+            if (tm.rank == 0) {
+                const float2 corr = gf3x_lag_products(dr, di, P,
+                                                      a.ladder_q[st], tm.lane);
+                slope = slope + atan2f(corr.y, corr.x) / a.ladder_base[st];
+            }
+            slope = tm.share(slope, bc);
+        }
+        // the intercept's terms, then the first warp's sum
+        for (int p = tm.tt; p < P; p += tm.n) {
+            float s, c;
+            sincosf(slope * static_cast<float>(kp[p]), &s, &c);
+            dr[p] = zr[p] * c + zi[p] * s;
+            di[p] = zi[p] * c - zr[p] * s;
+        }
+        tm.sync();
+        float cpe = 0.0f;
+        if (tm.rank == 0) {
+            float wr = 0.0f, wi = 0.0f;
+            for (int p = tm.lane; p < P; p += 32) {
+                wr += dr[p];
+                wi += di[p];
+            }
+            wr = gf3x_warp_sum(wr);
+            wi = gf3x_warp_sum(wi);
+            cpe = atan2f(wi, wr);
+        }
+        f.slope = slope;
+        f.cpe = tm.share(cpe, bc + 1);
+    }
+    // noise floor from the derotated pilots
+    for (int p = tm.tt; p < P; p += tm.n) {
+        const int k = kp[p];
+        const float2 x = bins.x(k);
+        zr[p] = gf3x_pilot_residual(
+            fit ? gf3x_derotate(x, f.slope, k, f.cpe) : x, a.pv[p],
+            bins.h2(k));
+    }
+    tm.sync();
+    float nv_sym = f.nv_sym;
+    if (tm.rank == 0) nv_sym = gf3x_noise_floor_warp(zr, P, nv_sym, tm.lane);
+    f.nv_sym = tm.share(nv_sym, bc + 2);
+    return f;
 }
 
-// Warp w of frame b's slice (zr, zi, dr, di: 4P floats) of the spilled
-// layout's global pilot scratch, W warps a frame.
+// The teamed layout's symbols: block `blk` of a frame's `blocks` takes a
+// contiguous run of ⌈D / blocks⌉ of its data symbols, its team g symbols
+// lo + g, lo + g + G, ... below hi (FusedGeometry.symbols).
+struct TeamSymbols {
+    int lo, hi;
+    __device__ __forceinline__ TeamSymbols(int D, int blocks, int blk) {
+        const int per = (D + blocks - 1) / blocks;
+        lo = blk * per;
+        hi = min(D, lo + per);
+    }
+};
+
+// Team g of block `blk` of frame b's slice (zr, zi, dr, di: 4P floats) of
+// the spilled layout's global pilot scratch: G teams a block, `blocks`
+// blocks a frame.
 __device__ __forceinline__ float* gf3x_spilled_scratch(float* scratch, int b,
-                                                       int W, int w, int P) {
-    return scratch + (static_cast<size_t>(b) * W + w) * 4 * P;
+                                                       int blocks, int blk,
+                                                       int G, int g, int P) {
+    return scratch +
+           ((static_cast<size_t>(b) * blocks + blk) * G + g) * 4 * P;
 }
 
 // The frame's layout table (`pos`, n ints) into shared memory by the block.

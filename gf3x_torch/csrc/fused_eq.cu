@@ -38,23 +38,36 @@
 // (64-QAM). The block reduces its symbols' EVM and |llr| sums in a fixed
 // order and writes the frame's means itself.
 //
-// A wide band (gf3-16384: U = 7616, P = 1904) fits no warp count in that
-// layout, so the wrapper picks the streamed one (nbuf = 0): the same warps
-// and lanes walk the same bins in the same order, but each reads y and Ĥ
-// from global memory and recomputes |Ĥ|², its inverse and the equalized bin
-// with the staging code's expressions (eq_demap.cuh's StreamedBins); the
-// pilots' bins are read twice (fit, residuals) and the data bins once.
-// Shared memory keeps only the pilot positions, the warps' pilot scratch
-// and sums. Its outputs equal the staged layout's bit for bit.
+// A band whose staged layout fits no warp count (gf3-16384: U = 7616, P =
+// 1904) can take the streamed one (nbuf = 0): the same warps and lanes walk
+// the same bins in the same order, but each reads y and Ĥ from global
+// memory and recomputes |Ĥ|², its inverse and the equalized bin with the
+// staging code's expressions (eq_demap.cuh's StreamedBins). Shared memory
+// keeps only the pilot positions, the warps' pilot scratch and sums. Its
+// outputs equal the staged layout's bit for bit.
 //
-// Past MAX_STREAMED_PILOTS pilots (11 621: one warp's 4P floats of pilot
-// scratch and the P positions no longer fit a block) the wrapper picks the
-// spilled layout: the streamed one with each warp's pilot scratch in its
-// own slice of a global buffer (frame b, warp w at (b·W + w)·4P floats)
-// and the pilot positions read from the layout table in global memory.
-// The chain is the same code on other pointers (__syncwarp orders a warp's
-// global accesses as it does its shared ones), reading the scratch in the
-// same order, so the bits do not depend on the layout.
+// What held both back at the wide bands: each warp keeps its own pilot
+// scratch (4P floats) and, staged, its symbol buffers, so an SM holds one
+// block of 4-10 warps; each lane walks U/32 bins of a symbol in a row; and
+// a block takes a whole frame, so a batch of 64 frames leaves half the SMs
+// empty. The teamed layout (fused_eq_demap_team_kernel) answers the three: a
+// team of T warps takes a symbol (eq_demap.cuh's gf3x_fit_symbol_team), one
+// pilot scratch a team, every elementwise pass over the team's threads
+// with each lane's loads batched kUnroll bins at a time; and the grid is
+// (B, blocks), block `blk` taking a contiguous run of the frame's symbols,
+// so B = 1 fills the card too. Ĥ, |Ĥ|², the clamped inverse and the layout
+// table are staged in shared memory (kStageH) or read through L2. A thread
+// keeps its EVM and |llr| sums over its bins of its symbols; the block adds
+// its warps' sums in order, and with blocks > 1 writes them to `part`, and
+// the frame's last block (a ticket after __threadfence) adds the blocks'
+// in order. So llr, slope and cpe keep the other layouts' bits; evm and
+// mean |llr| are summed in another order (with one team of one warp and
+// one block a frame, the staged layout's order).
+//
+// Past the pilot bound of shared memory (one team's 4P floats, P > 11 621)
+// the spilled layout is the teamed kernel with each team's pilot scratch in
+// its own slice of a global buffer and the pilot positions read from the
+// layout table in global memory (kSpilled).
 #include <cstdint>
 
 #include "eq_demap.cuh"
@@ -62,6 +75,7 @@
 namespace {
 
 constexpr int kMaxLevels = 8;   // 64-QAM: 8 PAM levels per axis
+constexpr int kUnroll = 4;      // bins a lane loads before it computes them
 
 struct FusedArgs {
     TrackArgs t;
@@ -71,12 +85,16 @@ struct FusedArgs {
     float* evm;          // (B,) mean min distance over the data bins
     float* mabs;         // (B,) mean |llr|
     int R;               // LLRs per data symbol
-    int warps;           // W: warp w takes data symbols w, w + W, ...
+    int warps;           // W warps a block
     int nbuf;            // symbol buffers per warp: 2 when W < D, else 1;
-                         // 0 for the streamed layout
+                         // 0 for the streamed and teamed layouts
+    int team;            // T warps a data symbol (teamed, spilled)
+    int blocks;          // blocks a frame (teamed, spilled)
     float evm_div;       // D · n_data_bins
     float abs_div;       // D · R
     float* scratch;      // the spilled layout's pilot scratch, else null
+    float* part;         // (B, blocks, 2) the blocks' sums when blocks > 1
+    int* ticket;         // (B,) zeroed: blocks of the frame done
     float lv[kMaxLevels];   // PAM level of each Gray label
 };
 
@@ -97,19 +115,73 @@ __device__ __forceinline__ void store_llrs(float* out, const float* l) {
     }
 }
 
+// One data bin: x derotated (where there is a fit), demapped at nv_sym ·
+// inv, its 2m LLRs stored at out.
+template <int m>
+__device__ __forceinline__ void demap_bin(float2 x, float inv, int k,
+                                          const SymbolFit& f, bool derotate,
+                                          const float* lv, float* out,
+                                          float& md_sum, float& abs_sum) {
+    if (derotate) x = gf3x_derotate(x, f.slope, k, f.cpe);
+    const float nv_eff = f.nv_sym * inv;
+    const float nvc = fmaxf(nv_eff, 1e-12f);
+    float l[2 * m];
+    gf3x_demap_axis<m>(x.x, lv, nvc, l, md_sum, abs_sum);
+    gf3x_demap_axis<m>(x.y, lv, nvc, l + m, md_sum, abs_sum);
+    store_llrs<m>(out, l);
+}
+
+// The block's EVM and |llr| sums (its warps' in order) to the frame's
+// means: written by the block itself when it is the frame's only one, else
+// to `part`, and the frame's last block adds the blocks' in order. `red`
+// holds 2·W floats of shared memory. Called by every thread.
+__device__ __forceinline__ void frame_sums(const FusedArgs& a, int b, int blk,
+                                           float md_sum, float abs_sum,
+                                           float* red) {
+    const int W = a.warps, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    md_sum = gf3x_warp_sum(md_sum);
+    abs_sum = gf3x_warp_sum(abs_sum);
+    if (lane == 0) {
+        red[w] = md_sum;
+        red[W + w] = abs_sum;
+    }
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    float e = 0.0f, s = 0.0f;
+    for (int v = 0; v < W; ++v) {
+        e += red[v];
+        s += red[W + v];
+    }
+    if (a.blocks > 1) {
+        float* mine = a.part + (static_cast<size_t>(b) * a.blocks + blk) * 2;
+        mine[0] = e;
+        mine[1] = s;
+        __threadfence();
+        if (atomicAdd(a.ticket + b, 1) != a.blocks - 1) return;
+        __threadfence();
+        const float* all = a.part + static_cast<size_t>(b) * a.blocks * 2;
+        e = 0.0f;
+        s = 0.0f;
+        for (int j = 0; j < a.blocks; ++j) {
+            e += __ldcg(all + 2 * j);
+            s += __ldcg(all + 2 * j + 1);
+        }
+    }
+    a.evm[b] = e / a.evm_div;
+    a.mabs[b] = s / a.abs_div;
+}
+
 // Dynamic shared memory, in floats (the wrapper's fused_eq_geometry
 // computes the same). Staged: Ĥ (2U) | W·nbuf symbol buffers (2U each) |
 // |Ĥ|² (U) | 1/max(|Ĥ|², 1e-12) (U) | W pilot scratches (4P each) | the W
 // warps' two sums | the layout table (U ints: P pilot positions, U − P
 // data positions). Streamed (nbuf = 0): the pilot scratches, the sums and
 // the P pilot positions alone; Ĥ, the bins and the data positions are read
-// from global memory. Spilled: the sums alone; the pilot scratch in
-// a.scratch and the positions in the table.
+// from global memory.
 template <int m, int kLayout>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(1024, 1)
 fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
-    constexpr bool kStreamed = kLayout != kStagedBins;
-    constexpr bool kSpilled = kLayout == kSpilledBins;
+    constexpr bool kStreamed = kLayout == kStreamedBins;
     extern __shared__ __align__(16) float sm[];
     const TrackArgs& t = a.t;
     const int U = t.U, P = t.P, D = t.D, W = a.warps;
@@ -120,19 +192,18 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     float2* buf = hs + U + static_cast<size_t>(w) * a.nbuf * U;
     float* h2s = sm + 2 * U + 2 * U * W * a.nbuf;
     float* inv_csi = h2s + U;
-    float* zr = kSpilled ? gf3x_spilled_scratch(a.scratch, b, W, w, P)
-                         : sm + rows + 4 * P * w;
+    float* zr = sm + rows + 4 * P * w;
     float* zi = zr + P;
     float* dr = zi + P;
     float* di = dr + P;
-    float* red = kSpilled ? sm : sm + rows + 4 * P * W;
+    float* red = sm + rows + 4 * P * W;
     int* s_pos = reinterpret_cast<int*>(red + 2 * W);
-    const int* kp = kSpilled ? t.pos : s_pos;
+    const int* kp = s_pos;
     const int* dpos = kStreamed ? t.pos + P : kp + P;
     const float2* hrow = t.h + static_cast<long long>(b) * U;
 
     if constexpr (kStreamed) {
-        if constexpr (!kSpilled) gf3x_stage_layout(t, s_pos, P);
+        gf3x_stage_layout(t, s_pos, P);
     } else {
         // the warp's first symbol is in flight while the block stages Ĥ
         gf3x_fetch_symbol(t, b, w, buf, lane);
@@ -185,13 +256,8 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
                 x = cur[k];
                 inv = inv_csi[k];
             }
-            if (derotate) x = gf3x_derotate(x, f.slope, k, f.cpe);
-            const float nv_eff = f.nv_sym * inv;
-            const float nvc = fmaxf(nv_eff, 1e-12f);
-            float l[2 * m];
-            gf3x_demap_axis<m>(x.x, lv, nvc, l, md_sum, abs_sum);
-            gf3x_demap_axis<m>(x.y, lv, nvc, l + m, md_sum, abs_sum);
-            store_llrs<m>(row + 2 * m * j, l);
+            demap_bin<m>(x, inv, k, f, derotate, lv, row + 2 * m * j, md_sum,
+                         abs_sum);
         }
         if (lane == 0) {
             a.slope[o] = f.slope;
@@ -199,49 +265,150 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
         }
         __syncwarp();   // cur and the scratch are rewritten next
     }
+    frame_sums(a, b, 0, md_sum, abs_sum, red);
+}
 
-    // the frame's sums: warps in order
-    md_sum = gf3x_warp_sum(md_sum);
-    abs_sum = gf3x_warp_sum(abs_sum);
-    if (lane == 0) {
-        red[w] = md_sum;
-        red[W + w] = abs_sum;
+// The teamed layout (kSpilled: its pilot scratch in a.scratch), grid (B,
+// blocks), G = W / T teams a block. Dynamic shared memory, in floats (the
+// wrapper's fused_eq_geometry computes the same): kStageH: Ĥ (2U) | |Ĥ|²
+// (U) | 1/max(|Ĥ|², 1e-12) (U) | the layout table (U ints); then, unless
+// kSpilled, the G teams' pilot scratch (4P each) | the G teams' three
+// shared values (4 each) | the W warps' two sums | unless kStageH or
+// kSpilled, the P pilot positions (ints). Data positions are read from
+// the layout table in global memory unless staged.
+template <int m, bool kStageH, bool kSpilled>
+__global__ void __launch_bounds__(1024, 1)
+fused_eq_demap_team_kernel(const __grid_constant__ FusedArgs a) {
+    extern __shared__ __align__(16) float sm[];
+    const TrackArgs& t = a.t;
+    const int U = t.U, P = t.P, D = t.D, W = a.warps;
+    const int b = blockIdx.x, blk = blockIdx.y;
+    const Team tm(a.team);
+    const int G = W / a.team;
+    float* stage = sm;
+    float* scr = stage + (kStageH ? 5 * U : 0);
+    float* bc = scr + (kSpilled ? 0 : 4 * P * G);
+    float* red = bc + 4 * G;
+    int* s_pos = reinterpret_cast<int*>(kStageH ? stage + 4 * U : red + 2 * W);
+    float* zr = kSpilled ? gf3x_spilled_scratch(a.scratch, b, a.blocks, blk,
+                                                G, tm.g, P)
+                         : scr + 4 * P * tm.g;
+    float* zi = zr + P;
+    float* dr = zi + P;
+    float* di = dr + P;
+    const float2* hrow = t.h + static_cast<long long>(b) * U;
+    float2* hs = reinterpret_cast<float2*>(stage);
+    float* h2s = stage + 2 * U;
+    float* invs = stage + 3 * U;
+
+    if constexpr (kStageH) {
+        for (int k = threadIdx.x; k < U; k += blockDim.x) {
+            const float2 h = hrow[k];
+            const float h2 = gf3x_abs2(h);
+            hs[k] = h;
+            h2s[k] = h2;
+            invs[k] = gf3x_inv_csi(h2);
+        }
+        gf3x_stage_layout(t, s_pos, U);
+    } else if constexpr (!kSpilled) {
+        gf3x_stage_layout(t, s_pos, P);
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-        float e = 0.0f, s = 0.0f;
-        for (int v = 0; v < W; ++v) {
-            e += red[v];
-            s += red[W + v];
+    const int* kp = kSpilled ? t.pos : s_pos;
+    const int* dpos = kStageH ? s_pos + P : t.pos + P;
+
+    float lv[kMaxLevels];
+#pragma unroll
+    for (int i = 0; i < kMaxLevels; ++i) lv[i] = a.lv[i];
+    const int nd = U - P;
+    const bool derotate = P >= 2;
+    float md_sum = 0.0f, abs_sum = 0.0f;
+    const TeamSymbols run(D, a.blocks, blk);
+    for (int d = run.lo + tm.g; d < run.hi; d += G) {
+        const float2* yrow = t.y + (static_cast<long long>(b) * t.S + t.K + d) * U;
+        const TeamBins<kStageH> bins{yrow, kStageH ? hs : hrow, h2s, invs};
+        const SymbolFit f = gf3x_fit_symbol_team(t, b, bins, kp, zr, zi, dr,
+                                                 di, bc + 4 * tm.g, tm);
+        const long long o = static_cast<long long>(b) * D + d;
+        float* row = a.llr + o * a.R;
+        for (int j0 = tm.tt; j0 < nd; j0 += kUnroll * tm.n) {
+            int k[kUnroll];
+            float2 y[kUnroll], h[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const int j = j0 + u * tm.n;
+                k[u] = j < nd ? dpos[j] : 0;
+            }
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                y[u] = __ldg(yrow + k[u]);
+                h[u] = bins.hk(k[u]);
+            }
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const int j = j0 + u * tm.n;
+                if (j >= nd) break;
+                float h2, inv;
+                if constexpr (kStageH) {
+                    h2 = h2s[k[u]];
+                    inv = invs[k[u]];
+                } else {
+                    h2 = gf3x_abs2(h[u]);
+                    inv = gf3x_inv_csi(h2);
+                }
+                demap_bin<m>(gf3x_eq_bin(y[u], h[u], h2), inv, k[u], f,
+                             derotate, lv, row + 2 * m * j, md_sum, abs_sum);
+            }
         }
-        a.evm[b] = e / a.evm_div;
-        a.mabs[b] = s / a.abs_div;
+        if (tm.tt == 0) {
+            a.slope[o] = f.slope;
+            a.cpe[o] = f.cpe;
+        }
     }
+    frame_sums(a, b, blk, md_sum, abs_sum, red);
+}
+
+template <typename Kernel>
+cudaError_t launch_kernel(Kernel kernel, size_t (&smem_set)[kMaxDevices],
+                          const FusedArgs& a, long long B, int smem,
+                          cudaStream_t stream) {
+    const cudaError_t e = gf3x_allow_smem(kernel, smem, smem_set);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(static_cast<unsigned>(B), static_cast<unsigned>(a.blocks)),
+             32 * a.warps, smem, stream>>>(a);
+    return cudaGetLastError();
 }
 
 template <int m, int kLayout>
 cudaError_t launch_layout(const FusedArgs& a, long long B, int smem,
                           cudaStream_t stream) {
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            fused_eq_demap_kernel<m, kLayout>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return e;
-    }
-    fused_eq_demap_kernel<m, kLayout>
-        <<<static_cast<unsigned>(B), 32 * a.warps, smem, stream>>>(a);
-    return cudaGetLastError();
+    static size_t smem_set[kMaxDevices] = {};
+    return launch_kernel(fused_eq_demap_kernel<m, kLayout>, smem_set, a, B,
+                         smem, stream);
 }
 
+template <int m, bool kStageH, bool kSpilled>
+cudaError_t launch_team(const FusedArgs& a, long long B, int smem,
+                        cudaStream_t stream) {
+    static size_t smem_set[kMaxDevices] = {};
+    return launch_kernel(fused_eq_demap_team_kernel<m, kStageH, kSpilled>,
+                         smem_set, a, B, smem, stream);
+}
+
+// The layout: teamed where a team has more than one warp or a frame more
+// than one block, spilled where there is a global pilot scratch, else
+// staged (nbuf > 0) or streamed.
 template <int m>
 cudaError_t launch_fused(const FusedArgs& a, long long B, int smem,
-                         cudaStream_t stream) {
-    switch (gf3x_bins_layout(a.nbuf, a.scratch)) {
-    case kStagedBins: return launch_layout<m, kStagedBins>(a, B, smem, stream);
-    case kStreamedBins:
-        return launch_layout<m, kStreamedBins>(a, B, smem, stream);
-    default: return launch_layout<m, kSpilledBins>(a, B, smem, stream);
+                         int stage_h, cudaStream_t stream) {
+    if (a.scratch != nullptr)
+        return launch_team<m, false, true>(a, B, smem, stream);
+    if (a.team > 1 || a.blocks > 1) {
+        return stage_h ? launch_team<m, true, false>(a, B, smem, stream)
+                       : launch_team<m, false, false>(a, B, smem, stream);
     }
+    return a.nbuf != 0 ? launch_layout<m, kStagedBins>(a, B, smem, stream)
+                       : launch_layout<m, kStreamedBins>(a, B, smem, stream);
 }
 
 }  // namespace
@@ -252,7 +419,8 @@ GF3X_EXPORT int gf3x_fused_eq_demap(
         float* mabs, long long B, int S, int K, int U, int P, int m,
         const float* levels, int n_ladder, int q0, float base0, int q1,
         float base1, float mean_dk, int warps, int nbuf, int smem,
-        float evm_div, float abs_div, float* scratch, void* stream) {
+        float evm_div, float abs_div, float* scratch, int team, int blocks,
+        int stage_h, float* part, int* ticket, void* stream) {
     FusedArgs a;
     a.t.y = reinterpret_cast<const float2*>(y);
     a.t.h = reinterpret_cast<const float2*>(h);
@@ -278,16 +446,20 @@ GF3X_EXPORT int gf3x_fused_eq_demap(
     a.R = (U - P) * 2 * m;
     a.warps = warps;
     a.nbuf = nbuf;
+    a.team = team;
+    a.blocks = blocks;
     a.evm_div = evm_div;
     a.abs_div = abs_div;
     a.scratch = scratch;
+    a.part = part;
+    a.ticket = ticket;
     for (int i = 0; i < kMaxLevels; ++i) a.lv[i] = i < (1 << m) ? levels[i] : 0.0f;
     if (B <= 0) return static_cast<int>(cudaGetLastError());
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (m) {
-    case 1: return static_cast<int>(launch_fused<1>(a, B, smem, s));
-    case 2: return static_cast<int>(launch_fused<2>(a, B, smem, s));
-    case 3: return static_cast<int>(launch_fused<3>(a, B, smem, s));
+    case 1: return static_cast<int>(launch_fused<1>(a, B, smem, stage_h, s));
+    case 2: return static_cast<int>(launch_fused<2>(a, B, smem, stage_h, s));
+    case 3: return static_cast<int>(launch_fused<3>(a, B, smem, stage_h, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

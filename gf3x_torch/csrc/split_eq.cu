@@ -53,14 +53,18 @@
 // same. W and the shared memory come from the wrapper (demap_geometry).
 //
 // Where a band's staged layout fits no warp count (gf3-16384: U = 7616, a
-// 64-QAM row of R = 34 272 LLRs), the wrappers pick the streamed one
-// (nbuf = 0). Kernel A then runs kernel 2's streamed chain (eq_demap.cuh's
-// StreamedBins: y and Ĥ read from global memory, |Ĥ|² and the equalized
-// bins recomputed) and derotates every bin from it. Kernel B reads its
-// slots, Ĥ and the eq bins from global memory and writes each slot's 2m
-// LLRs straight to its offset in the output row; shared memory holds only
-// the PAM levels. Warps, lanes and each lane's order are the staged
-// layout's, so the outputs are the same bits.
+// 64-QAM row of R = 34 272 LLRs), kernel B takes the streamed layout (nbuf
+// = 0): it reads its slots, Ĥ and the eq bins from global memory and
+// writes each slot's 2m LLRs straight to its offset in the output row;
+// shared memory holds only the PAM levels. Warps, lanes and each lane's
+// order are the staged layout's, so the outputs are the same bits. Kernel A
+// has kernel 2's layouts (fused_eq.cu): streamed, it runs kernel 2's
+// streamed chain (eq_demap.cuh's StreamedBins) and derotates every bin from
+// it; teamed (eq_track_team_kernel), a team of warps takes a symbol
+// (gf3x_fit_symbol_team) on a grid of (B, blocks), and its threads
+// derotate and store the eq row kUnroll bins a lane at a time; spilled,
+// the teamed kernel with each team's pilot scratch in global memory. Every
+// layout gives the same bits.
 #include <cstdint>
 
 #include "eq_demap.cuh"
@@ -73,23 +77,25 @@ struct TrackOut {
     float* slope;        // (B, D)
     float* cpe;          // (B, D)
     float* nv_sym;       // (B, D)
-    int warps;           // W: warp w takes data symbols w, w + W, ...
-    int nbuf;            // symbol buffers per warp: 2 when W < D, else 1
+    int warps;           // W warps a block
+    int nbuf;            // symbol buffers per warp: 2 when W < D, else 1;
+                         // 0 for the streamed and teamed layouts
+    int team;            // T warps a data symbol (teamed, spilled)
+    int blocks;          // blocks a frame (teamed, spilled)
     float* scratch;      // the spilled layout's pilot scratch, else null
 };
+
+constexpr int kUnroll = 4;   // bins a lane loads before it stores them
 
 // Dynamic shared memory, in floats (the wrapper's fused_eq_geometry with
 // demap=False computes the same). Staged: Ĥ (2U) | W·nbuf symbol buffers
 // (2U each) | |Ĥ|² (U) | W pilot scratches (4P each) | the pilot positions
 // (P ints). Streamed (nbuf = 0): the pilot scratches and positions alone.
-// Spilled (past the streamed layout's pilot bound): none; the pilot
-// scratch in a.scratch, the positions read from the table (fused_eq.cu).
 // Below two pilots the bins are not derotated.
 template <int kLayout>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(1024, 1)
 eq_track_kernel(const __grid_constant__ TrackOut a) {
-    constexpr bool kStreamed = kLayout != kStagedBins;
-    constexpr bool kSpilled = kLayout == kSpilledBins;
+    constexpr bool kStreamed = kLayout == kStreamedBins;
     extern __shared__ __align__(16) float sm[];
     const TrackArgs& t = a.t;
     const int U = t.U, P = t.P, D = t.D, W = a.warps;
@@ -99,13 +105,12 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
     float2* hs = reinterpret_cast<float2*>(sm);
     float2* buf = hs + U + static_cast<size_t>(w) * a.nbuf * U;
     float* h2s = sm + 2 * U + 2 * U * W * a.nbuf;
-    float* zr = kSpilled ? gf3x_spilled_scratch(a.scratch, b, W, w, P)
-                         : sm + rows + 4 * P * w;
+    float* zr = sm + rows + 4 * P * w;
     float* zi = zr + P;
     float* dr = zi + P;
     float* di = dr + P;
     int* s_pos = reinterpret_cast<int*>(sm + rows + 4 * P * W);
-    const int* kp = kSpilled ? t.pos : s_pos;
+    const int* kp = s_pos;
     const float2* hrow = t.h + static_cast<long long>(b) * U;
 
     if constexpr (!kStreamed) {
@@ -117,7 +122,7 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
             h2s[k] = gf3x_abs2(h);
         }
     }
-    if constexpr (!kSpilled) gf3x_stage_layout(t, s_pos, P);
+    gf3x_stage_layout(t, s_pos, P);
     __syncthreads();
     const bool derotate = P >= 2;
 
@@ -151,6 +156,110 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
         }
         __syncwarp();   // cur and the scratch are rewritten next
     }
+}
+
+// Kernel A's teamed layout (kSpilled: its pilot scratch in a.scratch),
+// grid (B, blocks), G = W / T teams a block. Dynamic shared memory, in
+// floats (fused_eq_geometry with demap=False computes the same): kStageH:
+// Ĥ (2U) | |Ĥ|² (U); then, unless kSpilled, the G teams' pilot scratch (4P
+// each) | the G teams' three shared values (4 each) | unless kSpilled, the
+// P pilot positions (ints).
+template <bool kStageH, bool kSpilled>
+__global__ void __launch_bounds__(1024, 1)
+eq_track_team_kernel(const __grid_constant__ TrackOut a) {
+    extern __shared__ __align__(16) float sm[];
+    const TrackArgs& t = a.t;
+    const int U = t.U, P = t.P, D = t.D;
+    const int b = blockIdx.x, blk = blockIdx.y;
+    const Team tm(a.team);
+    const int G = a.warps / a.team;
+    float2* hs = reinterpret_cast<float2*>(sm);
+    float* h2s = sm + 2 * U;
+    float* scr = sm + (kStageH ? 3 * U : 0);
+    float* bc = scr + (kSpilled ? 0 : 4 * P * G);
+    int* s_pos = reinterpret_cast<int*>(bc + 4 * G);
+    float* zr = kSpilled ? gf3x_spilled_scratch(a.scratch, b, a.blocks, blk,
+                                                G, tm.g, P)
+                         : scr + 4 * P * tm.g;
+    float* zi = zr + P;
+    float* dr = zi + P;
+    float* di = dr + P;
+    const float2* hrow = t.h + static_cast<long long>(b) * U;
+
+    if constexpr (kStageH) {
+        for (int k = threadIdx.x; k < U; k += blockDim.x) {
+            const float2 h = hrow[k];
+            hs[k] = h;
+            h2s[k] = gf3x_abs2(h);
+        }
+    }
+    if constexpr (!kSpilled) gf3x_stage_layout(t, s_pos, P);
+    __syncthreads();
+    const int* kp = kSpilled ? t.pos : s_pos;
+    const bool derotate = P >= 2;
+
+    const TeamSymbols run(D, a.blocks, blk);
+    for (int d = run.lo + tm.g; d < run.hi; d += G) {
+        const float2* yrow = t.y + (static_cast<long long>(b) * t.S + t.K + d) * U;
+        const TeamBins<kStageH> bins{yrow, kStageH ? hs : hrow, h2s, nullptr};
+        const SymbolFit f = gf3x_fit_symbol_team(t, b, bins, kp, zr, zi, dr,
+                                                 di, bc + 4 * tm.g, tm);
+        const long long o = static_cast<long long>(b) * D + d;
+        float2* row = a.eq + o * U;
+        for (int k0 = tm.tt; k0 < U; k0 += kUnroll * tm.n) {
+            float2 y[kUnroll], h[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const int k = min(k0 + u * tm.n, U - 1);
+                y[u] = __ldg(yrow + k);
+                h[u] = bins.hk(k);
+            }
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const int k = k0 + u * tm.n;
+                if (k >= U) break;
+                const float h2 = kStageH ? h2s[k] : gf3x_abs2(h[u]);
+                const float2 x = gf3x_eq_bin(y[u], h[u], h2);
+                row[k] = derotate ? gf3x_derotate(x, f.slope, k, f.cpe) : x;
+            }
+        }
+        if (tm.tt == 0) {
+            a.slope[o] = f.slope;
+            a.cpe[o] = f.cpe;
+            a.nv_sym[o] = f.nv_sym;
+        }
+    }
+}
+
+template <typename Kernel>
+cudaError_t launch_track_kernel(Kernel kernel,
+                                size_t (&smem_set)[kMaxDevices],
+                                const TrackOut& a, long long B, int smem,
+                                cudaStream_t stream) {
+    const cudaError_t e = gf3x_allow_smem(kernel, smem, smem_set);
+    if (e != cudaSuccess) return e;
+    if (B > 0) {
+        kernel<<<dim3(static_cast<unsigned>(B),
+                      static_cast<unsigned>(a.blocks)),
+                 32 * a.warps, smem, stream>>>(a);
+    }
+    return cudaGetLastError();
+}
+
+template <int kLayout>
+cudaError_t launch_track(const TrackOut& a, long long B, int smem,
+                         cudaStream_t stream) {
+    static size_t smem_set[kMaxDevices] = {};
+    return launch_track_kernel(eq_track_kernel<kLayout>, smem_set, a, B, smem,
+                               stream);
+}
+
+template <bool kStageH, bool kSpilled>
+cudaError_t launch_track_team(const TrackOut& a, long long B, int smem,
+                              cudaStream_t stream) {
+    static size_t smem_set[kMaxDevices] = {};
+    return launch_track_kernel(eq_track_team_kernel<kStageH, kSpilled>,
+                               smem_set, a, B, smem, stream);
 }
 
 constexpr int kLevels = 2 + 4 + 8;   // PAM levels of QPSK, 16- and 64-QAM
@@ -293,22 +402,6 @@ demap_bins_kernel(const __grid_constant__ DemapArgs a) {
     }
 }
 
-template <int kLayout>
-cudaError_t launch_track(const TrackOut& a, long long B, int smem,
-                         cudaStream_t stream) {
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            eq_track_kernel<kLayout>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return e;
-    }
-    if (B > 0) {
-        eq_track_kernel<kLayout>
-            <<<static_cast<unsigned>(B), 32 * a.warps, smem, stream>>>(a);
-    }
-    return cudaGetLastError();
-}
-
 template <bool kStreamed>
 cudaError_t launch_demap(const DemapArgs& a, long long B, int smem,
                          cudaStream_t stream) {
@@ -330,7 +423,8 @@ GF3X_EXPORT int gf3x_eq_track(
         const int* pos, float* eq, float* slope, float* cpe, float* nv_sym,
         long long B, int S, int K, int U, int P, int n_ladder, int q0,
         float base0, int q1, float base1, float mean_dk, int warps, int nbuf,
-        int smem, float* scratch, void* stream) {
+        int smem, float* scratch, int team, int blocks, int stage_h,
+        void* stream) {
     TrackOut a;
     a.t.y = reinterpret_cast<const float2*>(y);
     a.t.h = reinterpret_cast<const float2*>(h);
@@ -354,16 +448,21 @@ GF3X_EXPORT int gf3x_eq_track(
     a.nv_sym = nv_sym;
     a.warps = warps;
     a.nbuf = nbuf;
+    a.team = team;
+    a.blocks = blocks;
     a.scratch = scratch;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (gf3x_bins_layout(nbuf, scratch)) {
-    case kStagedBins:
-        return static_cast<int>(launch_track<kStagedBins>(a, B, smem, st));
-    case kStreamedBins:
-        return static_cast<int>(launch_track<kStreamedBins>(a, B, smem, st));
-    default:
-        return static_cast<int>(launch_track<kSpilledBins>(a, B, smem, st));
+    // the layout, as kernel 2's (fused_eq.cu, launch_fused)
+    if (scratch != nullptr)
+        return static_cast<int>(launch_track_team<false, true>(a, B, smem, st));
+    if (team > 1 || blocks > 1) {
+        return static_cast<int>(
+            stage_h ? launch_track_team<true, false>(a, B, smem, st)
+                    : launch_track_team<false, false>(a, B, smem, st));
     }
+    return static_cast<int>(
+        nbuf != 0 ? launch_track<kStagedBins>(a, B, smem, st)
+                  : launch_track<kStreamedBins>(a, B, smem, st));
 }
 
 GF3X_EXPORT int gf3x_demap_bins(

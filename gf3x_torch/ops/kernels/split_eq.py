@@ -10,9 +10,9 @@ PyTorch version:
   and mean |llr| (B,). The kernel walks the wire-order slot table
   (`slot_table`) with one warp per data symbol (`demap_geometry`).
 
-Both kernels have kernel 2's two layouts (`fused_eq.FusedGeometry`): the
-staged one, and for a band whose staged layout fits no warp count the
-streamed one, which gives the same bits.
+Kernel A has kernel 2's layouts (`fused_eq.FusedGeometry`: staged,
+streamed, teamed, spilled), kernel B the first two; each layout gives the
+same bits.
 
 The plain versions are the XLA twin's math (Modem._eq_tail,
 loaded_demap_llr / qam_demap_llr); `fused_eq_demap_plain` is the two run
@@ -121,11 +121,13 @@ def check_track_inputs(name: str, cfg: ModemConfig, Y, H, noise_var):
 
 def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
              noise_var: torch.Tensor, pilot_vals: torch.Tensor | None = None,
-             *, streamed: bool = False, spilled: bool = False):
+             *, streamed: bool = False, spilled: bool = False,
+             teamed: bool = False, geometry=None):
     """`eq_track_plain` for CPU tensors; kernel A otherwise, launched with
     kernel 2's per-config constants and its layout
-    (`fused_eq.fused_eq_geometry(..., demap=False)`; `streamed` and
-    `spilled` force those)."""
+    (`fused_eq.fused_eq_geometry(..., demap=False)`; `streamed`, `spilled`
+    and `teamed` force those, `geometry` a launch of its own: tests and
+    chip_smoke.py only)."""
     if Y.device.type == "cpu":
         return eq_track_plain(cfg, Y, H, noise_var, pilot_vals)
     from .fused_eq import (_pilot_floats, _sm_count, fused_eq_geometry,
@@ -139,8 +141,9 @@ def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
           torch.view_as_real(pilot_vals.to(dev, torch.complex64)
                              .contiguous()))
     mean_dk, n_ladder, q0, b0, q1, b1 = launch_constants(cfg)[0]
-    geo = fused_eq_geometry(cfg, B, _sm_count(dev.index), demap=False,
-                            streamed=streamed, spilled=spilled)
+    geo = geometry or fused_eq_geometry(cfg, B, _sm_count(dev.index),
+                                        demap=False, streamed=streamed,
+                                        spilled=spilled, teamed=teamed)
     # the inputs stay bound until the launch: a temporary's memory could be
     # handed to the next allocation before the kernel reads it
     y, h = Y.contiguous(), H.contiguous()
@@ -153,7 +156,8 @@ def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
            eq.data_ptr(), slope.data_ptr(), cpe.data_ptr(), nv_sym.data_ptr(),
            B, S, cfg.n_known_symbols, U, cfg.n_pilots, n_ladder, q0, b0, q1,
            b1, mean_dk, geo.warps, geo.nbuf, geo.smem,
-           0 if scratch is None else scratch.data_ptr())
+           0 if scratch is None else scratch.data_ptr(), geo.team,
+           geo.blocks, int(geo.stage_h))
     eq_track.launches += 1
     return eq, slope, cpe, nv_sym
 

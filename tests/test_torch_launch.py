@@ -185,35 +185,48 @@ CONFIGS = {"config5": GF3_STANDARD, "gf3-fast": GF3_FAST,
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_fused_eq_geometry_covers_every_symbol_once(name):
-    """Kernel 2's launch and kernel A's, which has its layout (one block
-    per frame, warp w taking data symbols w, w + W, ...), each cover every
-    (frame, data symbol) exactly once, give every warp a symbol, and keep a
-    block within 227 KB of shared memory, at the batches the port runs
-    (one recording, odd batches, 1024), staged or — where that fits no
-    warp count (gf3-16384) — streamed."""
+    """Kernel 2's launch and kernel A's, which has its layout, each cover
+    every (frame, data symbol) exactly once and keep a block within 227 KB
+    of shared memory, at the batches the port runs (one recording, odd
+    batches, 1024): staged (one block per frame, warp w taking data
+    symbols w, w + W, ..., every warp a symbol) at the narrow bands, and
+    teamed — a team of warps per symbol, a frame's symbols spread over
+    blocks, every block a symbol — at the wide ones (whose staged layout
+    holds too few warps an SM, or fits none: gf3-16384)."""
     cfg = CONFIGS[name]
     D, U, P = cfg.n_data_symbols, cfg.n_used, cfg.n_pilots
     assert name != "n_used-1024" or U == 1024
     for demap in (True, False):
         for B in (1, 7, 8, 64, 1023, 1024, 4096):
             geo = fused_eq.fused_eq_geometry(cfg, B, demap=demap)
-            per_warp = [list(geo.symbols(w, D)) for w in range(geo.warps)]
-            seen = Counter((b, d) for b in range(B) for syms in per_warp
+            per_slot = [list(geo.symbols(g, D, blk))
+                        for blk in range(geo.blocks)
+                        for g in range(geo.teams)]
+            seen = Counter((b, d) for b in range(B) for syms in per_slot
                            for d in syms)
             assert len(seen) == B * D and set(seen.values()) == {1}
-            assert all(1 <= len(s) <= geo.passes for s in per_warp)
+            assert all(len(s) <= geo.passes for s in per_slot)
             assert 1 <= geo.warps <= 32
-            assert geo.streamed == (name == "gf3-16384")
+            assert geo.layout == ("teamed" if name in chip_smoke.WIDE_BANDS
+                                  else "staged")
             # the kernels' layouts, in floats: Ĥ, the symbol buffers, |Ĥ|²
             # and the pilot scratch; kernel 2 adds 1/max(|Ĥ|², 1e-12), the
             # warps' sums and the layout table (U ints), kernel A the pilot
-            # positions (P ints) (fused_eq.cu, split_eq.cu); streamed, the
-            # pilot scratch, kernel 2's sums and the pilot positions alone
-            if geo.streamed:
+            # positions (P ints) (fused_eq.cu, split_eq.cu); teamed, the
+            # teams' pilot scratch and three shared values, kernel 2's sums
+            # and the pilot positions, and Ĥ (with kernel 2's table) where
+            # it is staged
+            if geo.layout == "teamed":
                 assert geo.nbuf == 0
-                floats = 4 * P * geo.warps + (2 * geo.warps if demap else 0)
-                floats += P
+                floats = (5 * U if demap else 3 * U) if geo.stage_h else 0
+                floats += 4 * P * geo.teams + 4 * geo.teams
+                floats += 2 * geo.warps if demap else 0
+                floats += 0 if geo.stage_h and demap else P
+                assert all(any(geo.symbols(g, D, blk)
+                               for g in range(geo.teams))
+                           for blk in range(geo.blocks))
             else:
+                assert all(1 <= len(s) for s in per_slot)
                 assert geo.nbuf == (2 if geo.passes > 1 else 1)
                 floats = (2 * U + 2 * U * geo.warps * geo.nbuf + U
                           + 4 * P * geo.warps)

@@ -13,9 +13,10 @@ tail: hard decisions exact, LLRs ≤ 2e-4·mean|LLR|, slope/cpe ≤ 1e-4 rad,
 the rest ≤ 1e-4 rel (tests/test_torch_pilots.py's).
 
 The CUDA kernels run only on the card: `chip_smoke.py`'s "wide" phase
-holds them, in both layouts, against these plain versions there. Here:
-their launch geometry (staged where a warp count fits, else streamed),
-kernel B's slot table past 2¹⁴ bins, and kernel 8's route."""
+holds them, in every layout, against these plain versions there. Here:
+their launch geometry (kernels 2 and A teamed, kernel B staged where a
+warp count fits, else streamed), kernel B's slot table past 2¹⁴ bins,
+and kernel 8's route."""
 
 from collections import Counter
 
@@ -241,19 +242,50 @@ def test_slot_table_round_trips_wide_bins(name):
         assert k.max() == 16382
 
 
+TIMED_PICKS = {"gf3-4096": (2, 1, True), "gf3-8192": (4, 1, True),
+               "gf3-16384": (8, 4, False)}
+
+
 @pytest.mark.parametrize("name", list(WIDE))
 def test_wide_geometry_picks_its_layout(name):
-    """Kernels 2 and A (`fused_eq_geometry`, both `demap` values) and kernel
-    B (`demap_geometry`, uniform and loaded) take the staged layout at
-    gf3-4096 and gf3-8192 and the streamed one at gf3-16384, whose staged
-    layout fits no warp count; the forced streamed layout keeps the staged
-    warps (so the frame sums keep their order) and no symbol buffers."""
+    """Kernels 2 and A (`fused_eq_geometry`, both `demap` values) take the
+    teamed layout at every wide band — their staged layout holds fewer
+    than STAGED_MIN_WARPS warps an SM at gf3-4096 and gf3-8192 and fits no
+    warp count at gf3-16384 — with the team, blocks and Ĥ placement of
+    `teamed_geometry`, which are the launches timed fastest on the card:
+    at B = 1024 a block a frame with Ĥ staged, teams of 2 warps at
+    gf3-4096 and 4 at gf3-8192; at gf3-16384 (B = 64) teams of 8 over 4
+    blocks a frame; one recording, a block per symbol and teams of 8. The
+    forced streamed layout keeps the staged warps where those fit (so the
+    frame sums keep their order) and no symbol buffers. Kernel B (`demap_geometry`, uniform and loaded) takes the
+    staged layout at gf3-4096 and gf3-8192 and the streamed one at
+    gf3-16384, whose staged layout fits no warp count; its forced streamed
+    layout keeps the staged warps."""
     cfg = WIDE[name]
     B = 64 if name == "gf3-16384" else 1024
     streamed = name == "gf3-16384"
-    geos = [fused_eq.fused_eq_geometry(cfg, B, demap=d) for d in (True, False)]
-    forced = [fused_eq.fused_eq_geometry(cfg, B, demap=d, streamed=True)
-              for d in (True, False)]
+    U, P, D = cfg.n_used, cfg.n_pilots, cfg.n_data_symbols
+    for d in (True, False):
+        geo = fused_eq.fused_eq_geometry(cfg, B, demap=d)
+        assert geo.layout == "teamed" and geo.nbuf == 0 and not geo.spill
+        assert geo == fused_eq.teamed_geometry(U, P, D, B, fused_eq.H100_SMS,
+                                               d)
+        # the launches timed fastest on the card (PERF.md §6): (team,
+        # blocks a frame, Ĥ staged), and at B = 1 a block per symbol
+        assert (geo.team, geo.blocks, geo.stage_h) == TIMED_PICKS[name]
+        one = fused_eq.fused_eq_geometry(cfg, 1, demap=d)
+        assert (one.team, one.blocks, one.stage_h) == (8, D, False)
+        staged = fused_eq.pick_warps(D, B, fused_eq.H100_SMS,
+                                     lambda w, nbuf: fused_eq._smem_bytes(
+                                         U, P, w, nbuf, d))
+        forced = fused_eq.fused_eq_geometry(cfg, B, demap=d, streamed=True)
+        assert forced.layout == "streamed"
+        assert (staged is None) == streamed
+        if staged is not None:
+            assert (forced.warps, forced.passes) == (staged.warps,
+                                                     staged.passes)
+        assert max(geo.smem, forced.smem) <= fused_eq.SMEM_BLOCK
+    geos, forced = [], []
     for c in (cfg, loaded(cfg)):
         geos.append(split_eq.demap_geometry(c, B))
         forced.append(split_eq.demap_geometry(c, B, streamed=True))
@@ -262,22 +294,25 @@ def test_wide_geometry_picks_its_layout(name):
         assert f.nbuf == 0 and (f.warps, f.passes) == (geo.warps, geo.passes)
         assert f.smem <= geo.smem <= fused_eq.SMEM_BLOCK
     if streamed:
-        assert geos[0] == forced[0] and geos[2].smem == 4 * 16
+        assert geos[0].smem == 4 * 16
 
 
 def test_spilled_layout_past_the_pilot_scratch_bound():
-    """The streamed layout's one limit is one warp's pilot scratch and the
-    pilot positions (5P words) in a block: past MAX_STREAMED_PILOTS pilots
+    """The layouts' one limit in shared memory is one team's pilot scratch,
+    the pilot positions, its three shared values and kernel 2's two sums
+    of one warp (5P + 6 words) in a block: past MAX_STREAMED_PILOTS pilots
     (n_fft = 65536 at spacing 2, chip_smoke.SPILL_BAND) kernels 2 and A
-    take the spilled layout — no symbol buffers, the pilot scratch (4P
-    floats a warp) in a global buffer, shared memory only for kernel 2's
-    two sums a warp — whose launch covers every (frame, data symbol) once
-    and gives every warp a symbol; at spacing 3 the streamed layout still
-    fits. Forced (`spilled=True`) at config 5 the spill keeps the staged
-    warps, so each frame's sums keep their order."""
+    take the spilled layout — the teamed one with no symbol buffers and
+    the pilot scratch (4P floats a team) in a global buffer, shared memory
+    only for the teams' shared values and kernel 2's two sums a warp —
+    whose launch covers every (frame, data symbol) once across (block,
+    team) and gives every block a symbol; at spacing 3 the teamed layout
+    still fits. Forced (`spilled=True`) at config 5 the spill keeps the
+    staged warps, one warp a team and one block a frame, so each frame's
+    sums keep their order."""
     bound = fused_eq.MAX_STREAMED_PILOTS
-    assert 4 * (5 * bound + 2) <= fused_eq.SMEM_BLOCK \
-        < 4 * (5 * (bound + 1) + 2)
+    assert 4 * (5 * bound + 6) <= fused_eq.SMEM_BLOCK \
+        < 4 * (5 * (bound + 1) + 6)
     over = GF3_STANDARD.replace(**chip_smoke.SPILL_BAND)
     under = over.replace(pilot_spacing=3)
     assert (over.n_used, over.n_pilots) == (31232, 15616)
@@ -287,15 +322,24 @@ def test_spilled_layout_past_the_pilot_scratch_bound():
         for B in (1, 4, 64):
             geo = fused_eq.fused_eq_geometry(over, B, demap=demap)
             assert geo.spill and geo.streamed and geo.nbuf == 0
-            assert geo.smem == (8 * geo.warps if demap else 0)
-            assert geo.scratch_floats(B, P) == B * geo.warps * 4 * P
+            assert geo.layout == "spilled" and not geo.stage_h
+            assert geo.smem == 4 * (4 * geo.teams
+                                    + (2 * geo.warps if demap else 0))
+            assert geo.scratch_floats(B, P) == \
+                B * geo.blocks * geo.teams * 4 * P
             seen = Counter((b, d) for b in range(B)
-                           for w in range(geo.warps)
-                           for d in geo.symbols(w, D))
+                           for blk in range(geo.blocks)
+                           for g in range(geo.teams)
+                           for d in geo.symbols(g, D, blk))
             assert len(seen) == B * D and set(seen.values()) == {1}
-            assert all(geo.symbols(w, D) for w in range(geo.warps))
+            assert all(any(geo.symbols(g, D, blk) for g in range(geo.teams))
+                       for blk in range(geo.blocks))
+        # the launch timed fastest at B = 4: a block per symbol, teams of 8
+        geo = fused_eq.fused_eq_geometry(over, chip_smoke.SPILL_B,
+                                         demap=demap)
+        assert (geo.team, geo.blocks) == (8, D)
         geo = fused_eq.fused_eq_geometry(under, 8, demap=demap)
-        assert geo.streamed and not geo.spill
+        assert geo.layout == "teamed" and not geo.spill
         assert geo.smem <= fused_eq.SMEM_BLOCK
         staged = fused_eq.fused_eq_geometry(GF3_STANDARD, 1024, demap=demap)
         forced = fused_eq.fused_eq_geometry(GF3_STANDARD, 1024, demap=demap,
@@ -303,6 +347,7 @@ def test_spilled_layout_past_the_pilot_scratch_bound():
         assert not staged.spill and staged.scratch_floats(1024, 35) == 0
         assert forced.spill and forced.nbuf == 0
         assert (forced.warps, forced.passes) == (staged.warps, staged.passes)
+        assert (forced.team, forced.blocks) == (1, 1)
 
 
 def test_spilled_layout_plain_tail_at_its_pilot_count():
