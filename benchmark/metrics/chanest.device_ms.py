@@ -1,0 +1,10 @@
+"""chanest.device_ms: the device time a step of the channel estimate
+(`Modem._chanest`: LS, denoise, ISI profile): the `gf3x.chanest` spans' CUDA
+events, from each span's entry to its exit on the stream's clock, so the
+stage's own idle time counts too (benchmark/spans.py)."""
+
+from benchmark.spans import device_ms
+
+
+def read(ctx):
+    return device_ms(ctx)

@@ -49,8 +49,9 @@ int gf3x_minsum_check(const float*, float*, unsigned char*, int*, int*,
                       int, int, int, void*);
 int gf3x_minsum_decode_blocks(int*, int, int, int, void*);
 int gf3x_minsum_decode(const float*, float*, unsigned char*, int*, int*,
-                       float*, const int*, const int*, const int*, long long,
-                       int, int, int, int, int, int, int, int, void*);
+                       float*, long long*, const int*, const int*, const int*,
+                       long long, int, int, int, int, int, int, int, int,
+                       void*);
 const char* gf3x_error_string(int);
 }
 
@@ -144,10 +145,10 @@ ENTRY(gf3x_minsum_check, "ppppppppllllllp",
                         I(9), I(10), I(11), I(12), I(13), P(14)))
 ENTRY(gf3x_minsum_decode_blocks, "plllp",
       gf3x_minsum_decode_blocks(P(0), I(1), I(2), I(3), P(4)))
-ENTRY(gf3x_minsum_decode, "ppppppppplllllllllp",
+ENTRY(gf3x_minsum_decode, "pppppppppplllllllllp",
       gf3x_minsum_decode(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7),
-                         P(8), L(9), I(10), I(11), I(12), I(13), I(14),
-                         I(15), I(16), I(17), P(18)))
+                         P(8), P(9), L(10), I(11), I(12), I(13), I(14),
+                         I(15), I(16), I(17), I(18), P(19)))
 
 PyObject* py_gf3x_error_string(PyObject*, PyObject* const* a, Py_ssize_t n) {
     Val v[1];

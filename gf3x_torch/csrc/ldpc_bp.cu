@@ -412,6 +412,7 @@ minsum_decode_kernel(const float* __restrict__ lam, float* __restrict__ totals,
                      unsigned char* __restrict__ unsat,
                      int* __restrict__ passes_out, int* __restrict__ work,
                      float* __restrict__ scratch,
+                     unsigned long long* __restrict__ counts,
                      const __grid_constant__ Code code, int iters) {
     constexpr bool kOneRow = kLayout == kOneCheck;
     extern __shared__ __align__(16) float sm[];
@@ -427,6 +428,7 @@ minsum_decode_kernel(const float* __restrict__ lam, float* __restrict__ totals,
                               : (kLayout == kC2vGlobal ? sm + n : c2v + ez));
     const int c = threadIdx.x;
     const bool vec = aligned16(lam);
+    long long swept = 0;   // thread 0: the passes of this block's codewords
     for (;;) {
         if (c == 0) {
             const int i = atomicAdd(work + 1, 1);
@@ -434,7 +436,15 @@ minsum_decode_kernel(const float* __restrict__ lam, float* __restrict__ totals,
         }
         __syncthreads();
         const long long cw = s_cw;
-        if (cw < 0) return;   // every thread read the same s_cw
+        if (cw < 0) {   // every thread read the same s_cw
+            if (counts != nullptr && c == 0) {
+                if (blockIdx.x == 0)
+                    atomicAdd(counts, static_cast<unsigned long long>(work[0]));
+                if (swept > 0)
+                    atomicAdd(counts + 1, static_cast<unsigned long long>(swept));
+            }
+            return;
+        }
         if constexpr (kLayout == kAllGlobal) {
             // the check pass copied the LLRs into the totals
             tot = totals + cw * n;
@@ -464,6 +474,7 @@ minsum_decode_kernel(const float* __restrict__ lam, float* __restrict__ totals,
         if (c == 0) {
             unsat[cw] = bad ? 1 : 0;
             passes_out[cw] = passes;
+            swept += passes;
         }
         // tot and the slice are rewritten only after the next pull's barrier
     }
@@ -583,10 +594,14 @@ GF3X_EXPORT int gf3x_minsum_decode_blocks(int* out, int layout, int threads,
 // The decode pass over the check pass's work list: `grid` blocks of
 // `threads` in `layout` with `smem` bytes (the wrapper's decode_geometry
 // and gf3x_minsum_decode_blocks), c2v (and, kAllGlobal, the bit words) in
-// `scratch`, a slice per block.
+// `scratch`, a slice per block. `counts`, null or two 64-bit counters the
+// launch adds to: block 0 the codewords queued (work[0]), each block the
+// passes of the codewords it decoded, one atomic each as it exits; null,
+// the kernel counts nothing and its work and outputs are the same.
 GF3X_EXPORT int gf3x_minsum_decode(const float* lam, float* totals,
                                    unsigned char* unsat, int* passes,
                                    int* work, float* scratch,
+                                   long long* counts,
                                    const int* row_ptr, const int* col,
                                    const int* shift, long long L, int mb,
                                    int E, int z, int iters, int layout,
@@ -608,19 +623,23 @@ GF3X_EXPORT int gf3x_minsum_decode(const float* lam, float* totals,
         switch (layout) {
         case kOneCheck:
             minsum_decode_kernel<kOneCheck><<<grid, threads, smem, s>>>(
-                lam, totals, unsat, passes, work, scratch, code, iters);
+                lam, totals, unsat, passes, work, scratch,
+                reinterpret_cast<unsigned long long*>(counts), code, iters);
             break;
         case kRowsShared:
             minsum_decode_kernel<kRowsShared><<<grid, threads, smem, s>>>(
-                lam, totals, unsat, passes, work, scratch, code, iters);
+                lam, totals, unsat, passes, work, scratch,
+                reinterpret_cast<unsigned long long*>(counts), code, iters);
             break;
         case kC2vGlobal:
             minsum_decode_kernel<kC2vGlobal><<<grid, threads, smem, s>>>(
-                lam, totals, unsat, passes, work, scratch, code, iters);
+                lam, totals, unsat, passes, work, scratch,
+                reinterpret_cast<unsigned long long*>(counts), code, iters);
             break;
         default:
             minsum_decode_kernel<kAllGlobal><<<grid, threads, smem, s>>>(
-                lam, totals, unsat, passes, work, scratch, code, iters);
+                lam, totals, unsat, passes, work, scratch,
+                reinterpret_cast<unsigned long long*>(counts), code, iters);
             break;
         }
     }

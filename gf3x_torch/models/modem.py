@@ -29,6 +29,12 @@ Receive path of one (B, T) float32 batch:
     → LDPC min-sum           kernel 3
     → info bits + DecodeDiag
 
+Each public entry is a root span of `utils.profiling` (`demodulate`,
+`demodulate_sfo`, ...) and each stage above a child span (`sync`, `cut`
+or `cut_dft`, `dft`, `chanest`, `eq_demap`, `clock_offset`,
+`dd_estimate`, `fec_gather`, `ldpc`, `diag`), so that every op of a call
+runs inside a stage; with tracing off a span is one flag check.
+
 The module holds no learned weights. Its buffers are the static tables the
 config defines — chirp, known symbols, pilots, SC symbol, scrambler, the
 denoise projector, the ISI operator, the LDPC parity projector, the FEC
@@ -61,6 +67,7 @@ from ..ops.sync import (cut_dft_spectra, cut_symbols, find_frame_start,
                         max_cut_start, sc_metric_window)
 from ..utils.bits import (bits_to_bytes, bytes_to_bits, pack_header,
                           parse_frame_header)
+from ..utils.profiling import span
 from .frame import (data_symbols_from_bits, demap_bin_tables,
                     frame_bin_matrix, interleave_bits, interleave_pilots,
                     loaded_qam_map, split_pilots)
@@ -272,13 +279,16 @@ class Modem(torch.nn.Module):
                 if cfg.use_schmidl_cox else -1)
 
     def _cut_frame(self, rx: torch.Tensor, start: torch.Tensor):
-        """Sync position → (syms (..., S, n_fft), SC window or None, roll)."""
+        """Sync position → (syms (B, S, n_fft) on the flat batch, SC window
+        (..., n_fft) or None, roll (B,))."""
         cfg = self.cfg
-        base, S, sc_off = self._cut_geom(rx, start)
-        return cut_symbols(rx, base, S=S, n_fft=cfg.n_fft,
-                           sym_len=cfg.symbol_len, cp=cfg.cp,
-                           body_off=cfg.sc_len, sc_off=sc_off,
-                           block=self._cut_block)
+        with span("cut"):
+            base, S, sc_off = self._cut_geom(rx, start)
+            syms, sc_win, roll = cut_symbols(
+                rx, base, S=S, n_fft=cfg.n_fft, sym_len=cfg.symbol_len,
+                cp=cfg.cp, body_off=cfg.sc_len, sc_off=sc_off,
+                block=self._cut_block)
+            return syms.reshape(-1, S, cfg.n_fft), sc_win, roll.reshape(-1)
 
     def _fused_cut_refuses(self, T: int) -> bool:
         """Whether gf3x's fused cut kernels refuse this config's cut of a
@@ -301,12 +311,15 @@ class Modem(torch.nn.Module):
 
     def _cut_dft_frame(self, rx: torch.Tensor, start: torch.Tensor):
         """Fused cut + used-band DFT + deroll (kernel 8), the same cut as
-        `_cut_frame`: sync position → (Y (..., S, n_used) derolled spectra,
-        SC window or None)."""
+        `_cut_frame`: sync position → (Y (B, S, n_used) derolled spectra on
+        the flat batch, SC window or None)."""
         cfg = self.cfg
-        base, S, sc_off = self._cut_geom(rx, start)
-        return cut_dft_spectra(cfg, rx, base, S=S, body_off=cfg.sc_len,
-                               sc_off=sc_off, block=self._cut_block)
+        with span("cut_dft"):
+            base, S, sc_off = self._cut_geom(rx, start)
+            Y, sc_win = cut_dft_spectra(cfg, rx, base, S=S,
+                                        body_off=cfg.sc_len, sc_off=sc_off,
+                                        block=self._cut_block)
+            return Y.reshape(-1, S, cfg.n_used), sc_win
 
     def _sym_matrix(self, body: torch.Tensor) -> torch.Tensor:
         """CP-aligned OFDM body (..., S·symbol_len) → CP-stripped symbols
@@ -327,15 +340,18 @@ class Modem(torch.nn.Module):
     def _spectra(self, syms: torch.Tensor, delta=None, roll=None):
         """CP-stripped symbols (B, K+D, n_fft) → derolled used-band spectra
         (B, K+D, n_used); δ-warped when `delta` is given."""
-        return deroll(self.cfg, ofdm_dft(self.cfg, syms, delta), roll)
+        with span("dft"):
+            return deroll(self.cfg, ofdm_dft(self.cfg, syms, delta), roll)
 
     def _chanest(self, Y: torch.Tensor, delta=None):
         """Spectra (B, K+D, U) → (H, noise_var, isi_var, isi_ratio): the LS
         estimate, denoise and ISI profile on the K known symbols."""
-        H, noise_var, (isi_var, isi_ratio) = estimate_channel(
-            self.cfg, Y[:, : self.cfg.n_known_symbols], delta, with_isi=True,
-            known_syms=self.known_syms, P=getattr(self, "denoise", None),
-            M=getattr(self, "isi_M", None), q=getattr(self, "isi_q", None))
+        with span("chanest"):
+            H, noise_var, (isi_var, isi_ratio) = estimate_channel(
+                self.cfg, Y[:, : self.cfg.n_known_symbols], delta,
+                with_isi=True, known_syms=self.known_syms,
+                P=getattr(self, "denoise", None),
+                M=getattr(self, "isi_M", None), q=getattr(self, "isi_q", None))
         return H, noise_var, isi_var, isi_ratio
 
     def _estimate(self, syms: torch.Tensor, roll=None, delta=None):
@@ -372,9 +388,10 @@ class Modem(torch.nn.Module):
     def _tail(self, Y: torch.Tensor, H: torch.Tensor,
               noise_var: torch.Tensor):
         """The config's EQ/demap tail (`_tail_route`)."""
-        if self._tail_route() == "split":
-            return self._split_eq_demap(Y, H, noise_var)
-        return self._fused_eq_demap(Y, H, noise_var)
+        with span("eq_demap"):
+            if self._tail_route() == "split":
+                return self._split_eq_demap(Y, H, noise_var)
+            return self._fused_eq_demap(Y, H, noise_var)
 
     def _demod_spectra(self, Y: torch.Tensor, delta=None):
         """Derolled spectra (B, K+D, n_used) → (llr (B, raw_bits), (H,
@@ -423,14 +440,16 @@ class Modem(torch.nn.Module):
         Y = self._spectra(syms, delta, roll)
         H, noise_var, isi_var, isi_ratio = self._chanest(Y, delta)
         llr, slope, cpe, _, _ = self._tail(Y, H, noise_var)
-        Xhat = self._decided_bins(llr)
-        kk = torch.arange(cfg.n_used, dtype=torch.float32, device=Y.device)
-        ph = slope[..., None] * kk + cpe[..., None]             # (B, D, U)
-        Yd = Y[:, K:] * torch.exp(-1j * ph)
-        H_dd = (torch.sum(Yd * torch.conj(Xhat), dim=-2)
-                / torch.clamp(torch.sum(torch.abs(Xhat) ** 2, dim=-2),
-                              min=1e-12))
-        H2 = (K * H + D * H_dd) / (K + D)
+        with span("dd_estimate"):
+            Xhat = self._decided_bins(llr)
+            kk = torch.arange(cfg.n_used, dtype=torch.float32,
+                              device=Y.device)
+            ph = slope[..., None] * kk + cpe[..., None]         # (B, D, U)
+            Yd = Y[:, K:] * torch.exp(-1j * ph)
+            H_dd = (torch.sum(Yd * torch.conj(Xhat), dim=-2)
+                    / torch.clamp(torch.sum(torch.abs(Xhat) ** 2, dim=-2),
+                                  min=1e-12))
+            H2 = (K * H + D * H_dd) / (K + D)
         llr, slope, cpe, evm, mabs = self._tail(Y, H2, noise_var)
         return llr, (H2, noise_var, slope, cpe, evm, mabs, isi_var,
                      isi_ratio)
@@ -443,12 +462,14 @@ class Modem(torch.nn.Module):
         burst-destroyed frame cannot drag the shared estimate: one scalar
         δ̂, one TX/RX clock pair per call."""
         cfg = self.cfg
-        if sc_win is not None:
-            d0 = _median(sc_clock_offset(cfg, sc_win))
-        else:
-            d0 = torch.zeros((), device=syms.device)
-        _, (_, _, slope_a, *_) = self._demod_syms(syms, delta=d0, roll=roll)
-        return _median(slope_clock_offset(cfg, slope_a))
+        with span("clock_offset"):
+            if sc_win is not None:
+                d0 = _median(sc_clock_offset(cfg, sc_win))
+            else:
+                d0 = torch.zeros((), device=syms.device)
+            _, (_, _, slope_a, *_) = self._demod_syms(syms, delta=d0,
+                                                      roll=roll)
+            return _median(slope_clock_offset(cfg, slope_a))
 
     def _codeword_llrs(self, llr: torch.Tensor) -> torch.Tensor:
         """Scrambled wire-order LLRs (B, raw_bits) → descrambled LLRs in
@@ -456,9 +477,10 @@ class Modem(torch.nn.Module):
         (deinterleave) with the descrambler sign folded in."""
         cfg = self.cfg
         used = cfg.n_codewords * cfg.ldpc_n
-        sign = 1.0 - 2.0 * self.scramble[:used].to(torch.float32)
-        lam = llr[:, self.fec_index[:used]] * sign
-        return lam.reshape(-1, cfg.ldpc_n)
+        with span("fec_gather"):
+            sign = 1.0 - 2.0 * self.scramble[:used].to(torch.float32)
+            lam = llr[:, self.fec_index[:used]] * sign
+            return lam.reshape(-1, cfg.ldpc_n)
 
     def coded_stream_llr(self, llr: torch.Tensor) -> torch.Tensor:
         """The tails' scrambled wire-order LLRs (..., raw_bits) →
@@ -474,18 +496,23 @@ class Modem(torch.nn.Module):
         (B, 16)); kernel 3 decodes the codewords."""
         cfg = self.cfg
         B = llr.shape[0]
-        bkt = self._hist16_of(llr[:, self.fec_index[::8]]).long()
-        hist = torch.zeros(B, 16, dtype=torch.int32, device=llr.device)
-        hist.scatter_add_(1, bkt, torch.ones_like(bkt, dtype=torch.int32))
+        with span("diag"):
+            bkt = self._hist16_of(llr[:, self.fec_index[::8]]).long()
+            hist = torch.zeros(B, 16, dtype=torch.int32, device=llr.device)
+            hist.scatter_add_(1, bkt, torch.ones_like(bkt, dtype=torch.int32))
         if cfg.fec != "ldpc":
-            zeros = torch.zeros(B, dtype=torch.int32, device=llr.device)
-            return hard_bits(self.coded_stream_llr(llr)), zeros, zeros, hist
+            with span("fec_gather"):
+                zeros = torch.zeros(B, dtype=torch.int32, device=llr.device)
+                bits = hard_bits(self.coded_stream_llr(llr))
+            return bits, zeros, zeros, hist
         ncw, k = cfg.n_codewords, cfg.ldpc_k
-        tot, unsat, passes = self._code.decode_totals(
-            self._codeword_llrs(llr), cfg.ldpc_iters)
-        bits = (tot[:, :k] < 0).to(torch.uint8).reshape(B, ncw * k)
-        iters = passes.reshape(B, ncw).amax(dim=1)
-        unsat = unsat.reshape(B, ncw).sum(dim=1, dtype=torch.int32)
+        lam = self._codeword_llrs(llr)
+        with span("ldpc"):
+            tot, unsat, passes = self._code.decode_totals(lam, cfg.ldpc_iters)
+            del lam   # freed before the bits are taken (the step's peak)
+            bits = (tot[:, :k] < 0).to(torch.uint8).reshape(B, ncw * k)
+            iters = passes.reshape(B, ncw).amax(dim=1)
+            unsat = unsat.reshape(B, ncw).sum(dim=1, dtype=torch.int32)
         return bits, iters, unsat, hist
 
     def _finish(self, out, lead: tuple, start: torch.Tensor,
@@ -496,26 +523,28 @@ class Modem(torch.nn.Module):
         cfg = self.cfg
         llr, (H, nv, slope, cpe, evm, mabs, isi_var, isi_ratio) = out
         bits, fec_iters, fec_unsat, hist = self._payload_bits(llr)
-        sc = (sc_metric_window(cfg, sc_win) if sc_win is not None
-              else torch.zeros(lead, device=llr.device))
-        shape = lambda t, *tail: t.reshape(tuple(lead) + tail)  # noqa: E731
-        # pilot slopes measure the whole timing drift on warped and plain
-        # passes alike, so clock_ppm needs no δ added
-        diag = DecodeDiag(
-            sync_start=torch.broadcast_to(start, lead).to(torch.int32),
-            sync_metric=torch.broadcast_to(metric, lead).to(torch.float32),
-            sc_metric=sc.to(torch.float32),
-            H=shape(H, cfg.n_used), noise_var=shape(nv),
-            pilot_slope=shape(slope, cfg.n_data_symbols),
-            common_phase=shape(cpe, cfg.n_data_symbols),
-            evm=shape(evm), mean_abs_llr=shape(mabs),
-            clock_ppm=shape(slope_clock_offset(cfg, slope) * 1e6),
-            fec_iters=shape(fec_iters), fec_unsat=shape(fec_unsat),
-            isi_var=shape(isi_var, cfg.n_used),
-            isi_db=shape(10.0 * torch.log10(isi_ratio + 1e-12)),
-            llr_hist=shape(hist, 16),
-        )
-        return shape(bits, bits.shape[-1]), diag
+        with span("diag"):
+            sc = (sc_metric_window(cfg, sc_win) if sc_win is not None
+                  else torch.zeros(lead, device=llr.device))
+            shape = lambda t, *tl: t.reshape(tuple(lead) + tl)  # noqa: E731
+            # pilot slopes measure the whole timing drift on warped and
+            # plain passes alike, so clock_ppm needs no δ added
+            diag = DecodeDiag(
+                sync_start=torch.broadcast_to(start, lead).to(torch.int32),
+                sync_metric=torch.broadcast_to(metric, lead).to(
+                    torch.float32),
+                sc_metric=sc.to(torch.float32),
+                H=shape(H, cfg.n_used), noise_var=shape(nv),
+                pilot_slope=shape(slope, cfg.n_data_symbols),
+                common_phase=shape(cpe, cfg.n_data_symbols),
+                evm=shape(evm), mean_abs_llr=shape(mabs),
+                clock_ppm=shape(slope_clock_offset(cfg, slope) * 1e6),
+                fec_iters=shape(fec_iters), fec_unsat=shape(fec_unsat),
+                isi_var=shape(isi_var, cfg.n_used),
+                isi_db=shape(10.0 * torch.log10(isi_ratio + 1e-12)),
+                llr_hist=shape(hist, 16),
+            )
+            return shape(bits, bits.shape[-1]), diag
 
     def _demod_synced(self, rx: torch.Tensor, start: torch.Tensor,
                       metric: torch.Tensor, sfo_correct: bool = False,
@@ -536,17 +565,12 @@ class Modem(torch.nn.Module):
         `use_cut_dft` is set and the geometry suits gf3x's fused cut and
         kernel 8 (`_takes_cut_dft`; the other two re-demodulate the symbol
         matrix, so they keep the two-stage cut)."""
-        cfg = self.cfg
-        lead = tuple(rx.shape[:-1])
-        B = int(np.prod(lead))
-        S = cfg.n_known_symbols + cfg.n_data_symbols
         if (self.use_cut_dft and not sfo_correct and not dd
                 and self._takes_cut_dft(rx.shape[-1])):
             Y, sc_win = self._cut_dft_frame(rx, start)
-            out = self._demod_spectra(Y.reshape(B, S, cfg.n_used))
+            out = self._demod_spectra(Y)
         else:
             syms, sc_win, roll = self._cut_frame(rx, start)
-            syms, roll = syms.reshape(B, S, cfg.n_fft), roll.reshape(B)
             delta = (self._two_pass_delta(syms, sc_win, roll)
                      if sfo_correct else None)
             demod = self._demod_syms_dd if dd else self._demod_syms
@@ -556,9 +580,10 @@ class Modem(torch.nn.Module):
     def _sync(self, rx: torch.Tensor):
         """Chirp sync of (..., T): bounded and 2× decimated with
         `max_delay`."""
-        return find_frame_start(
-            self.cfg, rx, self.chirp, search_len=self.max_delay,
-            decimate=self._sync_decimate if self.max_delay else 1)
+        with span("sync"):
+            return find_frame_start(
+                self.cfg, rx, self.chirp, search_len=self.max_delay,
+                decimate=self._sync_decimate if self.max_delay else 1)
 
     @torch.no_grad()
     def demodulate(self, rx: torch.Tensor):
@@ -566,29 +591,35 @@ class Modem(torch.nn.Module):
         demap → FEC. rx (..., T) float32 → (bits (..., payload_bits) uint8,
         DecodeDiag). With `max_delay` the sync correlates only the
         recording prefix, 2× decimated."""
-        return self._demod_synced(rx, *self._sync(rx))
+        with span("demodulate"):
+            return self._demod_synced(rx, *self._sync(rx))
 
     @torch.no_grad()
     def demodulate_at(self, rx: torch.Tensor, start, sfo_correct: bool = False,
                       dd: bool = False):
         """Decode with a known chirp onset `start` (loopback paths)."""
-        start = torch.as_tensor(start, dtype=torch.int32, device=rx.device)
-        inf = torch.full((), float("inf"), device=rx.device)
-        return self._demod_synced(rx, start, inf, sfo_correct=sfo_correct,
-                                  dd=dd)
+        with span("demodulate_at"):
+            with span("sync"):
+                start = torch.as_tensor(start, dtype=torch.int32,
+                                        device=rx.device)
+                inf = torch.full((), float("inf"), device=rx.device)
+            return self._demod_synced(rx, start, inf,
+                                      sfo_correct=sfo_correct, dd=dd)
 
     @torch.no_grad()
     def demodulate_dd(self, rx: torch.Tensor):
         """The receive path through the decision-directed two-pass demod,
         the CRC-failure retry `decode(dd='auto')` takes."""
-        return self._demod_synced(rx, *self._sync(rx), dd=True)
+        with span("demodulate_dd"):
+            return self._demod_synced(rx, *self._sync(rx), dd=True)
 
     @torch.no_grad()
     def demodulate_sfo(self, rx: torch.Tensor):
         """Clock-offset-robust receive: chirp sync, then the SC coarse δ̂ →
         warped-DFT demod → pilot-slope δ̂ → final warped demod. One δ̂ for
         the whole batch (one TX/RX clock pair)."""
-        return self._demod_synced(rx, *self._sync(rx), sfo_correct=True)
+        with span("demodulate_sfo"):
+            return self._demod_synced(rx, *self._sync(rx), sfo_correct=True)
 
     @torch.no_grad()
     def demodulate_sc(self, rx: torch.Tensor, sfo_correct: bool = False,
@@ -596,11 +627,15 @@ class Modem(torch.nn.Module):
         """The receive path synced by the Schmidl–Cox plateau instead of the
         chirp (the fallback when the chirp is clipped or collided);
         diag.sc_metric is the plateau's peak."""
-        start, sc_peak = find_frame_start_sc(self.cfg, rx)
-        nan = torch.full((), float("nan"), device=rx.device)
-        bits, diag = self._demod_synced(rx, start, nan,
-                                        sfo_correct=sfo_correct, dd=dd)
-        return bits, diag._replace(sc_metric=sc_peak.to(torch.float32))
+        with span("demodulate_sc"):
+            with span("sync"):
+                start, sc_peak = find_frame_start_sc(self.cfg, rx)
+                nan = torch.full((), float("nan"), device=rx.device)
+            bits, diag = self._demod_synced(rx, start, nan,
+                                            sfo_correct=sfo_correct, dd=dd)
+            with span("diag"):
+                return bits, diag._replace(
+                    sc_metric=sc_peak.to(torch.float32))
 
     @torch.no_grad()
     def demodulate_prewindowed(self, windows: torch.Tensor,
@@ -614,16 +649,22 @@ class Modem(torch.nn.Module):
         B = int(np.prod(lead))
         need = (cfg.n_known_symbols + cfg.n_data_symbols) * cfg.symbol_len
         a = cfg.preamble_len - cfg.cp // 4   # a + need = frame_len − backoff
-        syms = self._sym_matrix(windows[..., a: a + need].reshape(B, need))
-        sc_win = None
-        if cfg.use_schmidl_cox:
-            o = cfg.chirp_len + cfg.cp       # SC body within the window
-            sc_win = windows[..., o: o + cfg.n_fft]
-        delta = self._two_pass_delta(syms, sc_win) if sfo_correct else None
-        zeros = torch.zeros(lead, dtype=torch.int32, device=windows.device)
-        inf = torch.full((), float("inf"), device=windows.device)
-        return self._finish(self._demod_syms(syms, delta=delta), lead, zeros,
-                            inf, sc_win)
+        with span("demodulate_prewindowed"):
+            with span("cut"):
+                syms = self._sym_matrix(
+                    windows[..., a: a + need].reshape(B, need))
+                sc_win = None
+                if cfg.use_schmidl_cox:
+                    o = cfg.chirp_len + cfg.cp   # SC body within the window
+                    sc_win = windows[..., o: o + cfg.n_fft]
+            delta = (self._two_pass_delta(syms, sc_win) if sfo_correct
+                     else None)
+            with span("sync"):
+                zeros = torch.zeros(lead, dtype=torch.int32,
+                                    device=windows.device)
+                inf = torch.full((), float("inf"), device=windows.device)
+            return self._finish(self._demod_syms(syms, delta=delta), lead,
+                                zeros, inf, sc_win)
 
     # --------------------------------------------------------- host wrappers
     def _result(self, bits: np.ndarray, diag) -> DecodeResult:

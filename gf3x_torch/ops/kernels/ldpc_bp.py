@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ...fec.codes import N_BLOCK_COLS, block_rows, build_H_blocks
+from ...utils import profiling
 from ...utils.device import launch
 
 __all__ = ["minsum_totals", "minsum_totals_plain", "minsum_check",
@@ -226,14 +227,15 @@ def _check_pass(lam: torch.Tensor, z: int, rate: str, iters: int):
     iters is 0)."""
     L = lam.shape[0]
     (_, col, _), (ptr_a, col_a, shf_a) = kernel_edges(z, rate)
-    totals = torch.empty_like(lam)
-    unsat = torch.empty(L, dtype=torch.bool, device=lam.device)
-    pw = torch.empty(2 * L + 2, dtype=torch.int32, device=lam.device)
-    passes, work = pw[:L], pw[L:]
-    launch("gf3x_minsum_check", lam.device.index, lam.data_ptr(),
-           totals.data_ptr(), unsat.data_ptr(), passes.data_ptr(),
-           work.data_ptr(), ptr_a, col_a, shf_a, L, block_rows(rate),
-           col.size, z, iters, check_warps(z))
+    with profiling.span("ldpc.check"):
+        totals = torch.empty_like(lam)
+        unsat = torch.empty(L, dtype=torch.bool, device=lam.device)
+        pw = torch.empty(2 * L + 2, dtype=torch.int32, device=lam.device)
+        passes, work = pw[:L], pw[L:]
+        launch("gf3x_minsum_check", lam.device.index, lam.data_ptr(),
+               totals.data_ptr(), unsat.data_ptr(), passes.data_ptr(),
+               work.data_ptr(), ptr_a, col_a, shf_a, L, block_rows(rate),
+               col.size, z, iters, check_warps(z))
     minsum_check.launches += 1
     return totals, unsat, passes, work
 
@@ -257,7 +259,9 @@ def minsum_decode(lam: torch.Tensor, totals: torch.Tensor,
     """`minsum_decode_plain` for CPU tensors (`work` is not read: the
     queued codewords are the unsatisfied ones); otherwise the decode
     pass's kernel over the check pass's device work list `work`, which
-    completes totals, unsat and passes in place."""
+    completes totals, unsat and passes in place. While tracing is on the
+    kernel adds the codewords queued and their sweeps to the device's
+    counters (`utils.profiling.decode_counts`)."""
     if lam.device.type == "cpu":
         return minsum_decode_plain(lam, totals, unsat, passes, z, rate, iters)
     _check_lam("minsum_decode", lam, z)
@@ -270,15 +274,18 @@ def minsum_decode(lam: torch.Tensor, totals: torch.Tensor,
     geo = decode_geometry(z, rate)
     index = lam.device.index
     grid = min(L, _resident_blocks(index, geo.layout, geo.threads, geo.smem))
-    # the messages' scratch, a slice per resident block, on the caller's
-    # stream: freed after the launch, it is reused only by later work there
-    scratch = (torch.empty(grid * geo.slice, device=lam.device)
-               if geo.slice and grid else None)
-    launch("gf3x_minsum_decode", index, lam.data_ptr(), totals.data_ptr(),
-           unsat.data_ptr(), passes.data_ptr(), work.data_ptr(),
-           0 if scratch is None else scratch.data_ptr(), ptr_a, col_a, shf_a,
-           L, block_rows(rate), col.size, z, iters, geo.layout, geo.threads,
-           geo.smem, grid)
+    counts = profiling.decode_counts(lam)
+    with profiling.span("ldpc.decode"):
+        # the messages' scratch, a slice per resident block, on the caller's
+        # stream: freed after the launch, it is reused only by later work
+        # there
+        scratch = (torch.empty(grid * geo.slice, device=lam.device)
+                   if geo.slice and grid else None)
+        launch("gf3x_minsum_decode", index, lam.data_ptr(),
+               totals.data_ptr(), unsat.data_ptr(), passes.data_ptr(),
+               work.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+               counts, ptr_a, col_a, shf_a, L, block_rows(rate), col.size, z,
+               iters, geo.layout, geo.threads, geo.smem, grid)
     minsum_decode.launches += 1
     return totals, unsat, passes
 
@@ -287,11 +294,14 @@ minsum_decode.launches = 0
 
 
 def minsum_totals(lam: torch.Tensor, z: int, rate: str, iters: int):
-    """`minsum_totals_plain` for a CPU tensor; otherwise the check pass,
-    then the decode pass over the codewords it queued (no host
-    synchronisation between them)."""
+    """`minsum_totals_plain` for a CPU tensor (counted, while tracing is
+    on, by `utils.profiling.count_plain`); otherwise the check pass, then
+    the decode pass over the codewords it queued (no host synchronisation
+    between them)."""
     if lam.device.type == "cpu":
-        return minsum_totals_plain(lam, z, rate, iters)
+        out = minsum_totals_plain(lam, z, rate, iters)
+        profiling.count_plain(out[2])
+        return out
     _check_lam("minsum_totals", lam, z)
     totals, unsat, passes, work = _check_pass(lam, z, rate, iters)
     minsum_decode(lam, totals, unsat, passes, work, z, rate, iters)

@@ -332,14 +332,10 @@ def test_gated_error_without_sounddevice(monkeypatch):
 
 
 def test_profiling_hooks(tmp_path, monkeypatch):
-    """`Timer` reports its sections; `maybe_trace` writes a Chrome trace
-    where GF3X_PROFILE names a directory, and nothing otherwise."""
-    from gf3x_torch.utils.profiling import Timer, maybe_trace
+    """`maybe_trace` writes a Chrome trace where GF3X_PROFILE names a
+    directory, and nothing otherwise."""
+    from gf3x_torch.utils.profiling import maybe_trace
 
-    t = Timer()
-    with t.section("a"):
-        pass
-    assert "a" in t.report()
     monkeypatch.delenv("GF3X_PROFILE", raising=False)
     with maybe_trace():
         torch.ones(4).sum()

@@ -1,0 +1,213 @@
+"""The port's tracing layer (`gf3x_torch/utils/profiling.py`): the spans a
+`demodulate` call records, their cost while tracing is off, the totals, and
+the LDPC decode pass's counters — on the CPU through the plain route, and
+on the card (the `card` test, which skips without one) through kernel 3's
+device counters. No JAX here: the card test runs where JAX is absent."""
+
+import re
+import types
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from gf3x_torch import Modem, preset
+from gf3x_torch.channel.torch_sims import awgn
+from gf3x_torch.fec.ldpc import LdpcCode
+from gf3x_torch.ops.kernels import ldpc_bp
+from gf3x_torch.utils import profiling
+
+CFG = preset("gf3-standard")
+MARGIN = 1024
+STAGES = {"gf3x.sync", "gf3x.cut", "gf3x.dft", "gf3x.chanest",
+          "gf3x.eq_demap", "gf3x.fec_gather", "gf3x.ldpc", "gf3x.diag"}
+# the CUDA runtime calls that issue device work (benchmark/trace.py's rule)
+RUNTIME = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|"
+                     r"Memcpy|Memset)")
+
+
+def recordings(modem, B: int, snr_db: float, seed: int = 3):
+    """B recordings of distinct payloads at onsets in [0, MARGIN), with
+    AWGN at snr_db, on the modem's device."""
+    rng = np.random.default_rng(seed)
+    wav = modem.encode_batch([b"span %d" % i for i in range(B)])
+    rx = np.zeros((B, wav.shape[1] + MARGIN), np.float32)
+    for i, d in enumerate(rng.integers(0, MARGIN, B)):
+        rx[i, d: d + wav.shape[1]] = wav[i]
+    x = torch.as_tensor(rx, device=modem.device)
+    g = torch.Generator(device=modem.device).manual_seed(seed)
+    return awgn(x, snr_db, generator=g)
+
+
+@pytest.fixture(scope="module")
+def cpu_case():
+    modem = Modem(CFG, max_delay=MARGIN + CFG.cp, device="cpu")
+    return modem, recordings(modem, 2, 25.0)
+
+
+@pytest.fixture
+def clean():
+    profiling.reset()
+    yield
+    profiling.reset()
+
+
+def noisy_lam(z: int = 96, L: int = 24, sigma: float = 0.8, seed: int = 5):
+    """L rate-1/2 codewords' BPSK LLRs, the odd rows at noise σ (they fail
+    the first check and need sweeps), the even ones at σ/20 (they pass
+    it)."""
+    code = LdpcCode(z, "1/2")
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randint(0, 2, (L, code.k), generator=g, dtype=torch.uint8)
+    y = 1.0 - 2.0 * code.encode(u).to(torch.float32)
+    scale = torch.where(torch.arange(L) % 2 == 1, sigma, sigma / 20)
+    y = y + scale[:, None] * torch.randn(y.shape, generator=g)
+    return (2.0 * y / sigma ** 2).contiguous()
+
+
+def test_a_call_is_one_root_with_its_stages(cpu_case, clean):
+    """Two `demodulate` calls under torch.profiler: one root span each,
+    every stage span a child of its call's root, sharing the root's id."""
+    modem, rx = cpu_case
+    with profile(activities=[ProfilerActivity.CPU]):
+        modem.demodulate(rx)
+        modem.demodulate(rx)
+    recs = profiling.records()
+    roots = [i for i, r in enumerate(recs) if r.parent == -1]
+    assert [recs[i].name for i in roots] == ["gf3x.demodulate"] * 2
+    assert recs[roots[0]].call != recs[roots[1]].call
+    for root in roots:
+        kids = [r for r in recs if r.parent == root]
+        assert {r.name for r in kids} == STAGES
+        assert all(r.call == recs[root].call for r in kids)
+    assert all(r.parent in roots for r in recs if r.parent != -1)
+
+
+def test_every_aten_op_lies_in_a_stage(cpu_case, clean):
+    """No op of a `demodulate` call runs in the root's own time: each
+    aten op the profiler saw inside the root lies inside a stage span."""
+    modem, rx = cpu_case
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        modem.demodulate(rx)
+    evs = [(e.time_range.start, e.time_range.end, e.name)
+           for e in prof.events()]
+    (r0, r1), = [(s, e) for s, e, n in evs if n == "gf3x.demodulate"]
+    stages = [(s, e) for s, e, n in evs if n in STAGES]
+    assert len(stages) >= len(STAGES)
+    ops = [(s, e, n) for s, e, n in evs
+           if n.startswith("aten::") and r0 <= s and e <= r1]
+    assert len(ops) > 50
+    outside = [n for s, e, n in ops
+               if not any(a <= s and e <= b for a, b in stages)]
+    assert outside == []
+
+
+def test_spans_off_record_nothing(cpu_case, clean, monkeypatch):
+    """Profiler off and no `recording()`: a span is the shared no-op
+    context, `record_function` is never entered, nothing is recorded and
+    nothing counted."""
+    modem, rx = cpu_case
+    entered = []
+    real = profiling._profiler
+
+    def counting(name):
+        entered.append(name)
+        return real.record_function(name)
+    monkeypatch.setattr(profiling, "_profiler", types.SimpleNamespace(
+        _is_profiler_enabled=False, record_function=counting))
+    assert profiling.span("dft") is profiling.span("ldpc")
+    assert profiling.span("dft") is profiling._NOOP
+    modem.demodulate(rx)
+    assert entered == [] and profiling.records() == []
+    assert profiling.span_totals() == {}
+    assert profiling.counters() == {"ldpc.codewords": 0, "ldpc.queued": 0,
+                                    "ldpc.sweeps": 0}
+
+
+def test_span_totals_are_idempotent(cpu_case, clean):
+    """`recording()` without the profiler: the totals count each call's
+    stages, a root's self time is its host time less its stages', and a
+    second read gives the same answer."""
+    modem, rx = cpu_case
+    with profiling.recording():
+        modem.demodulate(rx)
+        modem.demodulate(rx)
+    first = profiling.span_totals()
+    assert first == profiling.span_totals()
+    assert set(first) == STAGES | {"gf3x.demodulate"}
+    root = first["gf3x.demodulate"]
+    assert root["count"] == 2 and first["gf3x.ldpc"]["count"] == 2
+    kids = sum(first[n]["host_s"] for n in STAGES)
+    assert root["self_s"] == pytest.approx(root["host_s"] - kids, abs=1e-6)
+    assert 0 < root["self_s"] < root["host_s"]
+    if not torch.cuda.is_initialized():   # no card in use: no events
+        assert all(t["device_s"] is None for t in first.values())
+    assert profiling.counters() == profiling.counters()
+    profiling.reset()
+    assert profiling.span_totals() == {} and profiling.records() == []
+
+
+def test_plain_ldpc_counts_are_the_passes(clean):
+    """The CPU route counts, while tracing is on, the codewords, those
+    with passes > 0 (the ones the check pass would queue) and the sum of
+    passes of `minsum_totals_plain`; untraced calls count nothing."""
+    lam = noisy_lam()
+    _, _, passes = ldpc_bp.minsum_totals_plain(lam, 96, "1/2", 20)
+    assert 0 < int((passes > 0).sum()) < lam.shape[0]
+    ldpc_bp.minsum_totals(lam, 96, "1/2", 20)
+    with profiling.recording():
+        ldpc_bp.minsum_totals(lam, 96, "1/2", 20)
+        ldpc_bp.minsum_totals(lam[:8], 96, "1/2", 20)
+    want_q = int((passes > 0).sum()) + int((passes[:8] > 0).sum())
+    want_s = int(passes.sum()) + int(passes[:8].sum())
+    assert profiling.counters() == {"ldpc.codewords": lam.shape[0] + 8,
+                                    "ldpc.queued": want_q,
+                                    "ldpc.sweeps": want_s}
+
+
+@pytest.mark.card
+def test_device_counters_on_the_card(clean, monkeypatch):
+    """Kernel 3's decode pass counts on the card: the counters equal the
+    sums over the kernel's own passes, its totals, unsat and passes are
+    bit for bit the same with the counter address set and null, and a
+    traced `demodulate` step issues the launches an untraced one does."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    from gf3x_torch.utils.device import kernel_lib
+
+    kernel_lib()
+    lam = noisy_lam(L=512).cuda()
+    off = ldpc_bp.minsum_totals(lam, 96, "1/2", 20)
+    with profiling.recording():
+        on = ldpc_bp.minsum_totals(lam, 96, "1/2", 20)
+    for a, b in zip(off, on):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    passes = on[2]
+    assert 0 < int((passes > 0).sum()) < lam.shape[0]
+    assert profiling.counters() == {
+        "ldpc.codewords": lam.shape[0], "ldpc.queued": int((passes > 0).sum()),
+        "ldpc.sweeps": int(passes.sum())}
+
+    modem = Modem(CFG, max_delay=MARGIN + CFG.cp)
+    rx = recordings(modem, 64, 4.0)
+    modem.demodulate(rx)
+    torch.cuda.synchronize()
+    real = profiling._profiler
+
+    def launches(traced: bool) -> int:
+        if not traced:   # the profiler runs, the spans see it off
+            monkeypatch.setattr(profiling, "_profiler", types.SimpleNamespace(
+                _is_profiler_enabled=False))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            modem.demodulate(rx)
+            torch.cuda.synchronize()
+        monkeypatch.setattr(profiling, "_profiler", real)
+        return sum(1 for e in prof.events() if RUNTIME.match(e.name))
+
+    profiling.reset()
+    untraced, traced = launches(False), launches(True)
+    assert untraced == traced > 0
+    assert profiling.span_totals()["gf3x.demodulate"]["count"] == 1
+    assert profiling.counters()["ldpc.codewords"] == 64 * CFG.n_codewords
