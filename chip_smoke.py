@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the gf3x_torch port on one CUDA card (an H100 for sm_90a).
 
-Builds the eight CUDA kernels from `gf3x_torch/csrc/`, holds each against
+Builds the nine CUDA kernels from `gf3x_torch/csrc/`, holds each against
 its plain PyTorch version on the card at the shapes its path gives it, and
 drives the receive paths once each through the port's entry points:
 
 - config 5: `Modem(GF3_STANDARD, max_delay=4096 + cp).demodulate` on
   bench.py's 1024-frame batch — kernels 1 (cut), 2 (fused EQ/demap) and 3
-  (LDPC); kernel 2 is held at QPSK, 16-QAM (gf3-fast) and 64-QAM
-  (gf3-turbo); the batch comes from the port's copy of bench.py's recipe
+  (LDPC), with the FEC gather (`fec_gather`) between 2 and 3, held bit for
+  bit against its plain version at gf3-8192 (B = 1024, 1 and 1023, and
+  timed against its bound), config 5, a row stride, the bit-loaded config
+  and `interleave=False`; kernel 2 is held at QPSK, 16-QAM (gf3-fast) and
+  64-QAM (gf3-turbo); the batch comes from the port's copy of bench.py's recipe
   (`gf3x_torch/bench/step.py`), so nothing of the JAX side is imported;
 - the fused cut+DFT route: the same batch through
   `Modem(..., use_cut_dft=True).demodulate` — kernel 8 (cut + DFT +
@@ -128,7 +131,8 @@ B = 64, the spilled band at B = 4).
 
 A fourth, `python3 chip_smoke.py --mesh`, runs the mesh phase alone
 across every card of the machine (the one-card mesh against all cards);
-a fifth, `python3 chip_smoke.py --layouts`, the layouts phase alone.
+a fifth, `python3 chip_smoke.py --layouts`, the layouts phase alone; a
+sixth, `python3 chip_smoke.py --fec-gather`, the FEC gather phase alone.
 
 Phases print one line each. The last lines are a JSON object with every
 kernel's measurements (host-clock and CUDA-event times, the kernel's own
@@ -212,6 +216,9 @@ EXPECTED = {
                "212.7 us",
     "demap_bins": "predicted 40-60 us of kernel time (goal <= 62, half the "
                   "bound); a block per symbol took 93.4 us",
+    "fec_gather": "predicted 650-800 us of kernel time at gf3-8192; aten's "
+                  "index kernel and multiply took 2.9 ms, the indexed "
+                  "kernel alone 2.06 at its best chunk",
 }
 # kernel 8 on synthetic rows at other FFT sizes: (n_fft, cp, bin_lo,
 # bin_hi), each a valid GF3_STANDARD geometry (config 5's n_fft = 1024 is
@@ -596,8 +603,8 @@ def hold_minsum(code, lam, iters, label) -> dict:
 
 def launch_counters() -> dict:
     """Every kernel wrapper by name, each with its `launches` count."""
-    from gf3x_torch.ops.kernels import (cut_dft, fused_eq, gather_cut,
-                                        ldpc_bp, split_eq)
+    from gf3x_torch.ops.kernels import (cut_dft, fec_gather, fused_eq,
+                                        gather_cut, ldpc_bp, split_eq)
 
     return {"cut_symbols": gather_cut.cut_symbols,
             "gather_cut": gather_cut.gather_cut,
@@ -608,7 +615,8 @@ def launch_counters() -> dict:
             "minsum_totals": ldpc_bp.minsum_totals,
             "minsum_check": ldpc_bp.minsum_check,
             "minsum_decode": ldpc_bp.minsum_decode,
-            "cut_dft": cut_dft.cut_dft}
+            "cut_dft": cut_dft.cut_dft,
+            "fec_gather": fec_gather.fec_gather}
 
 
 def launch_counts(counters, fn):
@@ -674,6 +682,120 @@ def run_path(modem, rx, payload, delays, counters, label, entry=None,
     check(torch.equal(bits_cpu, bits[:4].cpu()),
           f"{label}: card and CPU decodes of the first rows differ")
     return launches, bits, diag, sync_err
+
+
+# the FEC gather phase's cases: (label, GF3_STANDARD.replace keywords,
+# frames); "loaded" takes the bit-loaded phase's table for the config's data
+# bins, "row stride" feeds the kernel rows of a wider tensor
+FEC_GATHER_CASES = (
+    ("gf3-8192", WIDE_BANDS["gf3-8192"], B),
+    ("gf3-8192 B = 1", WIDE_BANDS["gf3-8192"], 1),
+    ("gf3-8192 B = 1023", WIDE_BANDS["gf3-8192"], B - 1),
+    ("config 5", {}, B),
+    ("config 5, row stride", {}, B),
+    ("bit-loaded", dict(loaded=True), B),
+    ("interleave=False", dict(interleave=False), B),
+)
+
+
+def run_fec_gather(dev) -> dict:
+    """The FEC gather (`fec_gather`) against its plain version with
+    torch.equal on random LLRs (B, raw_bits) through each case's Modem
+    tables (FEC_GATHER_CASES), on both kernels: the tiled one, on the axes
+    the Modem names (every interleaved case; `_codeword_llrs` takes it),
+    and the indexed one (the table alone). At gf3-8192, B = 1024 (the
+    benchmark's shape) the Modem's route is timed beside the bound (each
+    used LLR read and written once, the int32 table and the sign bytes read
+    once), the indexed kernel and the plain version's kernels. Returns the
+    kernel's row."""
+    from gf3x_torch import GF3_STANDARD, Modem
+    from gf3x_torch.ops.kernels import fec_gather as fg
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(17)
+    held, row = {}, None
+    for label, kw, Bk in FEC_GATHER_CASES:
+        kw = dict(kw)
+        if kw.pop("loaded", False):
+            kw["bit_loading"] = loading_table(
+                GF3_STANDARD.replace(**kw).n_data_bins)
+        cfg = GF3_STANDARD.replace(**kw)
+        modem = Modem(cfg, device=dev)
+        idx, scr = modem.codeword_index, modem.scramble
+        R, used = cfg.raw_bits_per_frame, idx.numel()
+        pad = 4 if "stride" in label else 0
+        llr = torch.randn(Bk, R + pad, generator=gen, device=dev)[:, :R]
+        axes = modem._fec_axes
+        check((axes is not None) == cfg.interleave,
+              f"fec_gather {label}: the Modem names axes {axes}")
+        want = fg.fec_gather_plain(llr, idx, scr)
+        before = fg.fec_gather.launches
+        for route in (axes, None):
+            got = fg.fec_gather(llr, idx, scr, route)
+            torch.cuda.synchronize()
+            check(got.shape == (Bk, used) and torch.equal(got, want),
+                  f"fec_gather {label}, axes {route}: the kernel differs "
+                  "from its plain version")
+        check(torch.equal(modem._codeword_llrs(llr),
+                          want.reshape(-1, cfg.ldpc_n))
+              and fg.fec_gather.launches == before + 3,
+              f"fec_gather {label}: _codeword_llrs differs or launched "
+              f"{fg.fec_gather.launches - before} kernels in 3 calls")
+        chunk = fg.fec_gather_chunk(Bk, used, sms)
+        tiles = (None if axes is None else
+                 (fg.TILE_A, fg.fec_gather_tiles(Bk, axes, sms)))
+        held[label] = dict(B=Bk, raw_bits=R, used=used, axes=axes,
+                           tiles=tiles, chunk=chunk)
+        print(f"fec_gather {label} ({Bk} x {R} -> {Bk} x {used}; axes "
+              f"{axes}, tiles {tiles}; indexed chunk {chunk}): both kernels "
+              "equal to the plain version", flush=True)
+        if label == "gf3-8192":
+            row = dict(
+                name="fec_gather", route="cuda",
+                source="gf3x_torch/csrc/fec_gather.cu",
+                replaces="none (gf3x: XLA gather and multiply, "
+                         "gf3x/models/modem.py:332-369)", max_abs_err=0.0,
+                **timed(lambda: fg.fec_gather(llr, idx, scr, axes),
+                        lambda: fg.fec_gather_plain(llr, idx, scr),
+                        8 * Bk * used + 5 * used, kernel="fec_gather"))
+            row["indexed_kernel_us"] = kernel_us(
+                lambda: fg.fec_gather(llr, idx, scr), ["fec_gather"])["us"]
+            row["plain_kernel"] = kernel_us(
+                lambda: fg.fec_gather_plain(llr, idx, scr),
+                ["index_elementwise_kernel", "elementwise_kernel"])
+            print(f"fec_gather at gf3-8192, B = {Bk}: kernel "
+                  f"{row['kernel_us']:.1f} us ({row['kernel_us_by_name']}) "
+                  f"against the bound {1e3 * row['bound_ms']:.1f} us "
+                  f"({row['bound_bytes'] / 1e9:.3f} GB; "
+                  f"{row['kernel_us'] / (1e3 * row['bound_ms']):.2f}x); "
+                  f"device {row['device_ms']:.4f} ms; the indexed kernel "
+                  f"{row['indexed_kernel_us']:.1f} us; plain version's "
+                  f"kernels {row['plain_kernel']['us']:.1f} us "
+                  f"{row['plain_kernel']['by_name']}; host {row['ms']:.3f} "
+                  f"ms vs plain {row['plain_ms']:.3f} ms "
+                  f"({EXPECTED['fec_gather']})", flush=True)
+        del modem, llr, got, want
+    row["held"] = held
+    return row
+
+
+def fec_gather_only() -> None:
+    """`--fec-gather`: the FEC gather phase alone after the build's ptxas
+    report; prints its row as one JSON line and the card's name and power
+    limit."""
+    from gf3x_torch.utils.device import kernel_lib, library_path
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"device: {smi}", flush=True)
+    kernel_lib()
+    print("build: " + build_report(
+        (library_path().parent / "build.log").read_text()), flush=True)
+    record("fec_gather", run_fec_gather(torch.device("cuda", 0)),
+           print_too=True)
+    print(smi, flush=True)
 
 
 def run_captures(dev, counters):
@@ -2719,7 +2841,8 @@ def main() -> None:
     counters = launch_counters()
     launches5, bits5, _, sync_err = run_path(modem, rx, payload, delays,
                                              counters, "config 5")
-    for name in ("cut_symbols", "fused_eq_demap", "minsum_totals"):
+    for name in ("cut_symbols", "fused_eq_demap", "fec_gather",
+                 "minsum_totals"):
         check(launches5[name] > 0, f"config 5: {name} did not launch: "
               f"{launches5}")
     check(launches5["gather_cut"] == 0 and launches5["gather_cut_group"] == 0,
@@ -2730,6 +2853,9 @@ def main() -> None:
     print(f"demodulate: {B}/{B} rows CRC-ok with the planted payload, "
           f"sync within {sync_err} samples, launches {launches5}; "
           f"{step_ms:.3f} ms/step, {sps:.1f} data symbols/s", flush=True)
+
+    # ---- the FEC gather against its plain version at every case's shape
+    rows["fec_gather"] = run_fec_gather(dev)
 
     # ---- demod DFT precision against a float64 NumPy DFT (gate −80 dB)
     ref = np.fft.rfft(syms_k.cpu().numpy().astype(np.float64), axis=-1)
@@ -3030,7 +3156,7 @@ def main() -> None:
                "cli": launchesI, "golden": launchesG, "pilots": launchesP,
                "wide": launchesWd, "mesh": launchesM, "examples": launchesE,
                "lifts": launchesLf, "reports": launchesRp}
-    check(len(rows) == 8 and all(
+    check(len(rows) == 9 and all(
         sum(c[name] for c in by_path.values()) > 0 for name in rows),
           "a kernel has no row or never launched on a path")
     for name, row in rows.items():
@@ -3339,6 +3465,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             raise RuntimeError("chip_smoke needs a CUDA device")
         print(json.dumps(time_tree(Path(sys.argv[2]))), flush=True)
+    elif len(sys.argv) == 2 and sys.argv[1] == "--fec-gather":
+        if not torch.cuda.is_available():
+            raise RuntimeError("chip_smoke needs a CUDA device")
+        fec_gather_only()
     elif len(sys.argv) == 2 and sys.argv[1] == "--layouts":
         if not torch.cuda.is_available():
             raise RuntimeError("chip_smoke needs a CUDA device")

@@ -52,6 +52,11 @@ int gf3x_minsum_decode(const float*, float*, unsigned char*, int*, int*,
                        float*, long long*, const int*, const int*, const int*,
                        long long, int, int, int, int, int, int, int, int,
                        void*);
+int gf3x_fec_gather(const float*, const int*, const unsigned char*, float*,
+                    long long, long long, int, int, void*);
+int gf3x_fec_gather_tile(const float*, const unsigned char*, float*,
+                         long long, long long, int, int, int, int, int, int,
+                         void*);
 const char* gf3x_error_string(int);
 }
 
@@ -149,6 +154,11 @@ ENTRY(gf3x_minsum_decode, "pppppppppplllllllllp",
       gf3x_minsum_decode(P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7),
                          P(8), P(9), L(10), I(11), I(12), I(13), I(14),
                          I(15), I(16), I(17), I(18), P(19)))
+ENTRY(gf3x_fec_gather, "ppppllllp",
+      gf3x_fec_gather(P(0), P(1), P(2), P(3), L(4), L(5), I(6), I(7), P(8)))
+ENTRY(gf3x_fec_gather_tile, "pppllllllllp",
+      gf3x_fec_gather_tile(P(0), P(1), P(2), L(3), L(4), I(5), I(6), I(7),
+                           I(8), I(9), I(10), P(11)))
 
 PyObject* py_gf3x_error_string(PyObject*, PyObject* const* a, Py_ssize_t n) {
     Val v[1];
@@ -167,6 +177,7 @@ PyMethodDef kMethods[] = {
     METHOD(gf3x_fused_eq_demap), METHOD(gf3x_eq_track),
     METHOD(gf3x_demap_bins),     METHOD(gf3x_minsum_check),
     METHOD(gf3x_minsum_decode_blocks), METHOD(gf3x_minsum_decode),
+    METHOD(gf3x_fec_gather),     METHOD(gf3x_fec_gather_tile),
     METHOD(gf3x_error_string),
     {nullptr, nullptr, 0, nullptr}};
 

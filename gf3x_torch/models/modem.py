@@ -57,6 +57,7 @@ from ..ops.chanest import _isi_operator, denoise_projection, estimate_channel
 from ..ops.chirp import make_chirp
 from ..ops.constellation import hard_bits, qam_map
 from ..ops.kernels import cut_dft as _cut_dft
+from ..ops.kernels.fec_gather import fec_gather, reversal_index
 from ..ops.kernels.fused_eq import fused_eq_demap
 from ..ops.kernels.split_eq import demap_bins, eq_track
 from ..ops.ofdm import deroll, ofdm_dft, ofdm_modulate
@@ -70,7 +71,7 @@ from ..utils.bits import (bits_to_bytes, bytes_to_bits, pack_header,
 from ..utils.profiling import span
 from .frame import (data_symbols_from_bits, demap_bin_tables,
                     frame_bin_matrix, interleave_bits, interleave_pilots,
-                    loaded_qam_map, split_pilots)
+                    loaded_qam_map, scatter_factors, split_pilots)
 
 __all__ = ["Modem", "DecodeDiag", "DecodeResult"]
 
@@ -169,6 +170,8 @@ class Modem(torch.nn.Module):
             tables["ldpc_parity"] = self._code.P
         for name, arr in tables.items():
             self.register_buffer(name, torch.as_tensor(np.array(arr)))
+        if self._code is not None:
+            self._set_codeword_index()
         self.to(torch.device("cuda" if device is None else device))
 
     @property
@@ -471,16 +474,36 @@ class Modem(torch.nn.Module):
                                                       roll=roll)
             return _median(slope_clock_offset(cfg, slope_a))
 
+    def _set_codeword_index(self) -> None:
+        """The FEC gather's tables from `fec_index`: its codewords' part as
+        int32 (the `codeword_index` buffer) and, where that is the reversal
+        of the interleaver's three axes (D, B2, A2), those axes, with which
+        the card takes the tiled kernel (`fec_gather`)."""
+        cfg = self.cfg
+        idx = self.fec_index[:cfg.n_codewords * cfg.ldpc_n]
+        if idx.numel() and not (0 <= int(idx.min())
+                                and int(idx.max()) < cfg.raw_bits_per_frame):
+            raise ValueError("fec_index: entries must lie in [0, raw_bits)")
+        idx = idx.to(torch.int32)
+        if "codeword_index" in self._buffers:
+            self.codeword_index.copy_(idx)
+        else:
+            self.register_buffer("codeword_index", idx)
+        A2, B2 = scatter_factors(cfg.bits_per_ofdm_symbol)
+        axes = (cfg.n_data_symbols, B2, A2)
+        rev = reversal_index(*axes)[:idx.numel()]
+        self._fec_axes = (axes if np.array_equal(idx.cpu().numpy(), rev)
+                          else None)
+
     def _codeword_llrs(self, llr: torch.Tensor) -> torch.Tensor:
         """Scrambled wire-order LLRs (B, raw_bits) → descrambled LLRs in
         codeword order (B·ncw, n): the FEC ingest, one static gather
-        (deinterleave) with the descrambler sign folded in."""
-        cfg = self.cfg
-        used = cfg.n_codewords * cfg.ldpc_n
+        (deinterleave) with the descrambler sign folded in (`fec_gather`:
+        one pass on the card)."""
         with span("fec_gather"):
-            sign = 1.0 - 2.0 * self.scramble[:used].to(torch.float32)
-            lam = llr[:, self.fec_index[:used]] * sign
-            return lam.reshape(-1, cfg.ldpc_n)
+            lam = fec_gather(llr, self.codeword_index, self.scramble,
+                             self._fec_axes)
+            return lam.reshape(-1, self.cfg.ldpc_n)
 
     def coded_stream_llr(self, llr: torch.Tensor) -> torch.Tensor:
         """The tails' scrambled wire-order LLRs (..., raw_bits) →

@@ -13,13 +13,17 @@ import torch
 
 from gf3x import GF3_STANDARD
 from gf3x import Modem as JModem
+from gf3x.config import layout as j_layout
 from gf3x.fec.ldpc import LdpcCode as JCode
 from gf3x.models.frame import interleave_bits as j_interleave
 
+import chip_smoke
 from gf3x_torch import Modem as TModem
+from gf3x_torch.convert import load_reference_tables
 from gf3x_torch.fec.codes import N_BLOCK_COLS
 from gf3x_torch.fec.ldpc import LdpcCode as TCode
-from gf3x_torch.ops.kernels import fused_eq, gather_cut, ldpc_bp, split_eq
+from gf3x_torch.ops.kernels import (fec_gather, fused_eq, gather_cut, ldpc_bp,
+                                    split_eq)
 from gf3x_torch.utils import device
 
 
@@ -169,18 +173,130 @@ def test_encode_matches_gf3x():
     assert np.array_equal(tc.encode(torch.as_tensor(u)).numpy(), jc.encode(u))
 
 
-def test_fec_gather_matches_coded_stream_llr():
+FEC_GATHER_CONFIGS = {
+    "config5": GF3_STANDARD,
+    "gf3-8192": GF3_STANDARD.replace(**chip_smoke.WIDE_BANDS["gf3-8192"]),
+    "bit-loaded": GF3_STANDARD.replace(bit_loading=chip_smoke.loading_table(
+        GF3_STANDARD.n_data_bins)),
+    "uninterleaved": GF3_STANDARD.replace(interleave=False),
+}
+
+
+@pytest.mark.parametrize("name", list(FEC_GATHER_CONFIGS))
+def test_fec_gather_matches_coded_stream_llr(name):
     """The FEC ingest's static gather (deinterleave + descramble) lands each
-    LLR where gf3x's `coded_stream_llr` puts it: exact."""
-    cfg = GF3_STANDARD
+    LLR where gf3x's `coded_stream_llr` puts it: the wrapper (its plain
+    version on CPU tensors) on the Modem's int32 table and scramble bytes
+    gives gf3x's `interleave_bits(..., inverse=True)` (none where the config
+    does not interleave) times gf3x's descrambler over the codewords,
+    exactly; and the table holds those positions."""
+    cfg = FEC_GATHER_CONFIGS[name]
     tm = TModem(cfg, device="cpu")
-    llr = np.random.default_rng(3).standard_normal(
-        (2, cfg.raw_bits_per_frame)).astype(np.float32)
-    ref = np.asarray(j_interleave(cfg, jnp.asarray(llr), inverse=True)) * \
-        (1.0 - 2.0 * tm.lay.scramble.astype(np.float32))
-    x = torch.as_tensor(llr)
-    got = x[:, tm.fec_index] * (1.0 - 2.0 * tm.scramble.float())
-    assert np.array_equal(got.numpy(), ref)
+    used = cfg.n_codewords * cfg.ldpc_n
+    raw = cfg.raw_bits_per_frame
+    llr = np.random.default_rng(3).standard_normal((3, raw)).astype(
+        np.float32)
+    sign = 1.0 - 2.0 * j_layout(cfg).scramble.astype(np.float32)
+    if cfg.interleave:
+        ref = np.asarray(j_interleave(cfg, jnp.asarray(llr), inverse=True))
+        pos = np.asarray(j_interleave(cfg, jnp.arange(raw), inverse=True))
+    else:
+        ref, pos = llr, np.arange(raw)
+    assert tm.codeword_index.dtype == torch.int32
+    assert np.array_equal(tm.codeword_index.numpy(), pos[:used])
+    # the card's tiled kernel reads no index: the interleaver's is the
+    # reversal of the axes the Modem names, and an identity names none
+    if cfg.interleave:
+        assert np.array_equal(fec_gather.reversal_index(*tm._fec_axes), pos)
+    else:
+        assert tm._fec_axes is None
+    before = fec_gather.fec_gather.launches
+    got = fec_gather.fec_gather(torch.as_tensor(llr), tm.codeword_index,
+                                tm.scramble, tm._fec_axes)
+    assert fec_gather.fec_gather.launches == before
+    assert got.shape == (3, used)
+    assert np.array_equal(got.numpy(), (ref * sign)[:, :used])
+    lam = tm._codeword_llrs(torch.as_tensor(llr))
+    assert torch.equal(lam, got.reshape(-1, cfg.ldpc_n))
+
+
+def test_fec_gather_wrapper_dispatch():
+    """A CPU tensor runs the plain version and launches nothing; a tensor
+    that is not float32, a table of the wrong type or shape, and a tensor
+    neither on the CPU nor on a CUDA device are refused, with no launch."""
+    tm = TModem(GF3_STANDARD, device="cpu")
+    idx, scr = tm.codeword_index, tm.scramble
+    llr = torch.randn(2, GF3_STANDARD.raw_bits_per_frame)
+    before = fec_gather.fec_gather.launches
+    assert torch.equal(fec_gather.fec_gather(llr, idx, scr),
+                       fec_gather.fec_gather_plain(llr, idx, scr))
+    for bad in ((llr.double(), idx, scr), (llr.half(), idx, scr),
+                (llr[0], idx, scr), (llr[:, :-1], idx, scr),
+                (llr, idx.long(), scr), (llr, idx[:, None], scr),
+                (llr, idx, scr.float()), (llr, idx, scr[:-1]),
+                (llr.to("meta"), idx.to("meta"), scr.to("meta")),
+                (llr.to("meta"), idx, scr),
+                (llr, idx, scr, (20, 7, 69)),
+                (llr.to("meta"), idx.to("meta"), scr.to("meta"),
+                 tm._fec_axes)):
+        with pytest.raises(ValueError):
+            fec_gather.fec_gather(*bad)
+    assert fec_gather.fec_gather.launches == before
+
+
+def test_fec_gather_chunk_fills_the_card():
+    """The indexed kernel's block walks a whole number of passes, at most
+    MAX_CHUNK outputs of one row; one recording spreads its row over every
+    SM, and a batch of 1024 at gf3-8192 takes the longest walk."""
+    P, M = fec_gather.PASS, fec_gather.MAX_CHUNK
+    for B, used in ((1, 235008), (1023, 235008), (1024, 235008),
+                    (1024, 9216), (1, 9216), (7, 4608)):
+        chunk = fec_gather.fec_gather_chunk(B, used, 132)
+        assert chunk % P == 0 and P <= chunk <= M
+        blocks = B * -(-used // chunk)
+        assert blocks >= 132 or chunk == P
+    assert fec_gather.fec_gather_chunk(1024, 235008, 132) == M
+    assert fec_gather.fec_gather_chunk(1, 235008, 132) == P
+
+
+@pytest.mark.parametrize("name", list(FEC_GATHER_CONFIGS)[:3])
+def test_fec_gather_tiles_fit_and_fill_the_card(name):
+    """The tiled kernel's tile fits its shared memory at every batch, with
+    a column pitch of 4 mod 32 (float4 reads, the stores' banks); a batch of
+    1024 takes 16 rows a tile, and smaller batches fewer, until the grid
+    gives every SM two blocks or one row is left."""
+    axes = TModem(FEC_GATHER_CONFIGS[name], device="cpu")._fec_axes
+    D, B2, A2 = axes
+    cols = -(-A2 // fec_gather.TILE_A)
+    for B in (1, 2, 7, 64, 1023, 1024):
+        tb = fec_gather.fec_gather_tiles(B, axes, 132)
+        pitch = fec_gather.tile_pitch(D, tb)
+        assert 1 <= tb <= min(16, B2)
+        assert pitch >= tb * D and pitch % 32 == 4
+        assert 4 * fec_gather.TILE_A * pitch <= fec_gather.TILE_SMEM
+        assert B * cols * -(-B2 // tb) >= 2 * 132 or tb == 1
+        if tb < min(16, B2):
+            assert B * cols * -(-B2 // (2 * tb)) < 2 * 132
+    assert fec_gather.fec_gather_tiles(1024, axes, 132) == min(16, B2)
+    # a frame too long for one row of 16 columns in shared memory has no
+    # tile, and takes the indexed kernel
+    assert fec_gather.fec_gather_tiles(1024, (400, 4, 4), 132) is None
+
+
+def test_loaded_fec_index_refreshes_the_codeword_table():
+    """Loading gf3x's deinterleaver into a Modem also rewrites the FEC
+    gather's int32 table from it, so the two cannot disagree, and an entry
+    outside the frame is refused there."""
+    tm = TModem(GF3_STANDARD, device="cpu")
+    want = tm.codeword_index.clone()
+    tm.codeword_index.zero_()
+    load_reference_tables(tm, {"fec_index": tm.fec_index.numpy()})
+    assert torch.equal(tm.codeword_index, want)
+    # the kernels trust the table's entries: one past the frame is refused
+    bad = tm.fec_index.numpy().copy()
+    bad[5] = GF3_STANDARD.raw_bits_per_frame
+    with pytest.raises(ValueError):
+        load_reference_tables(tm, {"fec_index": bad})
 
 
 def test_cut_symbols_wrapper_dispatch():
