@@ -132,7 +132,9 @@ B = 64, the spilled band at B = 4).
 A fourth, `python3 chip_smoke.py --mesh`, runs the mesh phase alone
 across every card of the machine (the one-card mesh against all cards);
 a fifth, `python3 chip_smoke.py --layouts`, the layouts phase alone; a
-sixth, `python3 chip_smoke.py --fec-gather`, the FEC gather phase alone.
+sixth, `python3 chip_smoke.py --fec-gather`, the FEC gather phase alone;
+a seventh, `python3 chip_smoke.py --warped-dft`, the clock-offset route's
+warped DFT at gf3-8192, B = 1024, against float64 on the card.
 
 Phases print one line each. The last lines are a JSON object with every
 kernel's measurements (host-clock and CUDA-event times, the kernel's own
@@ -1802,11 +1804,13 @@ def run_layouts(dev, grid: bool = False) -> dict:
 
 # the wide bands' other routes: a clock offset planted in the batch recipe
 # (the port's channel.sims.resample_sfo); and the warped DFT's error
-# against float64 that its float32 formula (2π/N)·n·k·(1+δ), gf3x's
-# order, gives at each n_fft (tests/test_torch_wide_routes.py measures
-# 4096 and 8192 on the CPU), printed beside this run's
+# against float64 that gf3x's float32 formula (2π/N)·n·k·(1+δ) gives at
+# each n_fft (tests/test_torch_wide_routes.py measures 4096 and 8192 on the
+# CPU), printed beside the port's (`ops.ofdm.warped_angle` reduces n·k mod N
+# at these bands: ≤ WARPED_DFT_DB)
 SFO_PPM = 150.0
 WARPED_DFT_FORMULA_DB = {4096: -78.5, 8192: -72.4, 16384: -62.0}
+WARPED_DFT_DB = -110.0
 
 
 def resample_sinc(x: np.ndarray, ppm: float, taps: int = 64,
@@ -1859,41 +1863,117 @@ def sfo_batch(modem, Bk: int, ppm: float, rng):
     return rx, payload, delays
 
 
+def warped_db(cfg, syms, delta, Y) -> float:
+    """Y's error in dB against the δ-warped DFT of syms (..., n_fft) in
+    float64 on syms' device, the angle 2π/N·n·k·(1+δ) exact in float64."""
+    d = float(np.float32(float(delta)))
+    n = torch.arange(cfg.n_fft, dtype=torch.float64, device=syms.device)
+    k = torch.arange(cfg.bin_lo, cfg.bin_hi + 1, dtype=torch.float64,
+                     device=syms.device)
+    th = (2.0 * np.pi / cfg.n_fft) * n[:, None] * k[None, :] * (1.0 + d)
+    x = syms.to(torch.float64)
+    err = sig = 0.0
+    for c, s in ((torch.cos(th), 1), (torch.sin(th), -1)):
+        exact = s * (x @ c) / cfg.ofdm_scale
+        got = (Y.real if s > 0 else Y.imag).to(torch.float64)
+        err += float(((got - exact) ** 2).sum())
+        sig += float((exact ** 2).sum())
+        del exact, got
+    return 10.0 * float(np.log10(err / sig))
+
+
 def hold_warped_dft(cfg, syms, delta) -> dict:
-    """The δ-warped DFT on the card against its own formula evaluated by
-    NumPy on the host — the tables in float32 in gf3x's order, the product
-    in float64 — within 1e-4·mean|Y|; and its error against a float64 DFT
-    in dB (the formula's own, WARPED_DFT_FORMULA_DB)."""
-    from gf3x_torch.ops.ofdm import ofdm_dft
+    """The δ-warped DFT on the card against its own formula evaluated on
+    the host — `warped_angle`'s float32 table, the product in float64 —
+    within 1e-4·mean|Y|, and against a float64 DFT: ≤ WARPED_DFT_DB where
+    the band reduces n·k mod N, else the −80 dB gate; gf3x's float32
+    formula's dB beside it (WARPED_DFT_FORMULA_DB)."""
+    from gf3x_torch.ops.ofdm import (UNREDUCED_MAX_ANGLE, matmul_f32,
+                                     ofdm_dft, unreduced_angle, warped_angle)
 
     d32 = np.float32(float(delta))
-    got = ofdm_dft(cfg, syms, torch.tensor(d32, device=syms.device)).cpu(
-        ).numpy().astype(np.complex128)
-    x64 = syms.cpu().numpy().astype(np.float64)
-    n = np.arange(cfg.n_fft, dtype=np.float32)[:, None]
-    k = np.arange(cfg.bin_lo, cfg.bin_hi + 1, dtype=np.float32)[None, :]
-    th = np.float32(2.0 * np.pi / cfg.n_fft) * n * k * (np.float32(1.0) + d32)
-    inv = 1.0 / cfg.ofdm_scale
-    host = (x64 @ np.cos(th).astype(np.float64)
-            - 1j * (x64 @ np.sin(th).astype(np.float64))) * inv
+    got = ofdm_dft(cfg, syms, torch.tensor(d32, device=syms.device))
+    th = warped_angle(cfg, d32, "cpu").double()
+    x64 = syms.cpu().double()
+    host = torch.complex(x64 @ torch.cos(th), -(x64 @ torch.sin(th))) / (
+        cfg.ofdm_scale)
     del th
-    th64 = (2.0 * np.pi / cfg.n_fft * np.arange(cfg.n_fft)[:, None]
-            * np.arange(cfg.bin_lo, cfg.bin_hi + 1)[None, :]
-            * (1.0 + float(d32)))
-    exact = (x64 @ np.cos(th64) - 1j * (x64 @ np.sin(th64))) * inv
-    del th64
-    err = float(np.max(np.abs(got - host)))
-    scale = float(np.mean(np.abs(host)))
+    err = float((got.cpu().to(torch.complex128) - host).abs().max())
+    scale = float(host.abs().mean())
     check(err <= 1e-4 * scale, f"warped DFT at n_fft {cfg.n_fft}: {err} "
           f"from its host formula > 1e-4 x mean|Y| {scale}")
-
-    def db(y):
-        return float(10 * np.log10(np.sum(np.abs(y - exact) ** 2)
-                                   / np.sum(np.abs(exact) ** 2)))
-
+    gate = (WARPED_DFT_DB if 2.0 * np.pi * cfg.bin_hi >= UNREDUCED_MAX_ANGLE
+            else -80.0)
+    db = warped_db(cfg, syms, d32, got)
+    check(db <= gate, f"warped DFT at n_fft {cfg.n_fft}: {db:.1f} dB "
+          f"against float64 > {gate} dB")
+    th = unreduced_angle(cfg, d32, syms.device)
+    inv = np.float32(1.0 / cfg.ofdm_scale)
+    old = torch.complex(matmul_f32(syms, torch.cos(th)) * inv,
+                        -matmul_f32(syms, torch.sin(th)) * inv)
     return dict(max_abs_err=err, mean_abs=scale, delta_ppm=float(d32) * 1e6,
-                db_vs_float64=db(got), formula_db_vs_float64=db(host),
+                db_vs_float64=db, gate_db=gate,
+                formula_db_vs_float64=warped_db(cfg, syms, d32, old),
                 formula_db_cpu_test=WARPED_DFT_FORMULA_DB.get(cfg.n_fft))
+
+
+def warped_dft_only() -> None:
+    """`--warped-dft`: the δ-warped DFT of the clock-offset route at
+    gf3-8192, B = 1024, on the card: the recipe's batch at +SFO_PPM cut
+    and its δ̂ found by the loop, then the whole batch's warped DFT
+    against a float64 DFT on the card (≤ WARPED_DFT_DB) beside gf3x's
+    float32 formula's, and at δ = 0 and −9e-4; CUDA-event ms of the angle
+    table (`warped_angle`) against the whole transform (on the cut's
+    strided view of the symbols, as the route runs it, and on a contiguous
+    copy) and against a `demodulate_sfo` step. One JSON line, then the
+    card's name and power limit."""
+    from gf3x_torch import GF3_STANDARD, Modem
+    from gf3x_torch.ops.ofdm import (matmul_f32, ofdm_dft, unreduced_angle,
+                                     warped_angle)
+    from gf3x_torch.utils.device import kernel_lib
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"device: {smi}", flush=True)
+    kernel_lib()
+    dev = torch.device("cuda", 0)
+    cfg = GF3_STANDARD.replace(**WIDE_BANDS["gf3-8192"])
+    modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
+    rx_np, _, _ = sfo_batch(modem, B, SFO_PPM, np.random.default_rng(3))
+    rx = torch.as_tensor(rx_np, device=dev)
+    del rx_np
+    syms, sc_win, roll = modem._cut_frame(rx, modem._sync(rx)[0])
+    delta = modem._two_pass_delta(syms, sc_win, roll)
+    strided, syms = syms, syms.contiguous()
+    out = dict(band="gf3-8192", batch=B, rows=syms.shape[0] * syms.shape[1],
+               delta_ppm=float(delta) * 1e6)
+    for label, d in (("delta_hat", delta), ("zero", 0.0), ("minus_9e-4",
+                                                           -9e-4)):
+        d = torch.as_tensor(d, dtype=torch.float32, device=dev)
+        out[f"db_{label}"] = warped_db(cfg, syms, d, ofdm_dft(cfg, syms, d))
+        check(out[f"db_{label}"] <= WARPED_DFT_DB, f"warped DFT at B = {B}, "
+              f"{label}: {out[f'db_{label}']:.1f} dB > {WARPED_DFT_DB}")
+    th = unreduced_angle(cfg, delta, dev)
+    inv = np.float32(1.0 / cfg.ofdm_scale)
+    out["db_gf3x_formula"] = warped_db(cfg, syms, delta, torch.complex(
+        matmul_f32(syms, torch.cos(th)) * inv,
+        -matmul_f32(syms, torch.sin(th)) * inv))
+    del th
+    out["angle_ms"] = event_ms(lambda: warped_angle(cfg, delta, dev), 20)
+    out["table_ms"] = event_ms(lambda: (lambda t: (torch.cos(t), torch.sin(
+        t)))(warped_angle(cfg, delta, dev)), 20)
+    out["warped_dft_ms"] = event_ms(lambda: ofdm_dft(cfg, syms, delta), 5)
+    out["warped_dft_strided_ms"] = event_ms(
+        lambda: ofdm_dft(cfg, strided, delta), 5)
+    out["step_ms"] = median_ms(lambda: modem.demodulate_sfo(rx), runs=5)
+    out["table_share_of_step_pct"] = (200.0 * out["table_ms"]
+                                      / out["step_ms"])
+    check(out["table_share_of_step_pct"] < 1.0, f"the warped DFT's two "
+          f"tables take {out['table_share_of_step_pct']:.2f} % of a step")
+    record("warped_dft", out, print_too=True)
+    print(smi, flush=True)
 
 
 def run_wide_routes(counters, total, modem, rx, payload, delays,
@@ -1959,9 +2039,10 @@ def run_wide_routes(counters, total, modem, rx, payload, delays,
           f"{ {r: round(out[r]['step_ms'], 3) for r in ('sfo', 'sc_sfo', 'dd')} } "
           f"ms; warped DFT at {w['delta_ppm']:.2f} ppm within "
           f"{w['max_abs_err'] / w['mean_abs']:.2g} x mean|Y| of its host "
-          f"formula, {w['db_vs_float64']:.1f} dB vs float64 (the formula "
-          f"itself {w['formula_db_vs_float64']:.1f} dB; "
-          f"{w['formula_db_cpu_test']} dB in the CPU test); decode(dd='on') "
+          f"formula, {w['db_vs_float64']:.1f} dB vs float64 (gate "
+          f"{w['gate_db']} dB; gf3x's formula {w['formula_db_vs_float64']:.1f}"
+          f" dB, {w['formula_db_cpu_test']} dB in the CPU test); "
+          f"decode(dd='on') "
           f"and decode(sync='sc', sfo='on') of one recording CRC-ok",
           flush=True)
     del rx_s
@@ -3469,6 +3550,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             raise RuntimeError("chip_smoke needs a CUDA device")
         fec_gather_only()
+    elif len(sys.argv) == 2 and sys.argv[1] == "--warped-dft":
+        if not torch.cuda.is_available():
+            raise RuntimeError("chip_smoke needs a CUDA device")
+        warped_dft_only()
     elif len(sys.argv) == 2 and sys.argv[1] == "--layouts":
         if not torch.cuda.is_available():
             raise RuntimeError("chip_smoke needs a CUDA device")

@@ -1,11 +1,13 @@
 """The port's tracing layer (counterpart of gf3x/utils/profiling.py,
 torch.profiler in place of jax.profiler): spans at the receive path's
-stages, the LDPC decode pass's counters, and the Chrome trace hook.
+stages, the LDPC decode pass's and the warped DFT's counters, and the
+Chrome trace hook.
 
 Spans. `Modem` wraps each stage of a call in `span(name)`: the public
 entries (`demodulate`, `demodulate_sfo`, ...) open the root span, the
-stages (`sync`, `cut`, `dft`, `chanest`, `eq_demap`, `fec_gather`,
-`ldpc` with `ldpc.check` and `ldpc.decode`, `diag`, ...) its children.
+stages (`sync`, `cut`, `dft` with `warped_dft` on the clock-offset route,
+`chanest`, `eq_demap`, `fec_gather`, `ldpc` with `ldpc.check` and
+`ldpc.decode`, `diag`, `clock_offset`, ...) its children.
 Tracing is on while the torch profiler runs or inside `recording()`;
 while it is off a span is one flag check that returns a shared no-op
 context (no allocation, no `record_function`, no CUDA call). While it is
@@ -30,7 +32,9 @@ Counters. While tracing is on, the LDPC decode pass counts on the device,
 with no launch added: the codewords the check pass queued for it
 (`ldpc.queued`) and the sweeps they ran (`ldpc.sweeps`); the host counts
 the codewords it was given (`ldpc.codewords`). The plain (CPU) route counts
-the same from its `passes` with torch ops.
+the same from its `passes` with torch ops. The host also counts, from
+shapes, the δ-warped DFTs a call ran (`ofdm.warped_dfts`) and the symbol
+rows they transformed (`ofdm.warped_rows`), through `count`.
 
 An operator's stage times, without the profiler's overhead:
 
@@ -62,10 +66,12 @@ import torch
 from torch.autograd import profiler as _profiler
 
 __all__ = ["trace", "maybe_trace", "span", "recording", "span_totals",
-           "counters", "records", "reset", "Span", "decode_counts",
+           "counters", "records", "reset", "Span", "count", "decode_counts",
            "count_plain"]
 
 _NOOP = contextlib.nullcontext()
+# the counts kept on the host
+HOST_COUNTS = ("ldpc.codewords", "ofdm.warped_dfts", "ofdm.warped_rows")
 
 
 class Span(NamedTuple):
@@ -82,7 +88,7 @@ class _Tracer:
     """The process's records: spans as [call, name, parent, host start ns,
     host end ns, (device, start, end) CUDA events or None, device seconds
     or None], the stack of open spans, the free events by device, and the
-    counters."""
+    counters: those of the host by name, the device's in a buffer each."""
 
     def __init__(self):
         self.recording = 0
@@ -90,7 +96,7 @@ class _Tracer:
         self.spans: list = []
         self.stack: list = []
         self.free: dict = {}
-        self.codewords = 0
+        self.counts = dict.fromkeys(HOST_COUNTS, 0)
         self.buffers: dict = {}    # device → int64 (queued, sweeps)
 
     def events(self):
@@ -179,7 +185,7 @@ def reset() -> None:
     """Forget every span and zero the counters (outside any span)."""
     _T.resolve()
     _T.spans.clear()
-    _T.codewords = 0
+    _T.counts = dict.fromkeys(HOST_COUNTS, 0)
     for b in _T.buffers.values():
         b.zero_()
 
@@ -214,16 +220,26 @@ def span_totals() -> dict:
 
 
 def counters() -> dict:
-    """{"ldpc.codewords", "ldpc.queued", "ldpc.sweeps"} counted while
-    tracing was on: the codewords given to the LDPC decoder, those the
-    check pass queued for the decode pass and the sweeps they ran.
-    Synchronises the device."""
+    """{"ldpc.codewords", "ldpc.queued", "ldpc.sweeps", "ofdm.warped_dfts",
+    "ofdm.warped_rows"} counted while tracing was on: the codewords given
+    to the LDPC decoder, those the check pass queued for the decode pass
+    and the sweeps they ran; the δ-warped DFTs run and the symbol rows
+    they transformed. Synchronises the device."""
     queued = sweeps = 0
     for b in _T.buffers.values():
         q, s = b.tolist()     # waits for the work queued before it
         queued, sweeps = queued + q, sweeps + s
-    return {"ldpc.codewords": _T.codewords, "ldpc.queued": queued,
-            "ldpc.sweeps": sweeps}
+    c = _T.counts
+    return {"ldpc.codewords": c["ldpc.codewords"], "ldpc.queued": queued,
+            "ldpc.sweeps": sweeps, "ofdm.warped_dfts": c["ofdm.warped_dfts"],
+            "ofdm.warped_rows": c["ofdm.warped_rows"]}
+
+
+def count(name: str, n: int) -> None:
+    """Add n to the host counter `name` (one of HOST_COUNTS) while tracing
+    is on; one flag check while it is off."""
+    if _profiler._is_profiler_enabled or _T.recording:
+        _T.counts[name] += n
 
 
 def _counts(device) -> torch.Tensor:
@@ -244,7 +260,7 @@ def decode_counts(lam: torch.Tensor) -> int:
     buf = _counts(lam.device)
     if not _on():
         return 0
-    _T.codewords += lam.shape[0]
+    _T.counts["ldpc.codewords"] += lam.shape[0]
     return buf.data_ptr()
 
 
@@ -253,7 +269,7 @@ def count_plain(passes: torch.Tensor) -> None:
     codewords, (passes > 0).sum() queued, passes.sum() sweeps."""
     if not _on():
         return
-    _T.codewords += passes.shape[0]
+    _T.counts["ldpc.codewords"] += passes.shape[0]
     _counts(passes.device).add_(torch.stack(
         [(passes > 0).sum(), passes.sum(dtype=torch.int64)]))
 

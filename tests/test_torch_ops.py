@@ -103,6 +103,58 @@ def test_ofdm_modulate_and_dft_match():
     assert rel(got_y, ref_y) <= 1e-5
 
 
+# the warped DFT's bands: config 5 and chip_smoke.py's WIDE_BANDS; at
+# gf3-16384 its top 512 bins, where the angle is largest (the whole band's
+# float64 tables would take gigabytes here)
+WARPED_BANDS = {
+    1024: {},
+    4096: dict(n_fft=4096, cp=1024, bin_lo=96, bin_hi=1215),
+    8192: dict(n_fft=8192, cp=2048, bin_lo=192, bin_hi=2431),
+    16384: dict(n_fft=16384, cp=4096, bin_lo=7488, bin_hi=7999),
+}
+
+
+@pytest.mark.parametrize("n_fft", sorted(WARPED_BANDS))
+def test_warped_dft_holds_float64_at_every_band(n_fft):
+    """`ofdm_dft(delta=δ)` at δ = 0, 1.5e-4 and −9e-4 against a float64
+    DFT. At the wide bands ≤ −110 dB: n·k is reduced mod N in int64
+    before the angle and the warp n·k·δ keeps float32's relative accuracy
+    (`warped_angle`), where gf3x's float32 (2π/N)·n·k·(1+δ) gives −79 to
+    −62 dB. At config 5, whose angles stay under UNREDUCED_MAX_ANGLE, the
+    table is gf3x's product bit for bit, within the −80 dB gate."""
+    from gf3x_torch import GF3_STANDARD as T_STANDARD
+
+    cfg = T_STANDARD.replace(**WARPED_BANDS[n_fft])
+    reduced = 2 * np.pi * cfg.bin_hi >= tofdm.UNREDUCED_MAX_ANGLE
+    assert reduced == (n_fft > 1024)
+    rng = np.random.default_rng(6)
+    syms = rng.standard_normal((2, 2, n_fft)).astype(np.float32)
+    n = np.arange(n_fft)[:, None]
+    for delta in map(np.float32, (0.0, 1.5e-4, -9e-4)):
+        got = tofdm.ofdm_dft(cfg, torch.as_tensor(syms),
+                             torch.tensor(delta)).numpy()
+        assert got.shape == (2, 2, cfg.n_used)
+        if not reduced:
+            th = (np.float32(2 * np.pi / n_fft) * n.astype(np.float32)
+                  * np.arange(cfg.bin_lo, cfg.bin_hi + 1,
+                              dtype=np.float32)[None, :]
+                  * (np.float32(1.0) + delta))
+            assert torch.equal(tofdm.warped_angle(cfg, delta, "cpu"),
+                               torch.as_tensor(th))
+            assert torch.equal(tofdm.unreduced_angle(cfg, delta, "cpu"),
+                               torch.as_tensor(th))
+        err = sig = 0.0
+        for k0 in range(cfg.bin_lo, cfg.bin_hi + 1, 512):
+            k = np.arange(k0, min(k0 + 512, cfg.bin_hi + 1))
+            th = 2 * np.pi / n_fft * n * k[None, :] * (1.0 + float(delta))
+            exact = (syms.astype(np.float64) @ np.exp(-1j * th)
+                     / cfg.ofdm_scale)
+            err += np.sum(np.abs(got[..., k - cfg.bin_lo] - exact) ** 2)
+            sig += np.sum(np.abs(exact) ** 2)
+        db = 10 * np.log10(err / sig)
+        assert db <= (-110.0 if reduced else -80.0), (n_fft, delta, db)
+
+
 def _known_rx(rng, B=3):
     """Known symbols through a 3-tap channel with a bulk delay + noise."""
     from gf3x.config import layout

@@ -77,10 +77,12 @@ def frames_at(ppm, B, seed):
 # ---------------------------------------------------------------- the ops
 @pytest.mark.parametrize("delta", [0.0, 4e-4, -9e-4])
 def test_warped_dft_matches(delta):
-    """`ofdm_dft(delta=δ)` against gf3x's HIGHEST twin: the tables are
-    built in float32 in the same order, so they differ only by the two
-    libraries' cos/sin (≤ 1 ulp); max |ΔY| ≤ 1e-4·mean|Y|. The
-    full-float32 product is what keeps it there (TF32 would not)."""
+    """`ofdm_dft(delta=δ)` against gf3x's HIGHEST twin: at config 5 the
+    tables are built in float32 in the same order (`warped_angle` below
+    UNREDUCED_MAX_ANGLE), so they differ only by the two libraries'
+    cos/sin (≤ 1 ulp); max |ΔY| ≤ 1e-4·mean|Y|; and both within the −80
+    dB gate of a float64 DFT. The full-float32 product is what keeps it
+    there (TF32 would not)."""
     rng = np.random.default_rng(1)
     syms = rng.standard_normal((3, 4, CFG.n_fft)).astype(np.float32)
     ref = np.asarray(jofdm.ofdm_dft(CFG, jnp.asarray(syms),
@@ -89,6 +91,13 @@ def test_warped_dft_matches(delta):
                          torch.tensor(delta, dtype=torch.float32)).numpy()
     assert got.shape == ref.shape == (3, 4, CFG.n_used)
     assert np.max(np.abs(got - ref)) <= 1e-4 * np.mean(np.abs(ref))
+    n = np.arange(CFG.n_fft)[:, None]
+    k = np.arange(CFG.bin_lo, CFG.bin_hi + 1)[None, :]
+    th = 2 * np.pi / CFG.n_fft * n * k * (1.0 + float(np.float32(delta)))
+    exact = syms.astype(np.float64) @ np.exp(-1j * th) / CFG.ofdm_scale
+    for y in (got, ref):
+        assert 10 * np.log10(np.sum(np.abs(y - exact) ** 2)
+                             / np.sum(np.abs(exact) ** 2)) <= -80.0
     body = np.concatenate([np.zeros((3, 4, CFG.cp), np.float32), syms],
                           -1).reshape(3, -1)
     assert np.array_equal(

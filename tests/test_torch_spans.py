@@ -4,6 +4,7 @@ the LDPC decode pass's counters — on the CPU through the plain route, and
 on the card (the `card` test, which skips without one) through kernel 3's
 device counters. No JAX here: the card test runs where JAX is absent."""
 
+import json
 import re
 import types
 
@@ -106,7 +107,7 @@ def test_every_aten_op_lies_in_a_stage(cpu_case, clean):
 def test_spans_off_record_nothing(cpu_case, clean, monkeypatch):
     """Profiler off and no `recording()`: a span is the shared no-op
     context, `record_function` is never entered, nothing is recorded and
-    nothing counted."""
+    nothing counted, on the plain and the clock-offset route."""
     modem, rx = cpu_case
     entered = []
     real = profiling._profiler
@@ -119,10 +120,12 @@ def test_spans_off_record_nothing(cpu_case, clean, monkeypatch):
     assert profiling.span("dft") is profiling.span("ldpc")
     assert profiling.span("dft") is profiling._NOOP
     modem.demodulate(rx)
+    modem.demodulate_sfo(rx)
     assert entered == [] and profiling.records() == []
     assert profiling.span_totals() == {}
     assert profiling.counters() == {"ldpc.codewords": 0, "ldpc.queued": 0,
-                                    "ldpc.sweeps": 0}
+                                    "ldpc.sweeps": 0, "ofdm.warped_dfts": 0,
+                                    "ofdm.warped_rows": 0}
 
 
 def test_span_totals_are_idempotent(cpu_case, clean):
@@ -163,7 +166,104 @@ def test_plain_ldpc_counts_are_the_passes(clean):
     want_s = int(passes.sum()) + int(passes[:8].sum())
     assert profiling.counters() == {"ldpc.codewords": lam.shape[0] + 8,
                                     "ldpc.queued": want_q,
-                                    "ldpc.sweeps": want_s}
+                                    "ldpc.sweeps": want_s,
+                                    "ofdm.warped_dfts": 0,
+                                    "ofdm.warped_rows": 0}
+
+
+@pytest.fixture(scope="module")
+def sfo_case(cpu_case):
+    modem, _ = cpu_case
+    return modem, recordings(modem, 8, 25.0, seed=4)
+
+
+def test_clock_offset_route_records_two_warped_dfts(sfo_case, clean):
+    """One `demodulate_sfo` call at B = 8 runs the warped DFT twice — the
+    δ₀ pass inside `gf3x.clock_offset`, then the final demod — each a
+    `gf3x.warped_dft` span under a `gf3x.dft`, and counts both transforms
+    and their 2·B·(K+D) symbol rows."""
+    modem, rx = sfo_case
+    with profiling.recording():
+        modem.demodulate_sfo(rx)
+    recs = profiling.records()
+    warped = [r for r in recs if r.name == "gf3x.warped_dft"]
+    assert len(warped) == 2
+    assert all(recs[r.parent].name == "gf3x.dft" for r in warped)
+
+    def ancestors(r):
+        while r.parent >= 0:
+            r = recs[r.parent]
+            yield r.name
+    assert "gf3x.clock_offset" in ancestors(warped[0])
+    assert "gf3x.clock_offset" not in ancestors(warped[1])
+    S = CFG.n_known_symbols + CFG.n_data_symbols
+    c = profiling.counters()
+    assert (c["ofdm.warped_dfts"], c["ofdm.warped_rows"]) == (2, 2 * 8 * S)
+
+
+def test_plain_route_runs_no_warped_dft(cpu_case, clean):
+    """`demodulate` records no `gf3x.warped_dft` span and counts no warped
+    transform."""
+    modem, rx = cpu_case
+    with profiling.recording():
+        modem.demodulate(rx)
+    assert "gf3x.warped_dft" not in {r.name for r in profiling.records()}
+    c = profiling.counters()
+    assert c["ofdm.warped_dfts"] == c["ofdm.warped_rows"] == 0
+
+
+WARPED_READERS = ("warped_dft.device_ms", "clock_offset.device_ms",
+                  "warped_dft_roofline")
+
+
+def reader_ctx(device: bool, steps: int = 16) -> dict:
+    """A reader's context at gf3-8192: a trace with or without device
+    work, the benchmark's peaks."""
+    from benchmark import harness
+    from benchmark.trace import Trace
+
+    cell = harness.load_cell("gf3-8192.clock150-30db")
+    tr = Trace(steps=steps, device=[(0.0, 1.0, "k")] if device else [])
+    return {"trace": tr, "issue_s": [], "cfg": harness.reference_config(cell),
+            "batch": 1024, "peaks": json.loads(
+                (harness.ROOT / "benchmark" / "peaks.json").read_text())}
+
+
+@pytest.mark.parametrize("name", WARPED_READERS)
+def test_warped_readers_say_nothing_without_a_card(name, clean):
+    """Without device work in the trace each new reader returns None."""
+    from benchmark import harness
+
+    read, params = harness._reader(harness.ROOT, name)
+    assert read(dict(reader_ctx(False), params=params)) is None
+
+
+def test_warped_dft_roofline_reads_the_records(monkeypatch):
+    """The roofline from the program's records: 2·B·(K+D) rows a step of
+    n_fft float32 in and n_used complex64 out at the HBM peak over the
+    span's device time; None where the program has no such counter (a
+    checkout older than it) or ran no warped DFT."""
+    from benchmark import harness, spans
+
+    ctx = reader_ctx(True)
+    cfg, steps = ctx["cfg"], ctx["trace"].steps
+    rows = steps * 2 * 1024 * (cfg.n_known_symbols + cfg.n_data_symbols)
+    device_s = steps * 0.064
+    counts = {"ofdm.warped_rows": rows}
+    monkeypatch.setattr(spans, "_profiling", lambda ctx: types.SimpleNamespace(
+        span_totals=lambda: {"gf3x.warped_dft": {"device_s": device_s}},
+        counters=lambda: counts))
+    read, params = harness._reader(harness.ROOT, "warped_dft_roofline")
+    got = read(dict(ctx, params=params))
+    want = (100.0 * rows / steps * (4 * cfg.n_fft + 8 * cfg.n_used)
+            / ctx["peaks"]["hbm_bytes_per_s"] / 0.064)
+    assert got == pytest.approx(want) and 0.5 < got < 2.0
+    read_ms, params_ms = harness._reader(harness.ROOT, "warped_dft.device_ms")
+    assert read_ms(dict(ctx, params=params_ms)) == pytest.approx(64.0)
+    del counts["ofdm.warped_rows"]
+    assert read(dict(ctx, params=params)) is None
+    counts["ofdm.warped_rows"] = 0
+    assert read(dict(ctx, params=params)) is None
 
 
 @pytest.mark.card
@@ -187,7 +287,8 @@ def test_device_counters_on_the_card(clean, monkeypatch):
     assert 0 < int((passes > 0).sum()) < lam.shape[0]
     assert profiling.counters() == {
         "ldpc.codewords": lam.shape[0], "ldpc.queued": int((passes > 0).sum()),
-        "ldpc.sweeps": int(passes.sum())}
+        "ldpc.sweeps": int(passes.sum()), "ofdm.warped_dfts": 0,
+        "ofdm.warped_rows": 0}
 
     modem = Modem(CFG, max_delay=MARGIN + CFG.cp)
     rx = recordings(modem, 64, 4.0)
