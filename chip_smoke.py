@@ -68,9 +68,10 @@ drives the receive paths once each through the port's entry points:
   and, on each uniform band, its other routes: `demodulate_sfo` and
   `demodulate_sc` with the clock-offset loop on the batch recipe at +150
   ppm, `demodulate_dd` on the band's batch, `decode(dd='on')` and
-  `decode(sync='sc', sfo='on')` of one recording, the warped DFT held to
-  its float32 formula evaluated on the host (its error against float64
-  printed), and each band's `Modem(cfg)` construction timed;
+  `decode(sync='sc', sfo='on')` of one recording, the warped DFT (the
+  chirp-z transform) held to its plain versions on the host and to a
+  float64 DFT at δ̂, 0 and −9e-4, and each band's `Modem(cfg)`
+  construction timed;
 - kernels 2 and A past the pilot bound of shared memory (the spilled
   layout, pilot scratch in global memory): forced at config 5 against the
   staged layout's sha256, and at a synthetic n_fft = 65536 band of 15 616
@@ -134,7 +135,9 @@ across every card of the machine (the one-card mesh against all cards);
 a fifth, `python3 chip_smoke.py --layouts`, the layouts phase alone; a
 sixth, `python3 chip_smoke.py --fec-gather`, the FEC gather phase alone;
 a seventh, `python3 chip_smoke.py --warped-dft`, the clock-offset route's
-warped DFT at gf3-8192, B = 1024, against float64 on the card.
+warped DFT, the chirp-z transform, against float64 on the card at the three
+wide bands, its two kernels against their plain versions and timed at
+gf3-8192, B = 1024 (`warped_dft_only`).
 
 Phases print one line each. The last lines are a JSON object with every
 kernel's measurements (host-clock and CUDA-event times, the kernel's own
@@ -605,7 +608,7 @@ def hold_minsum(code, lam, iters, label) -> dict:
 
 def launch_counters() -> dict:
     """Every kernel wrapper by name, each with its `launches` count."""
-    from gf3x_torch.ops.kernels import (cut_dft, fec_gather, fused_eq,
+    from gf3x_torch.ops.kernels import (cut_dft, czt, fec_gather, fused_eq,
                                         gather_cut, ldpc_bp, split_eq)
 
     return {"cut_symbols": gather_cut.cut_symbols,
@@ -618,7 +621,8 @@ def launch_counters() -> dict:
             "minsum_check": ldpc_bp.minsum_check,
             "minsum_decode": ldpc_bp.minsum_decode,
             "cut_dft": cut_dft.cut_dft,
-            "fec_gather": fec_gather.fec_gather}
+            "fec_gather": fec_gather.fec_gather,
+            "czt_pre": czt.czt_pre, "czt_post": czt.czt_post}
 
 
 def launch_counts(counters, fn):
@@ -1806,8 +1810,8 @@ def run_layouts(dev, grid: bool = False) -> dict:
 # (the port's channel.sims.resample_sfo); and the warped DFT's error
 # against float64 that gf3x's float32 formula (2π/N)·n·k·(1+δ) gives at
 # each n_fft (tests/test_torch_wide_routes.py measures 4096 and 8192 on the
-# CPU), printed beside the port's (`ops.ofdm.warped_angle` reduces n·k mod N
-# at these bands: ≤ WARPED_DFT_DB)
+# CPU), printed beside the port's (the chirp-z transform at these bands:
+# ≤ WARPED_DFT_DB)
 SFO_PPM = 150.0
 WARPED_DFT_FORMULA_DB = {4096: -78.5, 8192: -72.4, 16384: -62.0}
 WARPED_DFT_DB = -110.0
@@ -1882,54 +1886,151 @@ def warped_db(cfg, syms, delta, Y) -> float:
     return 10.0 * float(np.log10(err / sig))
 
 
+def reduced_angle(cfg, delta, device) -> torch.Tensor:
+    """The dense warped DFT's table angle with n·k reduced mod N in int64,
+    (2π/N)·((n·k mod N) + n·k·δ) in float32 (−120 dB against float64 at
+    gf3-8192): the table of the dense product that `library_ms` times
+    beside the chirp-z transform (the port never runs it)."""
+    n = torch.arange(cfg.n_fft, device=device)[:, None]
+    k = torch.arange(cfg.bin_lo, cfg.bin_hi + 1, device=device)[None, :]
+    nk = n * k
+    th = torch.remainder(nk, cfg.n_fft).to(torch.float32)
+    th.add_(nk.to(torch.float32).mul_(
+        torch.as_tensor(delta, dtype=torch.float32, device=device)))
+    return th.mul_(np.float32(2.0 * np.pi / cfg.n_fft))
+
+
+def dense_dft(cfg, syms, delta, angle):
+    """The warped DFT as a dense full-float32 product over the cos/sin
+    tables of `angle(cfg, delta, device)`: the yardstick, and gf3x's
+    formula with `unreduced_angle`."""
+    from gf3x_torch.ops.ofdm import matmul_f32
+
+    th = angle(cfg, delta, syms.device)
+    inv = np.float32(1.0 / cfg.ofdm_scale)
+    return torch.complex(matmul_f32(syms, torch.cos(th)) * inv,
+                         -matmul_f32(syms, torch.sin(th)) * inv)
+
+
 def hold_warped_dft(cfg, syms, delta) -> dict:
-    """The δ-warped DFT on the card against its own formula evaluated on
-    the host — `warped_angle`'s float32 table, the product in float64 —
-    within 1e-4·mean|Y|, and against a float64 DFT: ≤ WARPED_DFT_DB where
-    the band reduces n·k mod N, else the −80 dB gate; gf3x's float32
-    formula's dB beside it (WARPED_DFT_FORMULA_DB)."""
-    from gf3x_torch.ops.ofdm import (UNREDUCED_MAX_ANGLE, matmul_f32,
-                                     ofdm_dft, unreduced_angle, warped_angle)
+    """The δ-warped DFT on the card (the chirp-z transform at the wide
+    bands) against the same function's plain versions on the host (the
+    CPU's `ofdm_dft`), within 1e-4·mean|Y|, and against a float64 DFT at
+    the loop's δ̂, at 0 and at −9e-4: ≤ WARPED_DFT_DB where the band takes
+    the chirp-z transform, else the −80 dB gate; gf3x's float32 formula's
+    dB beside it (WARPED_DFT_FORMULA_DB)."""
+    from gf3x_torch.ops.ofdm import ofdm_dft, takes_czt, unreduced_angle
 
     d32 = np.float32(float(delta))
     got = ofdm_dft(cfg, syms, torch.tensor(d32, device=syms.device))
-    th = warped_angle(cfg, d32, "cpu").double()
-    x64 = syms.cpu().double()
-    host = torch.complex(x64 @ torch.cos(th), -(x64 @ torch.sin(th))) / (
-        cfg.ofdm_scale)
-    del th
-    err = float((got.cpu().to(torch.complex128) - host).abs().max())
+    host = ofdm_dft(cfg, syms.cpu(), torch.tensor(d32))
+    err = float((got.cpu() - host).abs().max())
     scale = float(host.abs().mean())
     check(err <= 1e-4 * scale, f"warped DFT at n_fft {cfg.n_fft}: {err} "
-          f"from its host formula > 1e-4 x mean|Y| {scale}")
-    gate = (WARPED_DFT_DB if 2.0 * np.pi * cfg.bin_hi >= UNREDUCED_MAX_ANGLE
-            else -80.0)
-    db = warped_db(cfg, syms, d32, got)
-    check(db <= gate, f"warped DFT at n_fft {cfg.n_fft}: {db:.1f} dB "
-          f"against float64 > {gate} dB")
-    th = unreduced_angle(cfg, d32, syms.device)
-    inv = np.float32(1.0 / cfg.ofdm_scale)
-    old = torch.complex(matmul_f32(syms, torch.cos(th)) * inv,
-                        -matmul_f32(syms, torch.sin(th)) * inv)
+          f"from the host's plain versions > 1e-4 x mean|Y| {scale}")
+    gate = WARPED_DFT_DB if takes_czt(cfg) else -80.0
+    dbs = {}
+    for label, d in (("delta_hat", d32), ("zero", np.float32(0.0)),
+                     ("minus_9e-4", np.float32(-9e-4))):
+        dbs[label] = warped_db(cfg, syms, d, got if label == "delta_hat"
+                               else ofdm_dft(cfg, syms, torch.tensor(
+                                   d, device=syms.device)))
+        check(dbs[label] <= gate, f"warped DFT at n_fft {cfg.n_fft}, "
+              f"{label}: {dbs[label]:.1f} dB against float64 > {gate} dB")
+    old = dense_dft(cfg, syms, d32, unreduced_angle)
     return dict(max_abs_err=err, mean_abs=scale, delta_ppm=float(d32) * 1e6,
-                db_vs_float64=db, gate_db=gate,
+                db_vs_float64=dbs["delta_hat"], db_by_delta=dbs,
+                gate_db=gate, czt=takes_czt(cfg),
                 formula_db_vs_float64=warped_db(cfg, syms, d32, old),
                 formula_db_cpu_test=WARPED_DFT_FORMULA_DB.get(cfg.n_fft))
 
 
+def device_ops(fn, runs: int = 5) -> dict:
+    """{kernel name: µs per call} of every device kernel fn() runs, from
+    torch.profiler over `runs` calls after a warm-up, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for ev in prof.key_averages():
+        us = float(getattr(ev, "self_device_time_total", None)
+                   or getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0.0:
+            ops[ev.key[:80]] = ops.get(ev.key[:80], 0.0) + us / runs
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+
+
+# the warped-DFT phase's bands: the three wide bands, each held against a
+# float64 DFT at B_WARPED rows of random symbols (gf3-8192 also on the
+# clock-offset batch at B = 1024); FFT lengths timed at gf3-8192
+WARPED_BANDS = ("gf3-4096", "gf3-8192", "gf3-16384")
+B_WARPED = 16
+CZT_LENGTHS = (12288, 16384)
+
+
+def hold_czt_kernels(cfg, strided, delta, dev) -> dict:
+    """The chirp-z passes at the route's shapes on the cut's strided view:
+    `czt_pre` and `czt_post` against their plain versions on the card
+    (`czt_pre` bit for bit; `czt_post`'s complex product within 2⁻²² of
+    its largest output, torch's own kernel may contract it), then each
+    timed beside its byte bound (inputs read once, outputs written once)
+    and its plain version; no single PyTorch call computes either."""
+    from gf3x_torch.ops.kernels import czt
+    from gf3x_torch.ops.ofdm import chirp_tables, czt_length
+
+    L, M = czt_length(cfg), cfg.n_used
+    pre, post, H = chirp_tables(cfg, delta, dev, L)
+    rows = strided.shape[0] * strided.shape[1]
+    a = czt.czt_pre(strided, pre, L)
+    check(torch.equal(a, czt.czt_pre_plain(strided, pre, L)),
+          "czt_pre differs from its plain version on the card")
+    z = torch.fft.ifft(torch.fft.fft(a).mul_(H), norm="forward")
+    del a
+    y = czt.czt_post(z, post)
+    yp = czt.czt_post_plain(z, post)
+    post_err = float((y - yp).abs().max() / yp.abs().max())
+    check(post_err <= 2.0 ** -22, f"czt_post differs from its plain "
+          f"version by {post_err} of its largest output")
+    out = {"czt_pre": timed(
+        lambda: czt.czt_pre(strided, pre, L),
+        lambda: czt.czt_pre_plain(strided, pre, L),
+        rows * (4 * cfg.n_fft + 8 * L), kernel="czt_pre_kernel"),
+        "czt_post": timed(
+        lambda: czt.czt_post(z, post), lambda: czt.czt_post_plain(z, post),
+        rows * 16 * M, kernel="czt_post_kernel")}
+    out["czt_pre"]["bit_for_bit"] = True
+    out["czt_post"]["max_rel_diff"] = post_err
+    out["czt_post"]["bit_for_bit"] = bool(torch.equal(y, yp))
+    for name, row in out.items():
+        row["shape"] = f"{rows} rows, N {cfg.n_fft}, L {L}, M {M}"
+        print(f"{name}: {row['kernel_us']:.1f} us kernel, bound "
+              f"{1e3 * row['bound_ms']:.1f} us, plain {row['plain_ms']:.3f} "
+              f"ms host clock", flush=True)
+    return out
+
+
 def warped_dft_only() -> None:
-    """`--warped-dft`: the δ-warped DFT of the clock-offset route at
-    gf3-8192, B = 1024, on the card: the recipe's batch at +SFO_PPM cut
-    and its δ̂ found by the loop, then the whole batch's warped DFT
-    against a float64 DFT on the card (≤ WARPED_DFT_DB) beside gf3x's
-    float32 formula's, and at δ = 0 and −9e-4; CUDA-event ms of the angle
-    table (`warped_angle`) against the whole transform (on the cut's
-    strided view of the symbols, as the route runs it, and on a contiguous
-    copy) and against a `demodulate_sfo` step. One JSON line, then the
-    card's name and power limit."""
+    """`--warped-dft`: the δ-warped DFT of the clock-offset route on the
+    card. At each wide band, B_WARPED rows of random symbols against a
+    float64 DFT at 150 ppm (the cell's clock pair), 0 and −9e-4 (≤
+    WARPED_DFT_DB). At gf3-8192 the recipe's batch at +SFO_PPM (B = 1024)
+    cut and its δ̂ found by the loop: the whole batch's warped DFT against
+    float64 at δ̂ beside gf3x's float32 formula's; `czt_pre` and
+    `czt_post` against their plain versions and timed beside their bounds
+    (`hold_czt_kernels`); CUDA-event ms of the whole warped call on the cut's
+    strided view, as the route runs it, beside the dense product over the
+    reduced angle's tables (`library_ms`, which the port never runs), of
+    the call at each FFT length of CZT_LENGTHS, its kernels by name, and
+    the chirp tables' share of a `demodulate_sfo` step; the step's peak
+    memory. One JSON line, then the card's name and power limit."""
     from gf3x_torch import GF3_STANDARD, Modem
-    from gf3x_torch.ops.ofdm import (matmul_f32, ofdm_dft, unreduced_angle,
-                                     warped_angle)
+    from gf3x_torch.ops.ofdm import (chirp_tables, czt_dft, czt_length,
+                                     ofdm_dft, unreduced_angle)
     from gf3x_torch.utils.device import kernel_lib
 
     smi = subprocess.run(
@@ -1939,40 +2040,61 @@ def warped_dft_only() -> None:
     print(f"device: {smi}", flush=True)
     kernel_lib()
     dev = torch.device("cuda", 0)
+    out = dict(bands={})
+    for band in WARPED_BANDS:
+        cfg = GF3_STANDARD.replace(**WIDE_BANDS[band])
+        syms = torch.randn(B_WARPED, cfg.n_fft, device=dev,
+                           generator=torch.Generator(dev).manual_seed(5))
+        dbs = {}
+        for label, d in (("150ppm", SFO_PPM * 1e-6), ("zero", 0.0),
+                         ("minus_9e-4", -9e-4)):
+            d = torch.tensor(np.float32(d), device=dev)
+            dbs[label] = warped_db(cfg, syms, d, ofdm_dft(cfg, syms, d))
+            check(dbs[label] <= WARPED_DFT_DB, f"warped DFT at {band}, "
+                  f"{label}: {dbs[label]:.1f} dB > {WARPED_DFT_DB}")
+        out["bands"][band] = dict(L=czt_length(cfg), db=dbs)
+        print(f"{band}: chirp-z (L {czt_length(cfg)}) against float64 "
+              f"{ {k: round(v, 2) for k, v in dbs.items()} } dB", flush=True)
+        del syms
     cfg = GF3_STANDARD.replace(**WIDE_BANDS["gf3-8192"])
     modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device=dev)
     rx_np, _, _ = sfo_batch(modem, B, SFO_PPM, np.random.default_rng(3))
     rx = torch.as_tensor(rx_np, device=dev)
     del rx_np
-    syms, sc_win, roll = modem._cut_frame(rx, modem._sync(rx)[0])
-    delta = modem._two_pass_delta(syms, sc_win, roll)
-    strided, syms = syms, syms.contiguous()
-    out = dict(band="gf3-8192", batch=B, rows=syms.shape[0] * syms.shape[1],
+    strided, sc_win, roll = modem._cut_frame(rx, modem._sync(rx)[0])
+    check(not strided.is_contiguous(), "the cut's symbols are contiguous")
+    delta = modem._two_pass_delta(strided, sc_win, roll)
+    out.update(band="gf3-8192", batch=B,
+               rows=strided.shape[0] * strided.shape[1],
                delta_ppm=float(delta) * 1e6)
-    for label, d in (("delta_hat", delta), ("zero", 0.0), ("minus_9e-4",
-                                                           -9e-4)):
-        d = torch.as_tensor(d, dtype=torch.float32, device=dev)
-        out[f"db_{label}"] = warped_db(cfg, syms, d, ofdm_dft(cfg, syms, d))
-        check(out[f"db_{label}"] <= WARPED_DFT_DB, f"warped DFT at B = {B}, "
-              f"{label}: {out[f'db_{label}']:.1f} dB > {WARPED_DFT_DB}")
-    th = unreduced_angle(cfg, delta, dev)
-    inv = np.float32(1.0 / cfg.ofdm_scale)
-    out["db_gf3x_formula"] = warped_db(cfg, syms, delta, torch.complex(
-        matmul_f32(syms, torch.cos(th)) * inv,
-        -matmul_f32(syms, torch.sin(th)) * inv))
-    del th
-    out["angle_ms"] = event_ms(lambda: warped_angle(cfg, delta, dev), 20)
-    out["table_ms"] = event_ms(lambda: (lambda t: (torch.cos(t), torch.sin(
-        t)))(warped_angle(cfg, delta, dev)), 20)
-    out["warped_dft_ms"] = event_ms(lambda: ofdm_dft(cfg, syms, delta), 5)
-    out["warped_dft_strided_ms"] = event_ms(
-        lambda: ofdm_dft(cfg, strided, delta), 5)
+    out["db_delta_hat"] = warped_db(cfg, strided, delta,
+                                    ofdm_dft(cfg, strided, delta))
+    check(out["db_delta_hat"] <= WARPED_DFT_DB, f"warped DFT at B = {B}, "
+          f"δ̂: {out['db_delta_hat']:.1f} dB > {WARPED_DFT_DB}")
+    out["db_gf3x_formula"] = warped_db(cfg, strided, delta, dense_dft(
+        cfg, strided, delta, unreduced_angle))
+    out["kernels"] = hold_czt_kernels(cfg, strided, delta, dev)
+    L0 = czt_length(cfg)
+    out["table_ms"] = event_ms(lambda: chirp_tables(cfg, delta, dev, L0), 20)
+    out["table_ops_us"] = device_ops(lambda: chirp_tables(cfg, delta, dev,
+                                                          L0))
+    out["warped_dft_ms"] = event_ms(lambda: ofdm_dft(cfg, strided, delta), 5)
+    out["fft_length_ms"] = {L: event_ms(lambda: czt_dft(
+        cfg, strided, delta, L), 5) for L in CZT_LENGTHS}
+    out["warped_dft_ops_us"] = device_ops(lambda: ofdm_dft(cfg, strided,
+                                                           delta))
+    out["library_ms"] = event_ms(lambda: dense_dft(cfg, strided, delta,
+                                                   reduced_angle), 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     out["step_ms"] = median_ms(lambda: modem.demodulate_sfo(rx), runs=5)
+    out["step_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     out["table_share_of_step_pct"] = (200.0 * out["table_ms"]
                                       / out["step_ms"])
-    check(out["table_share_of_step_pct"] < 1.0, f"the warped DFT's two "
-          f"tables take {out['table_share_of_step_pct']:.2f} % of a step")
     record("warped_dft", out, print_too=True)
+    check(out["table_share_of_step_pct"] < 1.0, f"the chirp tables of the "
+          f"two warped calls take {out['table_share_of_step_pct']:.2f} % of "
+          "a step")
     print(smi, flush=True)
 
 
@@ -2006,6 +2128,12 @@ def run_wide_routes(counters, total, modem, rx, payload, delays,
         for name in ("minsum_totals", "fused_eq_demap"):
             check(launches[name] > 0, f"wide {label}, {route}: {name} did "
                   f"not launch: {launches}")
+        # the loop's two warped DFTs, each one chirp-z transform
+        want = 0 if route == "dd" else 2
+        check(launches["czt_pre"] == launches["czt_post"] == want,
+              f"wide {label}, {route}: the chirp-z passes launched "
+              f"{launches['czt_pre']} and {launches['czt_post']} times, not "
+              f"{want}")
         sum_counts(total, launches)
         ppm = diag.clock_ppm.float()
         if route != "dd":
@@ -2019,7 +2147,7 @@ def run_wide_routes(counters, total, modem, rx, payload, delays,
                 x, **(kw or {})), runs=5))
     syms, sc_win, roll = modem._cut_frame(rx_s, modem._sync(rx_s)[0])
     delta = modem._two_pass_delta(syms, sc_win, roll)
-    out["warped_dft"] = hold_warped_dft(cfg, syms[:2].contiguous(), delta)
+    out["warped_dft"] = hold_warped_dft(cfg, syms[:2], delta)
     del syms, sc_win, roll
     for kw, x, pay in ((dict(dd="on"), rx, payload),
                        (dict(sync="sc", sfo="on"), rx_s, pay_s)):

@@ -57,6 +57,10 @@ int gf3x_fec_gather(const float*, const int*, const unsigned char*, float*,
 int gf3x_fec_gather_tile(const float*, const unsigned char*, float*,
                          long long, long long, int, int, int, int, int, int,
                          void*);
+int gf3x_czt_pre(const float*, const float2*, float2*, long long, long long,
+                 long long, long long, int, int, void*);
+int gf3x_czt_post(const float2*, const float2*, float2*, long long, int, int,
+                  void*);
 const char* gf3x_error_string(int);
 }
 
@@ -159,6 +163,11 @@ ENTRY(gf3x_fec_gather, "ppppllllp",
 ENTRY(gf3x_fec_gather_tile, "pppllllllllp",
       gf3x_fec_gather_tile(P(0), P(1), P(2), L(3), L(4), I(5), I(6), I(7),
                            I(8), I(9), I(10), P(11)))
+ENTRY(gf3x_czt_pre, "pppllllllp",
+      gf3x_czt_pre(P(0), P(1), P(2), L(3), L(4), L(5), L(6), I(7), I(8),
+                   P(9)))
+ENTRY(gf3x_czt_post, "ppplllp",
+      gf3x_czt_post(P(0), P(1), P(2), L(3), I(4), I(5), P(6)))
 
 PyObject* py_gf3x_error_string(PyObject*, PyObject* const* a, Py_ssize_t n) {
     Val v[1];
@@ -178,6 +187,7 @@ PyMethodDef kMethods[] = {
     METHOD(gf3x_demap_bins),     METHOD(gf3x_minsum_check),
     METHOD(gf3x_minsum_decode_blocks), METHOD(gf3x_minsum_decode),
     METHOD(gf3x_fec_gather),     METHOD(gf3x_fec_gather_tile),
+    METHOD(gf3x_czt_pre),        METHOD(gf3x_czt_post),
     METHOD(gf3x_error_string),
     {nullptr, nullptr, 0, nullptr}};
 

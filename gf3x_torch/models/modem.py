@@ -15,9 +15,11 @@ Receive path of one (B, T) float32 batch:
                              window cut for a batch that is not whole
                              8-row groups (`decode` of one recording)
     → ofdm_dft + deroll      cuFFT, one phase ramp for the block-grid roll;
-                             the δ-warped matmul DFT in the clock-offset loop
-                             (`warped_angle`: n·k reduced mod N past config
-                             5's band; the `warped_dft` span inside `dft`)
+                             the δ-warped DFT in the clock-offset loop: a
+                             chirp-z transform past config 5's band
+                             (`czt_pre`, cuFFT, `czt_post`), gf3x's dense
+                             product at it (the `warped_dft` span inside
+                             `dft`)
       (with `use_cut_dft`, on the plain route of a geometry the fused cut
        takes and kernel 8's FFT takes, n_fft ≤ 4096: cut_dft_spectra,
        kernel 8 — cut, DFT and deroll in one launch)

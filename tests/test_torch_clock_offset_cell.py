@@ -1,8 +1,9 @@
 """The benchmark's clock-offset cell (`gf3-8192.clock150-30db`) on the CPU
 at a small size, with the cell's own limits: the port's `demodulate_sfo`
 through `benchmark.harness.run` is `correct` with every payload bit exact,
-and the same run with the warped DFT's angle built as gf3x builds it —
-(2π/N)·n·k·(1+δ) in float32, n·k unreduced — is not. The second shows
+and the same run with the warped DFT as gf3x computes it — a dense
+product over tables of (2π/N)·n·k·(1+δ) in float32, n·k unreduced — is
+not. The second shows
 the cell's limits see the precision its configuration states (float32):
 that angle errs by −72 dB at gf3-8192, and the stages after it read
 within a few times of the TF32 control (benchmark/control.py)."""
@@ -61,9 +62,10 @@ def test_clock_offset_cell_is_correct_on_the_cpu(monkeypatch):
 
 
 def test_clock_offset_cell_catches_the_unreduced_angle(monkeypatch):
-    """gf3x's float32 angle in the port's warped DFT
-    (`ops.ofdm.unreduced_angle`) fails the cell's limits."""
-    monkeypatch.setattr(tofdm, "warped_angle", tofdm.unreduced_angle)
+    """gf3x's float32 angle in the port's warped DFT (the dense product
+    over `ops.ofdm.unreduced_angle`'s table in place of the chirp-z
+    transform) fails the cell's limits."""
+    monkeypatch.setattr(tofdm, "takes_czt", lambda cfg: False)
     result = run_small(monkeypatch, 2_000_000_017)
     over = sorted(k for k, v in result["checks"].items()
                   if not v["value"] <= v["limit"])

@@ -22,8 +22,8 @@ from gf3x_torch import Modem as TModem
 from gf3x_torch.convert import load_reference_tables
 from gf3x_torch.fec.codes import N_BLOCK_COLS
 from gf3x_torch.fec.ldpc import LdpcCode as TCode
-from gf3x_torch.ops.kernels import (fec_gather, fused_eq, gather_cut, ldpc_bp,
-                                    split_eq)
+from gf3x_torch.ops.kernels import (czt, fec_gather, fused_eq, gather_cut,
+                                    ldpc_bp, split_eq)
 from gf3x_torch.utils import device
 
 
@@ -242,6 +242,44 @@ def test_fec_gather_wrapper_dispatch():
         with pytest.raises(ValueError):
             fec_gather.fec_gather(*bad)
     assert fec_gather.fec_gather.launches == before
+
+
+@pytest.mark.parametrize("pass_", ["pre", "post"])
+def test_czt_wrapper_dispatch(pass_):
+    """The chirp-z passes' wrappers: CPU tensors run the plain versions and
+    launch nothing — `czt_pre` reads rows at their strides, multiplies by
+    the pre-chirp and pads with zeros to L; `czt_post` takes the first M
+    columns times the post-chirp — and a wrong type, shape or device is
+    refused, with no launch."""
+    rng = np.random.default_rng(3)
+    N, L, M, cp = 16, 40, 6, 4
+    body = torch.as_tensor(rng.standard_normal((3, 2 * (N + cp))),
+                           dtype=torch.float32)
+    sym = body.reshape(3, 2, N + cp)[..., cp:]
+    pre = torch.as_tensor(np.exp(1j * rng.uniform(0, 7, N)),
+                          dtype=torch.complex64)
+    z = torch.randn(6, L, dtype=torch.complex64)
+    post = torch.as_tensor(np.exp(1j * rng.uniform(0, 7, M)),
+                           dtype=torch.complex64)
+    fn = czt.czt_pre if pass_ == "pre" else czt.czt_post
+    before = fn.launches
+    if pass_ == "pre":
+        got = czt.czt_pre(sym, pre, L)
+        assert got.shape == (6, L) and torch.all(got[:, N:] == 0)
+        assert torch.equal(got[:, :N], sym.reshape(6, N) * pre)
+        bads = ((sym.double(), pre, L), (sym, pre.to(torch.complex128), L),
+                (sym, pre[:-1], L), (sym, pre, N - 1),
+                (sym.to("meta"), pre.to("meta"), L), (sym.to("meta"), pre, L))
+    else:
+        got = czt.czt_post(z, post)
+        assert torch.equal(got, z[:, :M] * post)
+        bads = ((z.to(torch.complex128), post), (z, post.to(torch.complex128)),
+                (z[0], post), (z[:, :M - 1], post), (z, post[None]),
+                (z.to("meta"), post.to("meta")), (z, post.to("meta")))
+    for bad in bads:
+        with pytest.raises(ValueError):
+            fn(*bad)
+    assert fn.launches == before
 
 
 def test_fec_gather_chunk_fills_the_card():

@@ -155,6 +155,100 @@ def test_warped_dft_holds_float64_at_every_band(n_fft):
         assert db <= (-110.0 if reduced else -80.0), (n_fft, delta, db)
 
 
+CZT_BANDS = [n for n in sorted(WARPED_BANDS) if n > 1024]
+
+
+def float64_dft_db(cfg, syms, delta, got) -> float:
+    """got's error in dB against the δ-warped used-band DFT of syms
+    (..., n_fft) in float64, 512 bins at a time."""
+    n = np.arange(cfg.n_fft)[:, None]
+    err = sig = 0.0
+    for k0 in range(cfg.bin_lo, cfg.bin_hi + 1, 512):
+        k = np.arange(k0, min(k0 + 512, cfg.bin_hi + 1))
+        th = 2 * np.pi / cfg.n_fft * n * k[None, :] * (1.0 + float(delta))
+        exact = syms.astype(np.float64) @ np.exp(-1j * th) / cfg.ofdm_scale
+        err += np.sum(np.abs(got[..., k - cfg.bin_lo] - exact) ** 2)
+        sig += np.sum(np.abs(exact) ** 2)
+    return 10 * np.log10(err / sig)
+
+
+@pytest.mark.parametrize("delta", [0.0, 1.5e-4, -9e-4, 1e-3])
+@pytest.mark.parametrize("n_fft", CZT_BANDS)
+def test_czt_holds_float64(n_fft, delta):
+    """The chirp-z transform's plain version (`czt_dft`, which
+    `ofdm_dft(delta=δ)` runs at every wide band) against a float64 DFT at
+    ≤ −125 dB, on symbols read through a strided view as the cut leaves
+    them (row stride n_fft + cp): tables in float64 rounded once, the
+    FFTs in float32."""
+    from gf3x_torch import GF3_STANDARD as T_STANDARD
+
+    cfg = T_STANDARD.replace(**WARPED_BANDS[n_fft])
+    assert tofdm.takes_czt(cfg)
+    rng = np.random.default_rng(7)
+    body = rng.standard_normal((2, 2 * cfg.symbol_len)).astype(np.float32)
+    view = torch.as_tensor(body).reshape(2, 2, cfg.symbol_len)[..., cfg.cp:]
+    assert not view.is_contiguous()
+    d = torch.tensor(np.float32(delta))
+    got = tofdm.czt_dft(cfg, view, d)
+    assert got.shape == (2, 2, cfg.n_used) and got.dtype == torch.complex64
+    assert torch.equal(tofdm.ofdm_dft(cfg, view, d), got)
+    db = float64_dft_db(cfg, view.numpy(), np.float32(delta), got.numpy())
+    assert db <= -125.0, (n_fft, delta, db)
+
+
+@pytest.mark.parametrize("n_fft", CZT_BANDS)
+def test_chirp_tables_are_their_closed_forms(n_fft):
+    """The pre-chirp e^{−iα(n·k_lo + n²/2)}, the post-chirp e^{−iα·m²/2}
+    and H, the L-point spectrum of e^{+iα·j²/2} over j = −(N−1) … M−1
+    laid circularly, over L·ofdm_scale, α = 2π(1+δ)/N: each within
+    complex64's rounding of its float64 closed form, at δ = 1.5e-4 and
+    −9e-4; L the least 2^a or 3·2^a that holds the convolution."""
+    from gf3x_torch import GF3_STANDARD as T_STANDARD
+
+    cfg = T_STANDARD.replace(**WARPED_BANDS[n_fft])
+    N, M, k_lo = cfg.n_fft, cfg.n_used, cfg.bin_lo
+    L = tofdm.czt_length(cfg)
+    assert L == min(c for a in range(40) for c in (1 << a, 3 << a)
+                    if c >= N + M - 1)
+    for delta in map(np.float32, (1.5e-4, -9e-4)):
+        pre, post, H = tofdm.chirp_tables(cfg, torch.tensor(delta), "cpu", L)
+        assert (pre.dtype, post.dtype, H.dtype) == (torch.complex64,) * 3
+        alpha = 2 * np.pi * (1.0 + float(delta)) / N
+        n, m = np.arange(N, dtype=np.float64), np.arange(M, dtype=np.float64)
+        i = np.arange(L)
+        j = np.where(i < M, i, i - L).astype(np.float64)
+        h = np.where(j > -N, np.exp(0.5j * alpha * j * j), 0.0)
+        want_H = np.fft.fft(h) / (L * cfg.ofdm_scale)
+        for got, want in ((pre, np.exp(-1j * alpha * (n * k_lo + n * n / 2))),
+                          (post, np.exp(-0.5j * alpha * m * m)),
+                          (H, want_H)):
+            err = np.abs(got.numpy().astype(np.complex128) - want)
+            assert np.all(err <= 1.2e-7 * np.abs(want)
+                          + 1e-12 * np.abs(want).max()), (n_fft, delta)
+
+
+@pytest.mark.parametrize("n_fft", sorted(WARPED_BANDS))
+def test_czt_rows_are_counted(n_fft):
+    """`ofdm.czt_rows` counts the symbol rows the chirp-z transform takes:
+    every warped row at a wide band, none at config 5 (gf3x's dense
+    product) and none of an unwarped DFT."""
+    from gf3x_torch import GF3_STANDARD as T_STANDARD
+    from gf3x_torch.utils import profiling
+
+    cfg = T_STANDARD.replace(**WARPED_BANDS[n_fft])
+    sym = torch.zeros(3, 2, n_fft)
+    profiling.reset()
+    try:
+        with profiling.recording():
+            tofdm.ofdm_dft(cfg, sym, torch.tensor(1e-4))
+            tofdm.ofdm_dft(cfg, sym)
+        c = profiling.counters()
+    finally:
+        profiling.reset()
+    assert (c["ofdm.warped_dfts"], c["ofdm.warped_rows"]) == (1, 6)
+    assert c["ofdm.czt_rows"] == (6 if n_fft > 1024 else 0)
+
+
 def _known_rx(rng, B=3):
     """Known symbols through a 3-tap channel with a bulk delay + noise."""
     from gf3x.config import layout

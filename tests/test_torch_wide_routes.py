@@ -174,6 +174,30 @@ def test_demodulate_sfo_decodes_a_clock_offset(modems, planted):
         assert_matches(tb, td, jb, jd)
 
 
+def test_clock_offset_route_takes_the_chirp_z_transform(modems, planted):
+    """`demodulate_sfo` at the band runs both warped DFTs (the δ₀ pass and
+    the final demod) as chirp-z transforms on the cut's symbols: every
+    warped row is counted in `ofdm.czt_rows`, and the chirp-z passes' plain
+    versions run (CPU tensors), launching nothing."""
+    from gf3x_torch.ops.kernels import czt
+    from gf3x_torch.utils import profiling
+
+    _, tm = modems
+    rx, _, _ = planted
+    S = tm.cfg.n_known_symbols + tm.cfg.n_data_symbols
+    before = (czt.czt_pre.launches, czt.czt_post.launches)
+    profiling.reset()
+    try:
+        with profiling.recording():
+            tm.demodulate_sfo(torch.as_tensor(rx))
+        c = profiling.counters()
+    finally:
+        profiling.reset()
+    assert c["ofdm.warped_dfts"] == 2
+    assert c["ofdm.czt_rows"] == c["ofdm.warped_rows"] == 2 * B * S
+    assert (czt.czt_pre.launches, czt.czt_post.launches) == before
+
+
 def test_demodulate_sc_with_the_loop(modems, planted):
     """`demodulate_sc(sfo_correct=True)` of the +150 ppm recordings (SC
     timing, then the clock-offset loop): every row CRC-ok; against gf3x's
