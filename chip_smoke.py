@@ -59,9 +59,8 @@ drives the receive paths once each through the port's entry points:
   and bit-loaded, pilot spacing 4, B = 64) — kernels 6, 2 or A and B, and
   3; kernels 2, A and B held against their plain versions and the layout
   each picks against the forced ones (kernels 2 and A: teamed against
-  streamed and spilled; B: staged against streamed; sha256), kernel 2 bit
-  for bit against A + B; a torch.profiler trace of one gf3-8192 and one
-  gf3-16384 step ("wide trace": device-busy share, top five device ops);
+  `teamed_geometry`'s and `spilled_geometry`'s; B: staged against
+  `streamed_geometry`'s; sha256), kernel 2 bit for bit against A + B;
   `use_cut_dft` on each band and on an aligned CP
   (kernel 8 at n_fft 4096 only) and `Modem.decode` of one gf3-4096
   recording (kernels 7, 2, 3);
@@ -78,8 +77,8 @@ drives the receive paths once each through the port's entry points:
   pilots (inputs built in the frequency domain, B = 4) against their plain
   versions;
 - kernels 2 and A in every candidate launch ("layouts":
-  `layout_candidates`: staged, streamed, and the teamed launches of each
-  team size with Ĥ through L2 or in shared memory) at config 5, the wide
+  `layout_candidates`: staged, and the teamed launches of each team size
+  with Ĥ through L2 or in shared memory) at config 5, the wide
   bands and the spilled band (LAYOUT_BANDS, spectra built in the frequency
   domain), each launch's outputs hashed against the picked one's and its
   µs printed — the timings the geometry's rule rests on;
@@ -1583,11 +1582,9 @@ WIDE_CASES = (("gf3-4096", "gf3-4096", False, 1024),
 # offset on the 128 grid; the N/4 CP puts the SC window off it): there
 # `use_cut_dft` turns on kernel 8's n_fft range alone
 WIDE_ALIGNED_CP = {"gf3-4096": 768, "gf3-8192": 1792}
-# the wide steps traced with torch.profiler ("wide trace" lines)
-WIDE_TRACED = ("gf3-8192", "gf3-16384")
 
 
-# kernels 2 and A past the streamed layout's pilot bound (11 621 pilots):
+# kernels 2 and A past the pilot bound of shared memory (11 621 pilots):
 # the GF3 band widened to n_fft 65536 at pilot spacing 2 (U = 31 232, P =
 # 15 616), a band no Modem reaches (its U x U host solves would need 7.8 GB
 # a matrix), held at B = 4 on inputs built in the frequency domain
@@ -1630,31 +1627,32 @@ def spill_inputs(cfg, Bk: int, dev, seed: int = 11):
             torch.full((Bk,), nvar, device=dev))
 
 
-def hold_spilled(label, fn) -> list:
-    """fn(spilled) in the layout its geometry picks and with the spill
-    forced: every output's sha256 equal. Returns the sha256s."""
-    sha = [sha256_of(t) for t in fn(False)]
-    check([sha256_of(t) for t in fn(True)] == sha, f"{label}: the spilled "
+def hold_spilled(label, fn, geo) -> list:
+    """fn(geometry) in the launch its geometry picks (None) and in the
+    spilled launch `geo` of the same warps, team and blocks: every output's
+    sha256 equal. Returns the sha256s."""
+    sha = [sha256_of(t) for t in fn(None)]
+    check([sha256_of(t) for t in fn(geo)] == sha, f"{label}: the spilled "
           "layout's outputs differ from the picked one's")
     return sha
 
 
 def run_spill(dev, rows) -> dict:
-    """Kernels 2 and A past the streamed layout's pilot bound: at
-    SPILL_BAND (P = 15 616 > MAX_STREAMED_PILOTS) on SPILL_B frames built by
+    """Kernels 2 and A past the pilot bound of shared memory: at
+    SPILL_BAND (P = 15 616 > MAX_SHARED_PILOTS) on SPILL_B frames built by
     `spill_inputs`, the geometry picks the spilled layout and each kernel
     holds to its plain version with `hold_fused`'s and `hold_eq_track`'s
     checks; µs beside the bound (`tail_bytes`). Adds the rows' `spilled`
     entries and returns them."""
     from gf3x_torch import GF3_STANDARD
-    from gf3x_torch.ops.kernels import fused_eq, split_eq
+    from gf3x_torch.ops.kernels import eq_layout, fused_eq, split_eq
 
     cfg = GF3_STANDARD.replace(**SPILL_BAND)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     Y, H, nv = spill_inputs(cfg, SPILL_B, dev)
     out = {}
     for name, demap in (("fused_eq_demap", True), ("eq_track", False)):
-        geo = fused_eq.fused_eq_geometry(cfg, SPILL_B, sms, demap=demap)
+        geo = eq_layout.fused_eq_geometry(cfg, SPILL_B, sms, demap=demap)
         check(geo.spill, f"{name} at P = {cfg.n_pilots}: {geo} is not the "
               "spilled layout")
         if demap:
@@ -1715,24 +1713,22 @@ def layout_candidates(cfg, Bk: int, sms: int, demap: bool,
                       grid: bool = False) -> dict:
     """The launches of kernel 2 (`demap`) or A worth timing on a batch of
     Bk frames of `cfg`, by label: the one the geometry picks, the staged
-    one where it fits, the forced streamed one, and for each team size the
-    teamed launch `teamed_geometry` gives, with Ĥ read through L2 and
-    staged in shared memory (" H"); past the pilot bound only the spilled
-    ones. With `grid`, for each team size, Ĥ placement and count of blocks
-    a frame the launch of most resident warps an SM (then fewest passes),
-    labelled "T{team}{ H} x{blocks}". Equal launches are listed once."""
-    from gf3x_torch.ops.kernels import fused_eq as fe
+    one where it fits, and for each team size the teamed launch
+    `teamed_geometry` gives, with Ĥ read through L2 and staged in shared
+    memory (" H"); past the pilot bound only the spilled ones. With
+    `grid`, for each team size, Ĥ placement and count of blocks a frame
+    the launch of most resident warps an SM (then fewest passes), labelled
+    "T{team}{ H} x{blocks}". Equal launches are listed once."""
+    from gf3x_torch.ops.kernels import eq_layout as fe
 
     U, P, D = cfg.n_used, cfg.n_pilots, cfg.n_data_symbols
-    spill = P > fe.MAX_STREAMED_PILOTS
+    spill = P > fe.MAX_SHARED_PILOTS
     out = {"picked": fe.fused_eq_geometry(cfg, Bk, sms, demap=demap)}
     if not spill:
-        staged = fe.pick_warps(D, Bk, sms, lambda w, nb: fe._smem_bytes(
-            U, P, w, nb, demap))
+        staged = fe.pick_warps(D, Bk, sms, lambda w, nb:
+                               fe.staged_smem_bytes(U, P, w, nb, demap))
         if staged is not None:
             out["staged"] = staged
-        out["streamed"] = fe.fused_eq_geometry(cfg, Bk, sms, demap=demap,
-                                               streamed=True)
     for T in fe.TEAMS:
         for sh in (False,) if spill else (False, True):
             if grid:
@@ -2195,16 +2191,30 @@ def tail_bytes(cfg, Bk: int, kernel: str) -> float:
             + 4 * Bk * cfg.raw_bits_per_frame + 2 * 4 * Bk * D)
 
 
-def hold_layouts(label, fn, n_hashed: int):
-    """fn(force) in the layout its geometry picks and in each forced one
-    (the keywords "streamed", "teamed", "spilled"): the first `n_hashed`
-    outputs' sha256 equal, the rest (kernel 2's frame sums, added in
-    another order by the teamed layout) within 1e-4 rel. Returns (the
-    picked layout's outputs, the sha256s)."""
+def forced_layouts(cfg, Bk: int, sms: int, demap: bool) -> dict:
+    """The launches of kernel 2 (`demap`) or A that a batch of Bk frames of
+    `cfg` does not pick but must give the same bytes in: `teamed_geometry`'s
+    (spilled past the pilot bound) and the picked launch spilled
+    (`spilled_geometry`)."""
+    from gf3x_torch.ops.kernels import eq_layout
+
+    picked = eq_layout.fused_eq_geometry(cfg, Bk, sms, demap=demap)
+    return {"teamed": eq_layout.teamed_geometry(
+                cfg.n_used, cfg.n_pilots, cfg.n_data_symbols, Bk, sms, demap,
+                spill=cfg.n_pilots > eq_layout.MAX_SHARED_PILOTS),
+            "spilled": eq_layout.spilled_geometry(picked, cfg, demap)}
+
+
+def hold_layouts(label, fn, n_hashed: int, forced: dict):
+    """fn(geometry) in the launch its geometry picks (None) and in each
+    launch of `forced` ({name: launch}): the first `n_hashed` outputs'
+    sha256 equal, the rest (kernel 2's frame sums, added in another order
+    by the teamed layout) within 1e-4 rel. Returns (the picked launch's
+    outputs, the sha256s)."""
     natural = fn(None)
     sha = [sha256_of(t) for t in natural[:n_hashed]]
-    for force in ("streamed", "teamed", "spilled"):
-        got = fn(force)
+    for force, geo in forced.items():
+        got = fn(geo)
         check([sha256_of(t) for t in got[:n_hashed]] == sha, f"{label}: "
               f"the {force} layout's outputs differ from the picked one's")
         for a, b in zip(got[n_hashed:], natural[n_hashed:]):
@@ -2223,47 +2233,15 @@ def wide_timed(cfg, Bk, name, fn, geo) -> dict:
                 **bound(tail_bytes(cfg, Bk, name)))
 
 
-def trace_step(fn, steps: int = 3) -> dict:
-    """torch.profiler over `steps` synchronised calls of fn after a
-    warm-up: the device-busy share (the kernels' summed device time over
-    the window's host-clock time; one stream, so kernels do not overlap)
-    and the five device ops of most device time, in µs per call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_us = {}
-    for ev in prof.key_averages():
-        # the kernels and copies themselves; a host op's device time is
-        # theirs again
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = float(getattr(ev, "self_device_time_total", None)
-                   or getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0.0:
-            dev_us[ev.key] = dev_us.get(ev.key, 0.0) + us
-    busy = sum(dev_us.values()) / 1e6
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
-    return dict(step_ms=1e3 * wall / steps, device_ms=1e3 * busy / steps,
-                busy_share=busy / wall,
-                top5_us_per_step=[(k[:60], v / steps) for k, v in top])
-
-
 def run_wide(dev, counters, rows):
     """The wide bands at full width (WIDE_CASES, bench.py's batch recipe):
     on each, kernels A and B — and on a uniform config kernel 2 — held
     against their plain versions, kernel 2 bit for bit against A + B, the
-    staged layout against the forced streamed one by the sha256 of every
-    output (at gf3-16384 every layout is streamed), each kernel's µs beside
-    its bound; then `Modem.demodulate` with every launch counter at 0
-    (every row CRC-ok; kernels 6, 2 or A and B, and 3 launched) and its step
+    picked launch against the forced ones (`forced_layouts`; kernel B's
+    staged layout against the streamed one) by the sha256 of every output
+    (at gf3-16384 kernel B streams), each kernel's µs beside its bound;
+    then `Modem.demodulate` with every launch counter at 0 (every row
+    CRC-ok; kernels 6, 2 or A and B, and 3 launched) and its step
     timed. Kernel 8 is held at gf3-4096's cut; `use_cut_dft=True` decodes
     gf3-4096 and gf3-8192 on the two-stage cut (gf3x's fused cut refuses
     their SC window offset) and, at the CPs of WIDE_ALIGNED_CP, takes kernel
@@ -2272,7 +2250,7 @@ def run_wide(dev, counters, rows):
     `rows`; returns (the launch counts summed over every drive, {label:
     what was held and the step ms})."""
     from gf3x_torch import Modem
-    from gf3x_torch.ops.kernels import cut_dft, fused_eq, split_eq
+    from gf3x_torch.ops.kernels import cut_dft, eq_layout, fused_eq, split_eq
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     total, out = {name: 0 for name in counters}, {}
@@ -2292,52 +2270,54 @@ def run_wide(dev, counters, rows):
                     n_data_bins=cfg.n_data_bins, batch=Bk,
                     modem_build_s=build_s)
 
-        def track(force):
-            return split_eq.eq_track(cfg, Y, H, nv, pv,
-                                     **({force: True} if force else {}))
+        def track(geo):
+            return split_eq.eq_track(cfg, Y, H, nv, pv, geometry=geo)
 
         hold_eq_track(cfg, Y, H, nv, pv, label)
         a_k, held["eq_track_sha256"] = hold_layouts(
-            f"eq_track {label}", track, LAYOUT_HASHED["eq_track"])
+            f"eq_track {label}", track, LAYOUT_HASHED["eq_track"],
+            forced_layouts(cfg, Bk, sms, False))
         eq, nv_sym = a_k[0], a_k[3]
 
-        def demap(force):
+        def demap(geo):
             return split_eq.demap_bins(cfg, eq, H, nv_sym, tables,
-                                       streamed=force is not None)
+                                       geometry=geo)
 
         _, errB, scaleB = hold_demap(cfg, eq, H, nv_sym, tables, label)
         b_k = demap(None)
         held["demap_bins_sha256"] = [sha256_of(t) for t in b_k]
-        check([sha256_of(t) for t in demap("streamed")]
-              == held["demap_bins_sha256"], f"demap_bins {label}: the "
-              "streamed layout's outputs differ from the staged one's")
+        check([sha256_of(t) for t in demap(eq_layout.streamed_geometry(
+            cfg, Bk, sms))] == held["demap_bins_sha256"], f"demap_bins "
+            f"{label}: the streamed layout's outputs differ from the staged "
+            "one's")
         held.update(demap_bins_max_abs_err=errB, demap_bins_mean_abs=scaleB)
-        geoB = split_eq.demap_geometry(cfg, Bk, sms)
+        geoB = eq_layout.demap_geometry(cfg, Bk, sms)
         times = {"eq_track": wide_timed(
-                     cfg, Bk, "eq_track", track, fused_eq.fused_eq_geometry(
+                     cfg, Bk, "eq_track", track, eq_layout.fused_eq_geometry(
                          cfg, Bk, sms, demap=False)),
                  "demap_bins": dict(
-                     layout="streamed" if geoB.streamed else "staged",
-                     geometry=str(geoB), kernel_us=kernel_us(
-                         lambda: demap(None), ["demap_bins"])["us"],
+                     layout=geoB.layout, geometry=str(geoB),
+                     kernel_us=kernel_us(lambda: demap(None),
+                                         ["demap_bins"])["us"],
                      **bound(tail_bytes(cfg, Bk, "demap_bins")))}
         tail = ("eq_track", "demap_bins")
         if cfg.bit_loading is None:
-            def fused(force):
-                return fused_eq.fused_eq_demap(
-                    cfg, Y, H, nv, pv, **({force: True} if force else {}))
+            def fused(geo):
+                return fused_eq.fused_eq_demap(cfg, Y, H, nv, pv,
+                                               geometry=geo)
 
             _, err2, scale2 = hold_fused(cfg, Y, H, nv, pv, label)
             out2, held["fused_eq_demap_sha256"] = hold_layouts(
                 f"fused_eq_demap {label}", fused,
-                LAYOUT_HASHED["fused_eq_demap"])
+                LAYOUT_HASHED["fused_eq_demap"],
+                forced_layouts(cfg, Bk, sms, True))
             held.update(fused_eq_demap_max_abs_err=err2,
                         fused_eq_demap_mean_abs=scale2,
                         split_pair_rel=hold_split(modem, Y, H, nv, out2,
                                                   f"wide {label}"))
             times["fused_eq_demap"] = wide_timed(
                 cfg, Bk, "fused_eq_demap", fused,
-                fused_eq.fused_eq_geometry(cfg, Bk, sms))
+                eq_layout.fused_eq_geometry(cfg, Bk, sms))
             tail = ("fused_eq_demap",)
             del out2
         for name, t in times.items():
@@ -2360,13 +2340,6 @@ def run_wide(dev, counters, rows):
         step = median_ms(lambda: modem.demodulate(rx))
         held.update(step_ms=step, sync_err=sync_err, launches=launches,
                     data_symbols_per_s=Bk * cfg.n_data_symbols / (step / 1e3))
-        if label in WIDE_TRACED:
-            held["trace"] = trace_step(lambda: modem.demodulate(rx))
-            print(f"wide trace {label}: step {held['trace']['step_ms']:.3f} "
-                  f"ms, device {held['trace']['device_ms']:.3f} ms, busy "
-                  f"{held['trace']['busy_share']:.3f}; top five device ops "
-                  f"(us per step) {held['trace']['top5_us_per_step']}",
-                  flush=True)
         print(f"wide {label} (n_fft {cfg.n_fft}, {cfg.n_used} used bins, "
               f"{cfg.n_pilots} pilots, {cfg.n_codewords} codewords, B {Bk}, "
               f"T {rx.shape[-1]}): kernels {', '.join(times)} held against "
@@ -2830,10 +2803,10 @@ def main() -> None:
                            "route")
     import gf3x_torch
     from gf3x_torch import GF3_FAST, GF3_STANDARD, GF3_TURBO, Modem
-    from gf3x_torch.ops.kernels import (cut_dft, fused_eq, gather_cut,
-                                        ldpc_bp, split_eq)
+    from gf3x_torch.ops.kernels import (cut_dft, eq_layout, fused_eq,
+                                        gather_cut, ldpc_bp, split_eq)
     from gf3x_torch.ops.ofdm import deroll, ofdm_dft
-    from gf3x_torch.utils.device import kernel_lib, library_path
+    from gf3x_torch.utils.device import kernel_lib, library_path, sm_count
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2909,34 +2882,30 @@ def main() -> None:
         name="fused_eq_demap", route="cuda",
         source="gf3x_torch/csrc/fused_eq.cu",
         replaces="gf3x/ops/pallas/fused_eq.py:295", max_abs_err=err,
-        geometry=str(fused_eq.fused_eq_geometry(
-            cfg, B,
-            torch.cuda.get_device_properties(0).multi_processor_count)),
+        geometry=str(eq_layout.fused_eq_geometry(cfg, B, sm_count(0))),
         split_pair_rel=split_rel,
         **tail_timed(cfg, lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv, pv),
                      lambda: fused_eq.fused_eq_demap_plain(cfg, Y, H, nv,
                                                            pv), Y))
-    # the streamed and teamed layouts at config 5: the same bytes, their
-    # own times
-    hold_layouts("fused_eq_demap config 5", lambda force: fused_eq
-                 .fused_eq_demap(cfg, Y, H, nv, pv,
-                                 **({force: True} if force else {})),
-                 LAYOUT_HASHED["fused_eq_demap"])
-    for force in ("streamed", "teamed"):
-        r2[f"{force}_kernel_us"] = kernel_us(
-            lambda: fused_eq.fused_eq_demap(cfg, Y, H, nv, pv,
-                                            **{force: True}),
-            ["fused_eq_demap"])["us"]
+    # the teamed layout at config 5: the same bytes
+    hold_layouts("fused_eq_demap config 5", lambda geo: fused_eq
+                 .fused_eq_demap(cfg, Y, H, nv, pv, geometry=geo),
+                 LAYOUT_HASHED["fused_eq_demap"],
+                 {"teamed": forced_layouts(cfg, B, sm_count(0),
+                                           True)["teamed"]})
     # the spilled layout (pilot scratch in global memory) forced at config
     # 5: kernels 2 and A give the picked layout's bytes
+    spilled2, spilledA = (eq_layout.spilled_geometry(
+        eq_layout.fused_eq_geometry(cfg, B, sm_count(0), demap=d), cfg, d)
+        for d in (True, False))
     r2["spilled_sha256"] = hold_spilled(
-        "fused_eq_demap config 5", lambda spilled: fused_eq.fused_eq_demap(
-            cfg, Y, H, nv, pv, spilled=spilled))
+        "fused_eq_demap config 5", lambda geo: fused_eq.fused_eq_demap(
+            cfg, Y, H, nv, pv, geometry=geo), spilled2)
     spilled_A5 = hold_spilled(
-        "eq_track config 5", lambda spilled: split_eq.eq_track(
-            cfg, Y, H, nv, pv, spilled=spilled))
+        "eq_track config 5", lambda geo: split_eq.eq_track(
+            cfg, Y, H, nv, pv, geometry=geo), spilledA)
     r2["spilled_kernel_us"] = kernel_us(lambda: fused_eq.fused_eq_demap(
-        cfg, Y, H, nv, pv, spilled=True), ["fused_eq_demap"])["us"]
+        cfg, Y, H, nv, pv, geometry=spilled2), ["fused_eq_demap"])["us"]
     print(f"spilled layout forced at config 5: kernels 2 and A equal the "
           f"staged layout's sha256; kernel 2 "
           f"{r2['spilled_kernel_us']:.1f} us spilled", flush=True)
@@ -2945,9 +2914,7 @@ def main() -> None:
           f"and cpe bit-identical to the split pair's (evm, mean|llr| within "
           f"{split_rel:.2g} rel); {r2['geometry']}; {r2['ms']:.3f} ms vs "
           f"plain {r2['plain_ms']:.3f} ms; device {r2['device_ms']:.4f} ms, "
-          f"kernel {r2['kernel_us']:.1f} us (same bytes: streamed "
-          f"{r2['streamed_kernel_us']:.1f} us, teamed "
-          f"{r2['teamed_kernel_us']:.1f} us), bound {r2['bound_ms']:.4f} ms "
+          f"kernel {r2['kernel_us']:.1f} us, bound {r2['bound_ms']:.4f} ms "
           f"({EXPECTED['fused_eq_demap']})", flush=True)
 
     # ---- kernel 3 vs plain: the path's codeword LLRs (20 dB, every
@@ -3221,7 +3188,7 @@ def main() -> None:
         name="eq_track", route="cuda", source="gf3x_torch/csrc/split_eq.cu",
         replaces="gf3x/ops/pallas/split_eq.py:140",
         max_abs_err=float((a_k[0] - a_p[0]).abs().max()),
-        geometry=str(fused_eq.fused_eq_geometry(cfg, B, sms, demap=False)),
+        geometry=str(eq_layout.fused_eq_geometry(cfg, B, sms, demap=False)),
         # bound: the data symbols' spectra, Ĥ and the noise floor in, the
         # derotated bins and three per-symbol rows out; 12 operations per
         # cell (EQ and derotation)
@@ -3252,32 +3219,30 @@ def main() -> None:
                 + 2 * 4 * B * D_,
                 4.0 * B * cfg.raw_bits_per_frame, kernel="demap_bins_kernel"))
     rB = rows["demap_bins"]
-    rB["geometry"] = str(split_eq.demap_geometry(cfg, B, sms))
-    # A and B in the streamed layout on the loaded batch: the same bytes,
-    # their own times
-    hold_layouts("eq_track bit-loaded", lambda force: split_eq.eq_track(
-        cfg, Y, H, nv, pv, **({force: True} if force else {})),
-        LAYOUT_HASHED["eq_track"])
+    rB["geometry"] = str(eq_layout.demap_geometry(cfg, B, sms))
+    # A in the forced layouts and B in the streamed one on the loaded
+    # batch: the same bytes; B's own time
+    hold_layouts("eq_track bit-loaded", lambda geo: split_eq.eq_track(
+        cfg, Y, H, nv, pv, geometry=geo), LAYOUT_HASHED["eq_track"],
+        forced_layouts(cfg, B, sms, False))
+    streamedB = eq_layout.streamed_geometry(cfg, B, sms)
     check([sha256_of(t) for t in split_eq.demap_bins(
-        cfg, eq, H, nv_sym, tables, streamed=True)]
+        cfg, eq, H, nv_sym, tables, geometry=streamedB)]
         == [sha256_of(t) for t in split_eq.demap_bins(
             cfg, eq, H, nv_sym, tables)],
         "demap_bins bit-loaded: the streamed layout's outputs differ from "
         "the staged one's")
-    rA["streamed_kernel_us"] = kernel_us(lambda: split_eq.eq_track(
-        cfg, Y, H, nv, pv, streamed=True), ["eq_track"])["us"]
     rB["streamed_kernel_us"] = kernel_us(lambda: split_eq.demap_bins(
-        cfg, eq, H, nv_sym, tables, streamed=True),
+        cfg, eq, H, nv_sym, tables, geometry=streamedB),
         ["demap_bins_kernel"])["us"]
     print(f"demap_bins: hard decisions equal, max |dLLR| {err:.3g} (mean "
           f"|LLR| {scale:.3g}); {rB['geometry']}; {rB['ms']:.3f} ms vs plain "
           f"{rB['plain_ms']:.3f} ms; device {rB['device_ms']:.4f} ms, kernel "
           f"{rB['kernel_us']:.1f} us, bound {rB['bound_ms']:.4f} ms "
-          f"({EXPECTED['demap_bins']}); streamed layouts (same bytes): A "
-          f"{rA['streamed_kernel_us']:.1f} us, B "
+          f"({EXPECTED['demap_bins']}); streamed layout (same bytes) "
           f"{rB['streamed_kernel_us']:.1f} us", flush=True)
 
-    # ---- kernels 2 and A past the streamed layout's pilot bound, then
+    # ---- kernels 2 and A past the pilot bound of shared memory, then
     # every candidate launch of both at each band
     spill = run_spill(dev, rows)
     layouts = run_layouts(dev)

@@ -14,26 +14,19 @@
 //   baseline ladder, intercept) by ONE warp, pilot p on lane p mod 32,
 //   synchronised by __syncwarp alone;
 // - gf3x_noise_floor_warp: the per-symbol noise floor, likewise;
-// - gf3x_fit_symbol_warp: one data symbol's chain by one warp — the
-//   pilots' products, the fit, the residuals and the noise floor — on its
-//   equalized bins, staged (StagedBins) or streamed (StreamedBins);
-//   gf3x_track_symbol_warp runs it on the symbol in the warp's shared
-//   buffer (fetched there by gf3x_fetch_symbol with cp.async), equalized
-//   in place first;
+// - gf3x_track_symbol_warp: one data symbol's chain by one warp — EQ in
+//   place, the pilots' products, the fit, the residuals and the noise
+//   floor — on the symbol in the warp's shared buffer (fetched there by
+//   gf3x_fetch_symbol with cp.async);
 // - gf3x_fit_symbol_team: the same chain by a team of warps (TeamBins:
 //   the symbol in global memory, Ĥ in shared or global memory), the same
 //   bits.
 //
-// Kernels A and 2 run in one of four layouts (the wrappers' geometry picks
-// one). Staged and streamed take a block per frame and a warp per data
-// symbol. Staged: Ĥ, |Ĥ|² and the layout table sit in shared memory once,
-// and each symbol is copied into its warp's shared buffer and equalized
-// there (gf3x_track_symbol_warp). Streamed: shared memory holds only the
-// pilot positions and each warp's pilot scratch, and every bin's Ĥ, |Ĥ|²,
-// 1/max(|Ĥ|², 1e-12) and equalized value is read or recomputed from global
-// memory with the staging code's expressions (StreamedBins). The tracking
-// chain is one template over the two (gf3x_fit_symbol_warp), so the
-// layouts give the same bits. A then derotates every used bin, 2 derotates
+// Kernels A and 2 run in one of three layouts (the wrappers' geometry picks
+// one). Staged: a block per frame and a warp per data symbol; Ĥ, |Ĥ|² and
+// the layout table sit in shared memory once, and each symbol is copied
+// into its warp's shared buffer and equalized there
+// (gf3x_track_symbol_warp). A then derotates every used bin, 2 derotates
 // and demaps the data bins. Both run the same code in the same order, so
 // slope, cpe, nv_sym and every derotated bin agree bit for bit.
 //
@@ -182,37 +175,20 @@ struct SymbolFit {
     float nv_sym;        // per-symbol noise floor σ̂²
 };
 
-// A data symbol's equalized bins and |Ĥ|² by used-bin index, as the chain
-// reads them. Staged: the warp's buffer, equalized in place, and the
-// block's |Ĥ|² row in shared memory.
-struct StagedBins {
-    const float2* cur;
-    const float* h2s;
-    __device__ __forceinline__ float2 x(int k) const { return cur[k]; }
-    __device__ __forceinline__ float h2(int k) const { return h2s[k]; }
-};
-
-// Streamed: recomputed from the symbol's row `y` and the frame's Ĥ `h` in
-// global memory with the staging code's expressions, so the same bits.
-struct StreamedBins {
-    const float2* y;
-    const float2* h;
-    __device__ __forceinline__ float2 x(int k) const {
-        const float2 hk = h[k];
-        return gf3x_eq_bin(y[k], hk, gf3x_abs2(hk));
-    }
-    __device__ __forceinline__ float h2(int k) const { return gf3x_abs2(h[k]); }
-};
-
-// One data symbol of frame b by one warp, on its equalized bins `bins`: kp
-// holds its P pilot positions in shared memory, zr, zi, dr, di P floats
-// each of the warp's scratch. Synchronised by __syncwarp alone; every lane
-// gets the fit and the noise floor (the caller derotates the bins it needs,
-// where P ≥ 2).
-template <typename Bins>
-__device__ __forceinline__ SymbolFit gf3x_fit_symbol_warp(
-        const TrackArgs& a, int b, const Bins& bins, const int* kp, float* zr,
-        float* zi, float* dr, float* di, int lane) {
+// One data symbol of frame b by one warp, staged: `cur` holds the symbol's
+// U bins (the warp's own shared buffer, whose copy has landed) and is
+// equalized in place against the frame's Ĥ and |Ĥ|² in shared memory (hs,
+// h2s), then tracked: kp holds its P pilot positions in shared memory, zr,
+// zi, dr, di P floats each of the warp's scratch. Synchronised by
+// __syncwarp alone; every lane gets the fit and the noise floor (the caller
+// derotates the bins it needs, where P ≥ 2); `cur` stays equalized but not
+// derotated.
+__device__ __forceinline__ SymbolFit gf3x_track_symbol_warp(
+        const TrackArgs& a, int b, float2* cur, const float2* hs,
+        const float* h2s, const int* kp, float* zr, float* zi, float* dr,
+        float* di, int lane) {
+    for (int k = lane; k < a.U; k += 32) cur[k] = gf3x_eq_bin(cur[k], hs[k], h2s[k]);
+    __syncwarp();
     SymbolFit f;
     f.slope = 0.0f;
     f.cpe = 0.0f;
@@ -220,7 +196,7 @@ __device__ __forceinline__ SymbolFit gf3x_fit_symbol_warp(
     if (a.P == 0) return f;
     for (int p = lane; p < a.P; p += 32) {
         const int k = kp[p];
-        const float2 z = gf3x_pilot_product(bins.x(k), a.pv[p], bins.h2(k));
+        const float2 z = gf3x_pilot_product(cur[k], a.pv[p], h2s[k]);
         zr[p] = z.x;
         zi[p] = z.y;
     }
@@ -235,33 +211,14 @@ __device__ __forceinline__ SymbolFit gf3x_fit_symbol_warp(
     // noise floor from the derotated pilots
     for (int p = lane; p < a.P; p += 32) {
         const int k = kp[p];
-        const float2 x = bins.x(k);
+        const float2 x = cur[k];
         zr[p] = gf3x_pilot_residual(
-            fit ? gf3x_derotate(x, f.slope, k, f.cpe) : x, a.pv[p],
-            bins.h2(k));
+            fit ? gf3x_derotate(x, f.slope, k, f.cpe) : x, a.pv[p], h2s[k]);
     }
     __syncwarp();
     f.nv_sym = gf3x_noise_floor_warp(zr, a.P, f.nv_sym, lane);
     return f;
 }
-
-// The staged layout's chain: `cur` holds the symbol's U bins (the warp's
-// own shared buffer, whose copy has landed) and is equalized in place
-// against the frame's Ĥ and |Ĥ|² in shared memory (hs, h2s), then tracked;
-// `cur` stays equalized but not derotated.
-__device__ __forceinline__ SymbolFit gf3x_track_symbol_warp(
-        const TrackArgs& a, int b, float2* cur, const float2* hs,
-        const float* h2s, const int* kp, float* zr, float* zi, float* dr,
-        float* di, int lane) {
-    for (int k = lane; k < a.U; k += 32) cur[k] = gf3x_eq_bin(cur[k], hs[k], h2s[k]);
-    __syncwarp();
-    return gf3x_fit_symbol_warp(a, b, StagedBins{cur, h2s}, kp, zr, zi, dr,
-                                di, lane);
-}
-
-// Kernels 2 and A's one-warp-a-symbol layouts: staged and streamed (nbuf
-// = 0).
-enum BinsLayout { kStagedBins, kStreamedBins };
 
 // A team of T warps in a block of G teams: team g's warps are g·T ...
 // g·T + T − 1; thread tt of the team's n = 32·T; its first warp (rank 0)
@@ -317,7 +274,7 @@ struct TeamBins {
 // One data symbol of frame b by a team, on its equalized bins `bins`: kp
 // holds the P pilot positions, zr, zi, dr, di P floats each of the team's
 // scratch, bc three floats of the team's. The same values as
-// gf3x_fit_symbol_warp, bit for bit: every term is the warp chain's
+// gf3x_track_symbol_warp, bit for bit: every term is the warp chain's
 // expression, stored, and the first warp adds the stored terms in the warp
 // chain's order. Every thread of the team gets the fit and the noise floor.
 template <typename Bins>

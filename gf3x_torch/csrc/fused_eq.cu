@@ -38,16 +38,8 @@
 // (64-QAM). The block reduces its symbols' EVM and |llr| sums in a fixed
 // order and writes the frame's means itself.
 //
-// A band whose staged layout fits no warp count (gf3-16384: U = 7616, P =
-// 1904) can take the streamed one (nbuf = 0): the same warps and lanes walk
-// the same bins in the same order, but each reads y and Ĥ from global
-// memory and recomputes |Ĥ|², its inverse and the equalized bin with the
-// staging code's expressions (eq_demap.cuh's StreamedBins). Shared memory
-// keeps only the pilot positions, the warps' pilot scratch and sums. Its
-// outputs equal the staged layout's bit for bit.
-//
-// What held both back at the wide bands: each warp keeps its own pilot
-// scratch (4P floats) and, staged, its symbol buffers, so an SM holds one
+// What held it back at the wide bands: each warp keeps its own pilot
+// scratch (4P floats) and its symbol buffers, so an SM holds one
 // block of 4-10 warps; each lane walks U/32 bins of a symbol in a row; and
 // a block takes a whole frame, so a batch of 64 frames leaves half the SMs
 // empty. The teamed layout (fused_eq_demap_team_kernel) answers the three: a
@@ -87,7 +79,7 @@ struct FusedArgs {
     int R;               // LLRs per data symbol
     int warps;           // W warps a block
     int nbuf;            // symbol buffers per warp: 2 when W < D, else 1;
-                         // 0 for the streamed and teamed layouts
+                         // 0 for the teamed layout
     int team;            // T warps a data symbol (teamed, spilled)
     int blocks;          // blocks a frame (teamed, spilled)
     float evm_div;       // D · n_data_bins
@@ -171,23 +163,20 @@ __device__ __forceinline__ void frame_sums(const FusedArgs& a, int b, int blk,
     a.mabs[b] = s / a.abs_div;
 }
 
-// Dynamic shared memory, in floats (the wrapper's fused_eq_geometry
-// computes the same). Staged: Ĥ (2U) | W·nbuf symbol buffers (2U each) |
-// |Ĥ|² (U) | 1/max(|Ĥ|², 1e-12) (U) | W pilot scratches (4P each) | the W
-// warps' two sums | the layout table (U ints: P pilot positions, U − P
-// data positions). Streamed (nbuf = 0): the pilot scratches, the sums and
-// the P pilot positions alone; Ĥ, the bins and the data positions are read
-// from global memory.
-template <int m, int kLayout>
+// The staged layout. Dynamic shared memory, in floats (the wrapper's
+// fused_eq_geometry computes the same): Ĥ (2U) | W·nbuf symbol buffers (2U
+// each) | |Ĥ|² (U) | 1/max(|Ĥ|², 1e-12) (U) | W pilot scratches (4P each) |
+// the W warps' two sums | the layout table (U ints: P pilot positions,
+// U − P data positions).
+template <int m>
 __global__ void __launch_bounds__(1024, 1)
 fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
-    constexpr bool kStreamed = kLayout == kStreamedBins;
     extern __shared__ __align__(16) float sm[];
     const TrackArgs& t = a.t;
     const int U = t.U, P = t.P, D = t.D, W = a.warps;
     const int b = blockIdx.x;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    const size_t rows = kStreamed ? 0 : 4 * U + 2 * U * W * a.nbuf;
+    const size_t rows = 4 * U + 2 * U * W * a.nbuf;
     float2* hs = reinterpret_cast<float2*>(sm);
     float2* buf = hs + U + static_cast<size_t>(w) * a.nbuf * U;
     float* h2s = sm + 2 * U + 2 * U * W * a.nbuf;
@@ -199,23 +188,19 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     float* red = sm + rows + 4 * P * W;
     int* s_pos = reinterpret_cast<int*>(red + 2 * W);
     const int* kp = s_pos;
-    const int* dpos = kStreamed ? t.pos + P : kp + P;
+    const int* dpos = kp + P;
     const float2* hrow = t.h + static_cast<long long>(b) * U;
 
-    if constexpr (kStreamed) {
-        gf3x_stage_layout(t, s_pos, P);
-    } else {
-        // the warp's first symbol is in flight while the block stages Ĥ
-        gf3x_fetch_symbol(t, b, w, buf, lane);
-        for (int k = threadIdx.x; k < U; k += blockDim.x) {
-            const float2 h = hrow[k];
-            const float h2 = gf3x_abs2(h);
-            hs[k] = h;
-            h2s[k] = h2;
-            inv_csi[k] = gf3x_inv_csi(h2);
-        }
-        gf3x_stage_layout(t, s_pos, U);
+    // the warp's first symbol is in flight while the block stages Ĥ
+    gf3x_fetch_symbol(t, b, w, buf, lane);
+    for (int k = threadIdx.x; k < U; k += blockDim.x) {
+        const float2 h = hrow[k];
+        const float h2 = gf3x_abs2(h);
+        hs[k] = h;
+        h2s[k] = h2;
+        inv_csi[k] = gf3x_inv_csi(h2);
     }
+    gf3x_stage_layout(t, s_pos, U);
     __syncthreads();
 
     float lv[kMaxLevels];
@@ -225,39 +210,21 @@ fused_eq_demap_kernel(const __grid_constant__ FusedArgs a) {
     const bool derotate = P >= 2;
     float md_sum = 0.0f, abs_sum = 0.0f;
     for (int d = w, i = 0; d < D; d += W, ++i) {
-        const float2* yrow = t.y + (static_cast<long long>(b) * t.S + t.K + d) * U;
         float2* cur = buf + (i & (a.nbuf - 1)) * U;
-        SymbolFit f;
-        if constexpr (kStreamed) {
-            f = gf3x_fit_symbol_warp(t, b, StreamedBins{yrow, hrow}, kp, zr,
-                                     zi, dr, di, lane);
-        } else {
-            gf3x_fetch_symbol(t, b, d + W, buf + ((i + 1) & (a.nbuf - 1)) * U,
-                              lane);
-            gf3x_cp_async_wait_all_but_newest();
-            __syncwarp();
-            f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, kp, zr, zi, dr, di,
-                                       lane);
-        }
+        gf3x_fetch_symbol(t, b, d + W, buf + ((i + 1) & (a.nbuf - 1)) * U,
+                          lane);
+        gf3x_cp_async_wait_all_but_newest();
+        __syncwarp();
+        const SymbolFit f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, kp, zr,
+                                                   zi, dr, di, lane);
 
         // derotate and demap the data bins
         const long long o = static_cast<long long>(b) * D + d;
         float* row = a.llr + o * a.R;
         for (int j = lane; j < nd; j += 32) {
             const int k = dpos[j];
-            float2 x;
-            float inv;
-            if constexpr (kStreamed) {
-                const float2 h = hrow[k];
-                const float h2 = gf3x_abs2(h);
-                x = gf3x_eq_bin(yrow[k], h, h2);
-                inv = gf3x_inv_csi(h2);
-            } else {
-                x = cur[k];
-                inv = inv_csi[k];
-            }
-            demap_bin<m>(x, inv, k, f, derotate, lv, row + 2 * m * j, md_sum,
-                         abs_sum);
+            demap_bin<m>(cur[k], inv_csi[k], k, f, derotate, lv,
+                         row + 2 * m * j, md_sum, abs_sum);
         }
         if (lane == 0) {
             a.slope[o] = f.slope;
@@ -379,12 +346,12 @@ cudaError_t launch_kernel(Kernel kernel, size_t (&smem_set)[kMaxDevices],
     return cudaGetLastError();
 }
 
-template <int m, int kLayout>
-cudaError_t launch_layout(const FusedArgs& a, long long B, int smem,
+template <int m>
+cudaError_t launch_staged(const FusedArgs& a, long long B, int smem,
                           cudaStream_t stream) {
     static size_t smem_set[kMaxDevices] = {};
-    return launch_kernel(fused_eq_demap_kernel<m, kLayout>, smem_set, a, B,
-                         smem, stream);
+    return launch_kernel(fused_eq_demap_kernel<m>, smem_set, a, B, smem,
+                         stream);
 }
 
 template <int m, bool kStageH, bool kSpilled>
@@ -395,9 +362,10 @@ cudaError_t launch_team(const FusedArgs& a, long long B, int smem,
                          smem_set, a, B, smem, stream);
 }
 
-// The layout: teamed where a team has more than one warp or a frame more
-// than one block, spilled where there is a global pilot scratch, else
-// staged (nbuf > 0) or streamed.
+// The layout: spilled where there is a global pilot scratch, teamed where
+// a team has more than one warp or a frame more than one block, else staged
+// (nbuf > 0); one warp a team and one block a frame with no symbol buffer
+// and no scratch is no launch.
 template <int m>
 cudaError_t launch_fused(const FusedArgs& a, long long B, int smem,
                          int stage_h, cudaStream_t stream) {
@@ -407,8 +375,8 @@ cudaError_t launch_fused(const FusedArgs& a, long long B, int smem,
         return stage_h ? launch_team<m, true, false>(a, B, smem, stream)
                        : launch_team<m, false, false>(a, B, smem, stream);
     }
-    return a.nbuf != 0 ? launch_layout<m, kStagedBins>(a, B, smem, stream)
-                       : launch_layout<m, kStreamedBins>(a, B, smem, stream);
+    if (a.nbuf == 0) return cudaErrorInvalidValue;
+    return launch_staged<m>(a, B, smem, stream);
 }
 
 }  // namespace

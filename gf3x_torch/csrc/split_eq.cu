@@ -58,13 +58,11 @@
 // writes each slot's 2m LLRs straight to its offset in the output row;
 // shared memory holds only the PAM levels. Warps, lanes and each lane's
 // order are the staged layout's, so the outputs are the same bits. Kernel A
-// has kernel 2's layouts (fused_eq.cu): streamed, it runs kernel 2's
-// streamed chain (eq_demap.cuh's StreamedBins) and derotates every bin from
-// it; teamed (eq_track_team_kernel), a team of warps takes a symbol
-// (gf3x_fit_symbol_team) on a grid of (B, blocks), and its threads
-// derotate and store the eq row kUnroll bins a lane at a time; spilled,
-// the teamed kernel with each team's pilot scratch in global memory. Every
-// layout gives the same bits.
+// has kernel 2's other layouts (fused_eq.cu): teamed (eq_track_team_kernel),
+// a team of warps takes a symbol (gf3x_fit_symbol_team) on a grid of (B,
+// blocks), and its threads derotate and store the eq row kUnroll bins a
+// lane at a time; spilled, the teamed kernel with each team's pilot scratch
+// in global memory. Every layout gives the same bits.
 #include <cstdint>
 
 #include "eq_demap.cuh"
@@ -79,7 +77,7 @@ struct TrackOut {
     float* nv_sym;       // (B, D)
     int warps;           // W warps a block
     int nbuf;            // symbol buffers per warp: 2 when W < D, else 1;
-                         // 0 for the streamed and teamed layouts
+                         // 0 for the teamed layout
     int team;            // T warps a data symbol (teamed, spilled)
     int blocks;          // blocks a frame (teamed, spilled)
     float* scratch;      // the spilled layout's pilot scratch, else null
@@ -87,21 +85,18 @@ struct TrackOut {
 
 constexpr int kUnroll = 4;   // bins a lane loads before it stores them
 
-// Dynamic shared memory, in floats (the wrapper's fused_eq_geometry with
-// demap=False computes the same). Staged: Ĥ (2U) | W·nbuf symbol buffers
-// (2U each) | |Ĥ|² (U) | W pilot scratches (4P each) | the pilot positions
-// (P ints). Streamed (nbuf = 0): the pilot scratches and positions alone.
-// Below two pilots the bins are not derotated.
-template <int kLayout>
+// The staged layout. Dynamic shared memory, in floats (the wrapper's
+// fused_eq_geometry with demap=False computes the same): Ĥ (2U) | W·nbuf
+// symbol buffers (2U each) | |Ĥ|² (U) | W pilot scratches (4P each) | the
+// pilot positions (P ints). Below two pilots the bins are not derotated.
 __global__ void __launch_bounds__(1024, 1)
 eq_track_kernel(const __grid_constant__ TrackOut a) {
-    constexpr bool kStreamed = kLayout == kStreamedBins;
     extern __shared__ __align__(16) float sm[];
     const TrackArgs& t = a.t;
     const int U = t.U, P = t.P, D = t.D, W = a.warps;
     const int b = blockIdx.x;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    const size_t rows = kStreamed ? 0 : 3 * U + 2 * U * W * a.nbuf;
+    const size_t rows = 3 * U + 2 * U * W * a.nbuf;
     float2* hs = reinterpret_cast<float2*>(sm);
     float2* buf = hs + U + static_cast<size_t>(w) * a.nbuf * U;
     float* h2s = sm + 2 * U + 2 * U * W * a.nbuf;
@@ -113,14 +108,12 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
     const int* kp = s_pos;
     const float2* hrow = t.h + static_cast<long long>(b) * U;
 
-    if constexpr (!kStreamed) {
-        // the warp's first symbol is in flight while the block stages Ĥ
-        gf3x_fetch_symbol(t, b, w, buf, lane);
-        for (int k = threadIdx.x; k < U; k += blockDim.x) {
-            const float2 h = hrow[k];
-            hs[k] = h;
-            h2s[k] = gf3x_abs2(h);
-        }
+    // the warp's first symbol is in flight while the block stages Ĥ
+    gf3x_fetch_symbol(t, b, w, buf, lane);
+    for (int k = threadIdx.x; k < U; k += blockDim.x) {
+        const float2 h = hrow[k];
+        hs[k] = h;
+        h2s[k] = gf3x_abs2(h);
     }
     gf3x_stage_layout(t, s_pos, P);
     __syncthreads();
@@ -129,26 +122,16 @@ eq_track_kernel(const __grid_constant__ TrackOut a) {
     for (int d = w, i = 0; d < D; d += W, ++i) {
         const long long o = static_cast<long long>(b) * D + d;
         float2* row = a.eq + o * U;
-        SymbolFit f;
-        if constexpr (kStreamed) {
-            const StreamedBins bins{
-                t.y + (static_cast<long long>(b) * t.S + t.K + d) * U, hrow};
-            f = gf3x_fit_symbol_warp(t, b, bins, kp, zr, zi, dr, di, lane);
-            for (int k = lane; k < U; k += 32)
-                row[k] = derotate ? gf3x_derotate(bins.x(k), f.slope, k, f.cpe)
-                                  : bins.x(k);
-        } else {
-            float2* cur = buf + (i & (a.nbuf - 1)) * U;
-            gf3x_fetch_symbol(t, b, d + W, buf + ((i + 1) & (a.nbuf - 1)) * U,
-                              lane);
-            gf3x_cp_async_wait_all_but_newest();
-            __syncwarp();
-            f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, kp, zr, zi, dr, di,
-                                       lane);
-            for (int k = lane; k < U; k += 32)
-                row[k] = derotate ? gf3x_derotate(cur[k], f.slope, k, f.cpe)
-                                  : cur[k];
-        }
+        float2* cur = buf + (i & (a.nbuf - 1)) * U;
+        gf3x_fetch_symbol(t, b, d + W, buf + ((i + 1) & (a.nbuf - 1)) * U,
+                          lane);
+        gf3x_cp_async_wait_all_but_newest();
+        __syncwarp();
+        const SymbolFit f = gf3x_track_symbol_warp(t, b, cur, hs, h2s, kp, zr,
+                                                   zi, dr, di, lane);
+        for (int k = lane; k < U; k += 32)
+            row[k] = derotate ? gf3x_derotate(cur[k], f.slope, k, f.cpe)
+                              : cur[k];
         if (lane == 0) {
             a.slope[o] = f.slope;
             a.cpe[o] = f.cpe;
@@ -246,12 +229,10 @@ cudaError_t launch_track_kernel(Kernel kernel,
     return cudaGetLastError();
 }
 
-template <int kLayout>
 cudaError_t launch_track(const TrackOut& a, long long B, int smem,
                          cudaStream_t stream) {
     static size_t smem_set[kMaxDevices] = {};
-    return launch_track_kernel(eq_track_kernel<kLayout>, smem_set, a, B, smem,
-                               stream);
+    return launch_track_kernel(eq_track_kernel, smem_set, a, B, smem, stream);
 }
 
 template <bool kStageH, bool kSpilled>
@@ -460,9 +441,8 @@ GF3X_EXPORT int gf3x_eq_track(
             stage_h ? launch_track_team<true, false>(a, B, smem, st)
                     : launch_track_team<false, false>(a, B, smem, st));
     }
-    return static_cast<int>(
-        nbuf != 0 ? launch_track<kStagedBins>(a, B, smem, st)
-                  : launch_track<kStreamedBins>(a, B, smem, st));
+    if (nbuf == 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_track(a, B, smem, st));
 }
 
 GF3X_EXPORT int gf3x_demap_bins(

@@ -23,9 +23,8 @@ import numpy as np
 import torch
 
 from ...config import ModemConfig
-from ...utils.device import launch
+from ...utils.device import SMEM_BLOCK, launch
 from ..ofdm import deroll, ofdm_dft
-from .fused_eq import SMEM_BLOCK
 from .gather_cut import cut_symbols_plain
 
 __all__ = ["cut_dft", "cut_dft_plain", "cut_dft_geometry", "CutDftGeometry",

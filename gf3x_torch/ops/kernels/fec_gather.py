@@ -20,8 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...utils.device import launch
-from .fused_eq import _sm_count
+from ...utils.device import launch, sm_count
 
 __all__ = ["fec_gather", "fec_gather_plain", "fec_gather_chunk",
            "fec_gather_tiles", "tile_pitch", "reversal_index"]
@@ -113,7 +112,7 @@ def fec_gather(llr: torch.Tensor, index: torch.Tensor,
                          f", scramble on {scramble.device}: all must be on "
                          "the CPU or on one CUDA device")
     B, used = llr.shape[0], index.shape[0]
-    sms = _sm_count(dev.index)
+    sms = sm_count(dev.index)
     tb = None if axes is None else fec_gather_tiles(B, axes, sms)
     if tb is None and used % 4:
         raise ValueError(f"fec_gather: the indexed kernel stores 4 outputs "

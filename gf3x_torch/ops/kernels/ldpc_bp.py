@@ -36,7 +36,7 @@ import torch
 
 from ...fec.codes import N_BLOCK_COLS, block_rows, build_H_blocks
 from ...utils import profiling
-from ...utils.device import launch
+from ...utils.device import SMEM_BLOCK, launch
 
 __all__ = ["minsum_totals", "minsum_totals_plain", "minsum_check",
            "minsum_check_plain", "minsum_decode", "minsum_decode_plain",
@@ -45,7 +45,6 @@ __all__ = ["minsum_totals", "minsum_totals_plain", "minsum_check",
 
 _ALPHA = 0.8
 _BIG = 1e30
-SMEM_BLOCK = 232_448     # dynamic shared memory one block may use (227 KB)
 CHECK_WARPS = 8          # codewords a block of the check pass, where they fit
 MAX_THREADS = 512        # the decode pass's block
 MAX_LIFT = 0x7FFFFFFF // 128   # the kernels' int32 indices (csrc kMaxLift)

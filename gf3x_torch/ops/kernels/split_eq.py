@@ -10,9 +10,11 @@ PyTorch version:
   and mean |llr| (B,). The kernel walks the wire-order slot table
   (`slot_table`) with one warp per data symbol (`demap_geometry`).
 
-Kernel A has kernel 2's layouts (`fused_eq.FusedGeometry`: staged,
-streamed, teamed, spilled), kernel B the first two; each layout gives the
-same bits.
+Both take their launch from `eq_layout`: kernel A kernel 2's layouts
+(`fused_eq_geometry(..., demap=False)`: staged, teamed, spilled), kernel B
+staged or streamed (`demap_geometry`); each layout gives the same bits.
+Kernels A and 2 read the pilot layout from `layout_table` and the pilot
+values from `pilot_floats`.
 
 The plain versions are the XLA twin's math (Modem._eq_tail,
 loaded_demap_llr / qam_demap_llr); `fused_eq_demap_plain` is the two run
@@ -29,13 +31,16 @@ import numpy as np
 import torch
 
 from ...config import ModemConfig, layout
-from ...utils.device import launch
+from ...utils.device import launch, sm_count
 from ..chanest import equalize, pilot_phase_correct
 from ..constellation import (hard_bits, pam_label_levels, qam_demap_llr,
                              qam_map, qam_norm)
+from .eq_layout import (FusedGeometry, demap_geometry, fused_eq_geometry,
+                        spill_scratch)
 
 __all__ = ["eq_track", "eq_track_plain", "demap_bins", "demap_bins_plain",
-           "demap_geometry", "slot_table", "unpack_slots", "track_constants"]
+           "slot_table", "unpack_slots", "track_constants", "layout_table",
+           "pilot_floats"]
 
 
 def eq_track_plain(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
@@ -87,6 +92,7 @@ def demap_bins_plain(cfg: ModemConfig, eq: torch.Tensor, H: torch.Tensor,
     return llr, evm, torch.mean(torch.abs(llr), dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
 def track_constants(cfg: ModemConfig):
     """pilot_phase_correct's static constants as the kernels take them:
     (mean pilot spacing, n_ladder, q0, base0, q1, base1) — the (lag,
@@ -101,6 +107,23 @@ def track_constants(cfg: ModemConfig):
     (q0, b0), (q1, b1) = (stages + [(0, 1.0), (0, 1.0)])[:2]
     return (float(np.float32(np.mean(np.diff(kp)))), len(stages),
             q0, b0, q1, b1)
+
+
+@functools.lru_cache(maxsize=None)
+def pilot_floats(cfg: ModemConfig, device: torch.device) -> torch.Tensor:
+    """The config's pilot values as (P, 2) float32 on `device`."""
+    return torch.view_as_real(torch.as_tensor(layout(cfg).pilot_vals,
+                                              device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def layout_table(cfg: ModemConfig, device: torch.device) -> torch.Tensor:
+    """Kernels 2 and A's layout table on `device`: the P pilot positions,
+    then the n_data_bins data positions, as int32 used-bin indices
+    (n_used)."""
+    lay = layout(cfg)
+    return torch.as_tensor(np.concatenate([lay.pilot_pos, lay.data_pos])
+                           .astype(np.int32), device=device)
 
 
 def check_track_inputs(name: str, cfg: ModemConfig, Y, H, noise_var):
@@ -121,29 +144,23 @@ def check_track_inputs(name: str, cfg: ModemConfig, Y, H, noise_var):
 
 def eq_track(cfg: ModemConfig, Y: torch.Tensor, H: torch.Tensor,
              noise_var: torch.Tensor, pilot_vals: torch.Tensor | None = None,
-             *, streamed: bool = False, spilled: bool = False,
-             teamed: bool = False, geometry=None):
+             *, geometry: FusedGeometry | None = None):
     """`eq_track_plain` for CPU tensors; kernel A otherwise, launched with
-    kernel 2's per-config constants and its layout
-    (`fused_eq.fused_eq_geometry(..., demap=False)`; `streamed`, `spilled`
-    and `teamed` force those, `geometry` a launch of its own: tests and
+    kernel 2's tracking constants and its layout (`fused_eq_geometry(...,
+    demap=False)`; `geometry` another of `eq_layout`'s launches: tests and
     chip_smoke.py only)."""
     if Y.device.type == "cpu":
         return eq_track_plain(cfg, Y, H, noise_var, pilot_vals)
-    from .fused_eq import (_pilot_floats, _sm_count, fused_eq_geometry,
-                           launch_constants, layout_table, spill_scratch)
-
     check_track_inputs("eq_track", cfg, Y, H, noise_var)
     dev = Y.device
     B, S, U = Y.shape
     D = cfg.n_data_symbols
-    pv = (_pilot_floats(cfg, dev) if pilot_vals is None else
+    pv = (pilot_floats(cfg, dev) if pilot_vals is None else
           torch.view_as_real(pilot_vals.to(dev, torch.complex64)
                              .contiguous()))
-    mean_dk, n_ladder, q0, b0, q1, b1 = launch_constants(cfg)[0]
-    geo = geometry or fused_eq_geometry(cfg, B, _sm_count(dev.index),
-                                        demap=False, streamed=streamed,
-                                        spilled=spilled, teamed=teamed)
+    mean_dk, n_ladder, q0, b0, q1, b1 = track_constants(cfg)
+    geo = geometry or fused_eq_geometry(cfg, B, sm_count(dev.index),
+                                        demap=False)
     # the inputs stay bound until the launch: a temporary's memory could be
     # handed to the next allocation before the kernel reads it
     y, h = Y.contiguous(), H.contiguous()
@@ -236,56 +253,20 @@ def _demap_constants(cfg: ModemConfig, tables, dev: torch.device):
     return c
 
 
-def _round4(n: int) -> int:
-    return -(-n // 4) * 4
-
-
-def demap_smem_bytes(U: int, R: int, NS: int, warps: int, nbuf: int) -> int:
-    """Kernel B's shared memory, staged: per warp, nbuf eq rows (2U floats
-    each) and its LLR row (R floats), each rounded up to 16 bytes; then the
-    slot table (NS int2), 1/max(|Ĥ|², 1e-12) per slot (NS) and the PAM
-    levels (16 floats). Streamed (nbuf = 0): the levels alone."""
-    if nbuf == 0:
-        return 4 * 16
-    return 4 * (warps * (nbuf * _round4(2 * U) + _round4(R)) + 3 * NS + 16)
-
-
-@functools.lru_cache(maxsize=None)
-def demap_geometry(cfg: ModemConfig, B: int, sms: int = 132,
-                   streamed: bool = False):
-    """Kernel B's launch for a batch of B frames on `sms` SMs: one block per
-    frame, warp w taking data symbols w, w + warps, ...
-    (`fused_eq.pick_warps` on `demap_smem_bytes`), staged where a warp
-    count fits, else (or with `streamed`, which only the tests and
-    chip_smoke.py pass) streamed (`fused_eq.streamed_geometry`)."""
-    from .fused_eq import pick_warps, streamed_geometry
-
-    U, R, NS = cfg.n_used, cfg.bits_per_ofdm_symbol, cfg.n_active_bins
-    D = cfg.n_data_symbols
-    geo = pick_warps(D, B, sms,
-                     lambda warps, nbuf: demap_smem_bytes(U, R, NS, warps,
-                                                          nbuf))
-    if geo is None or streamed:
-        geo = streamed_geometry(geo, D, B, sms,
-                                lambda warps: demap_smem_bytes(U, R, NS,
-                                                               warps, 0))
-    return geo
-
-
 def demap_bins(cfg: ModemConfig, eq: torch.Tensor, H: torch.Tensor,
-               nv_sym: torch.Tensor, tables, *, streamed: bool = False):
+               nv_sym: torch.Tensor, tables, *,
+               geometry: FusedGeometry | None = None):
     """`demap_bins_plain` for CPU tensors; kernel B otherwise. `tables` is
     (used-bin index, bits, wire offset) per data bin, int32 —
     `models.frame.demap_bin_tables(cfg)`, which a Modem keeps as buffers;
     the kernel takes their wire-order slot table (`slot_table`, derived
-    once per config and device by `_demap_constants`), in the layout
-    `demap_geometry` picks (`streamed` forces the streamed one). The plain
+    once per config and device by `_demap_constants`), in the launch
+    `demap_geometry` picks (`geometry` another, such as
+    `eq_layout.streamed_geometry`: tests and chip_smoke.py only). The plain
     version derives the same layout from the config itself, so the two
     agree only if the tables are right."""
     if eq.device.type == "cpu":
         return demap_bins_plain(cfg, eq, H, nv_sym)
-    from .fused_eq import _sm_count
-
     dev = eq.device
     if dev.type != "cuda" or H.device != dev or nv_sym.device != dev:
         raise ValueError("demap_bins: eq, H and nv_sym must be on one CUDA "
@@ -298,7 +279,7 @@ def demap_bins(cfg: ModemConfig, eq: torch.Tensor, H: torch.Tensor,
                          "(B, n_used) complex64, nv_sym (B, D)")
     slots, inv_g, inv_g2, R, evm_div, abs_div = _demap_constants(cfg, tables,
                                                                  dev)
-    geo = demap_geometry(cfg, B, _sm_count(dev.index), streamed=streamed)
+    geo = geometry or demap_geometry(cfg, B, sm_count(dev.index))
     # the inputs stay bound until the launch: a temporary's memory could be
     # handed to the next allocation before the kernel reads it
     e = torch.view_as_real(eq.contiguous())

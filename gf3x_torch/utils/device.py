@@ -22,6 +22,9 @@ its own arguments (no ctypes); it compares the tensors' device with the
 current one itself, and only where they differ does `launch` switch device
 and call again; the stream is read as a raw pointer, with no
 `torch.cuda.Stream` object.
+
+The card's limits that the kernels' launch rules size blocks by (an H100,
+sm_90) are defined here, once, beside `sm_count`, the SM count of a device.
 """
 
 from __future__ import annotations
@@ -37,7 +40,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "NVCC_FLAGS", "kernel_lib", "library_path", "launch"]
+__all__ = ["CSRC", "NVCC_FLAGS", "kernel_lib", "library_path", "launch",
+           "sm_count", "SMEM_BLOCK", "SMEM_SM", "SMEM_RESERVED", "WARPS_SM",
+           "BLOCKS_SM", "H100_SMS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = CSRC.parent / "_build"
@@ -46,6 +51,21 @@ _LIB_NAME = "libgf3x_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
               "-I" + sysconfig.get_paths()["include"])
+
+
+SMEM_BLOCK = 232_448     # dynamic shared memory one block may use (227 KB)
+SMEM_SM = 233_472        # shared memory of one SM (228 KB)
+SMEM_RESERVED = 1_024    # per resident block
+WARPS_SM = 32            # resident warps per SM at ≤ 64 registers a thread
+                         # (kernels 2 and A's __launch_bounds__(1024, 1))
+BLOCKS_SM = 32           # resident blocks per SM
+H100_SMS = 132           # the SMs of an H100 SXM, the launch rules' default
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _sources() -> list[Path]:

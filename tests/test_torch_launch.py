@@ -20,7 +20,7 @@ from gf3x_torch import GF3_FAST, GF3_STANDARD, GF3_TURBO, Modem
 from gf3x_torch.bench import step
 from gf3x_torch.config import layout
 from gf3x_torch.ops import constellation
-from gf3x_torch.ops.kernels import fused_eq, split_eq
+from gf3x_torch.ops.kernels import eq_layout, fused_eq, split_eq
 from gf3x_torch.utils import device
 
 LONGCP = GF3_STANDARD.replace(n_fft=2048, cp=512, bin_lo=48, bin_hi=607)
@@ -198,7 +198,7 @@ def test_fused_eq_geometry_covers_every_symbol_once(name):
     assert name != "n_used-1024" or U == 1024
     for demap in (True, False):
         for B in (1, 7, 8, 64, 1023, 1024, 4096):
-            geo = fused_eq.fused_eq_geometry(cfg, B, demap=demap)
+            geo = eq_layout.fused_eq_geometry(cfg, B, demap=demap)
             per_slot = [list(geo.symbols(g, D, blk))
                         for blk in range(geo.blocks)
                         for g in range(geo.teams)]
@@ -235,10 +235,12 @@ def test_fused_eq_geometry_covers_every_symbol_once(name):
         # one recording: a symbol per warp, where a narrow band lets the
         # block hold D warps
         if name not in chip_smoke.WIDE_BANDS:
-            assert fused_eq.fused_eq_geometry(cfg, 1, demap=demap).passes == 1
+            assert eq_layout.fused_eq_geometry(cfg, 1,
+                                               demap=demap).passes == 1
     # without the demap's rows a block of kernel A needs less
-    geoA = fused_eq.fused_eq_geometry(cfg, 1024, demap=False)
-    assert geoA.smem < fused_eq._smem_bytes(U, P, geoA.warps, geoA.nbuf)
+    geoA = eq_layout.fused_eq_geometry(cfg, 1024, demap=False)
+    assert geoA.smem < eq_layout.staged_smem_bytes(U, P, geoA.warps,
+                                                   geoA.nbuf)
 
 
 LOADED = GF3_STANDARD.replace(bit_loading=tuple(
@@ -259,13 +261,13 @@ def test_demap_geometry_covers_every_symbol_once(name):
     D, U = cfg.n_data_symbols, cfg.n_used
     R, NS = cfg.bits_per_ofdm_symbol, cfg.n_active_bins
     for B in (1, 7, 1024, 4096):
-        geo = split_eq.demap_geometry(cfg, B)
+        geo = eq_layout.demap_geometry(cfg, B)
         seen = Counter((b, d) for b in range(B) for w in range(geo.warps)
                        for d in geo.symbols(w, D))
         assert len(seen) == B * D and set(seen.values()) == {1}
         assert all(geo.symbols(w, D) for w in range(geo.warps))
-        assert geo.streamed == (name == "gf3-16384")
-        if geo.streamed:
+        assert (geo.layout == "streamed") == (name == "gf3-16384")
+        if geo.layout == "streamed":
             assert geo.nbuf == 0 and geo.smem == 4 * 16
             continue
         assert geo.nbuf == (2 if geo.passes > 1 else 1)
@@ -290,6 +292,6 @@ def test_launch_constants_are_the_configs(cfg):
     assert addr == levels.ctypes.data
     assert evm_div == cfg.n_data_symbols * cfg.n_data_bins
     assert abs_div == cfg.raw_bits_per_frame
-    pv = fused_eq._pilot_floats(cfg, torch.device("cpu"))
+    pv = split_eq.pilot_floats(cfg, torch.device("cpu"))
     assert torch.equal(torch.view_as_complex(pv),
                        torch.as_tensor(layout(cfg).pilot_vals))

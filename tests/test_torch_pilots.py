@@ -31,7 +31,8 @@ from gf3x_torch import Modem, ModemConfig, layout
 from gf3x_torch.channel import awgn, delay_gain
 from gf3x_torch.models import frame as tframe
 from gf3x_torch.models.stream import frame_capacity
-from gf3x_torch.ops.kernels import fused_eq, split_eq
+from gf3x_torch.ops.kernels import eq_layout, fused_eq, split_eq
+from gf3x_torch.utils import device
 
 from test_property_configs import CORNERS
 
@@ -163,7 +164,7 @@ def test_tail_plain_versions_match_gf3x_xla(name):
 
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
 def test_kernel_layout_table_is_the_layout(name):
-    """Kernel 2's layout table (`fused_eq.layout_table`): the P pilot
+    """Kernel 2's layout table (`split_eq.layout_table`): the P pilot
     positions, then the data positions. A CPU emulation of the kernel's
     walk — lane l reads the bins of table entries P + l, P + l + 32, ... —
     cuts the data bins `split_pilots` cuts, and on a strided layout the
@@ -173,7 +174,7 @@ def test_kernel_layout_table_is_the_layout(name):
     `demap_bin_tables`."""
     cfg, _ = configs(name)
     lay, P, nd = layout(cfg), cfg.n_pilots, cfg.n_data_bins
-    table = fused_eq.layout_table(cfg, torch.device("cpu"))
+    table = split_eq.layout_table(cfg, torch.device("cpu"))
     assert table.dtype == torch.int32 and table.shape == (cfg.n_used,)
     assert np.array_equal(table[:P].numpy(), lay.pilot_pos)
     assert np.array_equal(table[P:].numpy(), lay.data_pos)
@@ -219,5 +220,5 @@ def test_launch_constants_below_two_pilots_have_no_fit():
         (mean_dk, n_ladder, *_), *_ = fused_eq.launch_constants(cfg)
         assert n_ladder == 0 and np.isfinite(mean_dk)
         for demap in (True, False):
-            geo = fused_eq.fused_eq_geometry(cfg, 1024, demap=demap)
-            assert 0 < geo.smem <= fused_eq.SMEM_BLOCK
+            geo = eq_layout.fused_eq_geometry(cfg, 1024, demap=demap)
+            assert 0 < geo.smem <= device.SMEM_BLOCK

@@ -32,7 +32,9 @@ from gf3x import Modem as JModem
 import chip_smoke
 from gf3x_torch import GF3_STANDARD, Modem
 from gf3x_torch.models import frame as tframe
-from gf3x_torch.ops.kernels import cut_dft, fused_eq, gather_cut, split_eq
+from gf3x_torch.ops.kernels import (cut_dft, eq_layout, fused_eq, gather_cut,
+                                    split_eq)
+from gf3x_torch.utils import device
 
 from test_torch_long_cp import build_batch, counting
 from test_torch_pilots import tail_inputs
@@ -159,9 +161,8 @@ def test_wide_tail_plain_versions_match_gf3x_xla(name):
     """Kernels 2, A and B's plain versions at U = 1120 and 2240 against gf3x's XLA tail (`_eq_tail`, then `_xla_demap`) on the same
     spectra: hard decisions exact, LLRs ≤ 2e-4·mean|LLR|, slope and cpe
     ≤ 1e-4 rad, evm, mean|llr| and the effective noise ≤ 1e-4 rel. A
-    uniform band runs both tails (kernel 2's and A + B; `streamed` only
-    picks the card's layout, so the plain versions ignore it), a loaded one
-    the split."""
+    uniform band runs both tails (kernel 2's and A + B), a loaded one the
+    split."""
     cfg = TAILS[name].replace(n_data_symbols=4, fec="none")
     jcfg = J_STANDARD.replace(**{k: getattr(cfg, k) for k in (
         "n_fft", "cp", "bin_lo", "bin_hi", "pilot_spacing", "bits_per_symbol",
@@ -175,8 +176,7 @@ def test_wide_tail_plain_versions_match_gf3x_xla(name):
         jnp.asarray(data_r), jnp.asarray(nveff_r), (Y.shape[0],)))
     Yt, Ht, nvt = (torch.as_tensor(x.copy()) for x in (Y, H, nv))
 
-    eq, slope, cpe, nv_sym = split_eq.eq_track(cfg, Yt, Ht, nvt,
-                                               streamed=True)
+    eq, slope, cpe, nv_sym = split_eq.eq_track(cfg, Yt, Ht, nvt)
     _, data = tframe.split_pilots(cfg, eq)
     _, inv_csi = tframe.split_pilots(cfg, 1.0 / torch.clamp(Ht.abs() ** 2,
                                                             min=1e-12))
@@ -185,12 +185,10 @@ def test_wide_tail_plain_versions_match_gf3x_xla(name):
         <= 1e-4 * np.mean(np.abs(data_r))
     assert np.max(np.abs(nveff - nveff_r)) <= 1e-4 * np.mean(np.abs(nveff_r))
     tables = tuple(torch.as_tensor(t) for t in tframe.demap_bin_tables(cfg))
-    llr, evm, mabs = split_eq.demap_bins(cfg, eq, Ht, nv_sym, tables,
-                                         streamed=True)
+    llr, evm, mabs = split_eq.demap_bins(cfg, eq, Ht, nv_sym, tables)
     tails = [(llr, slope, cpe, evm, mabs)]
     if cfg.bit_loading is None:
-        tails.append(fused_eq.fused_eq_demap(cfg, Yt, Ht, nvt,
-                                             streamed=True))
+        tails.append(fused_eq.fused_eq_demap(cfg, Yt, Ht, nvt))
     for llr, sl, cp, evm, mabs in tails:
         llr = llr.numpy()
         assert llr.shape == llr_r.shape
@@ -255,44 +253,39 @@ def test_wide_geometry_picks_its_layout(name):
     `teamed_geometry`, which are the launches timed fastest on the card:
     at B = 1024 a block a frame with Ĥ staged, teams of 2 warps at
     gf3-4096 and 4 at gf3-8192; at gf3-16384 (B = 64) teams of 8 over 4
-    blocks a frame; one recording, a block per symbol and teams of 8. The
-    forced streamed layout keeps the staged warps where those fit (so the
-    frame sums keep their order) and no symbol buffers. Kernel B (`demap_geometry`, uniform and loaded) takes the
-    staged layout at gf3-4096 and gf3-8192 and the streamed one at
-    gf3-16384, whose staged layout fits no warp count; its forced streamed
-    layout keeps the staged warps."""
+    blocks a frame; one recording, a block per symbol and teams of 8.
+    Kernel B (`demap_geometry`, uniform and loaded) takes the staged layout
+    at gf3-4096 and gf3-8192 and the streamed one at gf3-16384, whose staged
+    layout fits no warp count; its forced streamed layout
+    (`streamed_geometry`) keeps the staged warps."""
     cfg = WIDE[name]
     B = 64 if name == "gf3-16384" else 1024
     streamed = name == "gf3-16384"
     U, P, D = cfg.n_used, cfg.n_pilots, cfg.n_data_symbols
     for d in (True, False):
-        geo = fused_eq.fused_eq_geometry(cfg, B, demap=d)
+        geo = eq_layout.fused_eq_geometry(cfg, B, demap=d)
         assert geo.layout == "teamed" and geo.nbuf == 0 and not geo.spill
-        assert geo == fused_eq.teamed_geometry(U, P, D, B, fused_eq.H100_SMS,
-                                               d)
+        assert geo == eq_layout.teamed_geometry(U, P, D, B, device.H100_SMS,
+                                                d)
         # the launches timed fastest on the card (PERF.md §6): (team,
         # blocks a frame, Ĥ staged), and at B = 1 a block per symbol
         assert (geo.team, geo.blocks, geo.stage_h) == TIMED_PICKS[name]
-        one = fused_eq.fused_eq_geometry(cfg, 1, demap=d)
+        one = eq_layout.fused_eq_geometry(cfg, 1, demap=d)
         assert (one.team, one.blocks, one.stage_h) == (8, D, False)
-        staged = fused_eq.pick_warps(D, B, fused_eq.H100_SMS,
-                                     lambda w, nbuf: fused_eq._smem_bytes(
-                                         U, P, w, nbuf, d))
-        forced = fused_eq.fused_eq_geometry(cfg, B, demap=d, streamed=True)
-        assert forced.layout == "streamed"
+        staged = eq_layout.pick_warps(D, B, device.H100_SMS,
+                                      lambda w, nbuf: eq_layout
+                                      .staged_smem_bytes(U, P, w, nbuf, d))
         assert (staged is None) == streamed
-        if staged is not None:
-            assert (forced.warps, forced.passes) == (staged.warps,
-                                                     staged.passes)
-        assert max(geo.smem, forced.smem) <= fused_eq.SMEM_BLOCK
+        assert geo.smem <= device.SMEM_BLOCK
     geos, forced = [], []
     for c in (cfg, loaded(cfg)):
-        geos.append(split_eq.demap_geometry(c, B))
-        forced.append(split_eq.demap_geometry(c, B, streamed=True))
+        geos.append(eq_layout.demap_geometry(c, B))
+        forced.append(eq_layout.streamed_geometry(c, B))
     for geo, f in zip(geos, forced):
-        assert geo.streamed == streamed and f.streamed
+        assert (geo.layout == "streamed") == streamed
+        assert f.layout == "streamed"
         assert f.nbuf == 0 and (f.warps, f.passes) == (geo.warps, geo.passes)
-        assert f.smem <= geo.smem <= fused_eq.SMEM_BLOCK
+        assert f.smem <= geo.smem <= device.SMEM_BLOCK
     if streamed:
         assert geos[0].smem == 4 * 16
 
@@ -300,18 +293,18 @@ def test_wide_geometry_picks_its_layout(name):
 def test_spilled_layout_past_the_pilot_scratch_bound():
     """The layouts' one limit in shared memory is one team's pilot scratch,
     the pilot positions, its three shared values and kernel 2's two sums
-    of one warp (5P + 6 words) in a block: past MAX_STREAMED_PILOTS pilots
+    of one warp (5P + 6 words) in a block: past MAX_SHARED_PILOTS pilots
     (n_fft = 65536 at spacing 2, chip_smoke.SPILL_BAND) kernels 2 and A
     take the spilled layout — the teamed one with no symbol buffers and
     the pilot scratch (4P floats a team) in a global buffer, shared memory
     only for the teams' shared values and kernel 2's two sums a warp —
     whose launch covers every (frame, data symbol) once across (block,
     team) and gives every block a symbol; at spacing 3 the teamed layout
-    still fits. Forced (`spilled=True`) at config 5 the spill keeps the
+    still fits. Forced (`spilled_geometry`) at config 5 the spill keeps the
     staged warps, one warp a team and one block a frame, so each frame's
     sums keep their order."""
-    bound = fused_eq.MAX_STREAMED_PILOTS
-    assert 4 * (5 * bound + 6) <= fused_eq.SMEM_BLOCK \
+    bound = eq_layout.MAX_SHARED_PILOTS
+    assert 4 * (5 * bound + 6) <= device.SMEM_BLOCK \
         < 4 * (5 * (bound + 1) + 6)
     over = GF3_STANDARD.replace(**chip_smoke.SPILL_BAND)
     under = over.replace(pilot_spacing=3)
@@ -320,8 +313,8 @@ def test_spilled_layout_past_the_pilot_scratch_bound():
     D, P = over.n_data_symbols, over.n_pilots
     for demap in (True, False):
         for B in (1, 4, 64):
-            geo = fused_eq.fused_eq_geometry(over, B, demap=demap)
-            assert geo.spill and geo.streamed and geo.nbuf == 0
+            geo = eq_layout.fused_eq_geometry(over, B, demap=demap)
+            assert geo.spill and geo.nbuf == 0
             assert geo.layout == "spilled" and not geo.stage_h
             assert geo.smem == 4 * (4 * geo.teams
                                     + (2 * geo.warps if demap else 0))
@@ -335,15 +328,14 @@ def test_spilled_layout_past_the_pilot_scratch_bound():
             assert all(any(geo.symbols(g, D, blk) for g in range(geo.teams))
                        for blk in range(geo.blocks))
         # the launch timed fastest at B = 4: a block per symbol, teams of 8
-        geo = fused_eq.fused_eq_geometry(over, chip_smoke.SPILL_B,
-                                         demap=demap)
+        geo = eq_layout.fused_eq_geometry(over, chip_smoke.SPILL_B,
+                                          demap=demap)
         assert (geo.team, geo.blocks) == (8, D)
-        geo = fused_eq.fused_eq_geometry(under, 8, demap=demap)
+        geo = eq_layout.fused_eq_geometry(under, 8, demap=demap)
         assert geo.layout == "teamed" and not geo.spill
-        assert geo.smem <= fused_eq.SMEM_BLOCK
-        staged = fused_eq.fused_eq_geometry(GF3_STANDARD, 1024, demap=demap)
-        forced = fused_eq.fused_eq_geometry(GF3_STANDARD, 1024, demap=demap,
-                                            spilled=True)
+        assert geo.smem <= device.SMEM_BLOCK
+        staged = eq_layout.fused_eq_geometry(GF3_STANDARD, 1024, demap=demap)
+        forced = eq_layout.spilled_geometry(staged, GF3_STANDARD, demap)
         assert not staged.spill and staged.scratch_floats(1024, 35) == 0
         assert forced.spill and forced.nbuf == 0
         assert (forced.warps, forced.passes) == (staged.warps, staged.passes)
@@ -356,13 +348,11 @@ def test_spilled_layout_plain_tail_at_its_pilot_count():
     plain tails the kernels are held to there agree: kernel 2's plain
     version is A's then B's (`fused_eq_demap_plain`), with the pilot fit
     tracking the planted 2e-4 rad/bin slope and every data bin decided as
-    sent at 30 dB; `spilled` only picks the card's layout."""
+    sent at 30 dB."""
     cfg = GF3_STANDARD.replace(n_data_symbols=2, **chip_smoke.SPILL_BAND)
     Y, H, nv = chip_smoke.spill_inputs(cfg, 1, torch.device("cpu"))
-    llr, slope, cpe, evm, mabs = fused_eq.fused_eq_demap(cfg, Y, H, nv,
-                                                         spilled=True)
-    eq, slope_a, cpe_a, nv_sym = split_eq.eq_track(cfg, Y, H, nv,
-                                                   spilled=True)
+    llr, slope, cpe, evm, mabs = fused_eq.fused_eq_demap(cfg, Y, H, nv)
+    eq, slope_a, cpe_a, nv_sym = split_eq.eq_track(cfg, Y, H, nv)
     assert torch.equal(slope, slope_a) and torch.equal(cpe, cpe_a)
     assert llr.shape == (1, cfg.raw_bits_per_frame)
     assert torch.all((slope - 2e-4).abs() < 2e-6)
