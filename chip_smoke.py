@@ -135,7 +135,9 @@ a fifth, `python3 chip_smoke.py --layouts`, the layouts phase alone; a
 sixth, `python3 chip_smoke.py --fec-gather`, the FEC gather phase alone;
 a seventh, `python3 chip_smoke.py --warped-dft`, the clock-offset route's
 warped DFT, the chirp-z transform, against float64 on the card at the three
-wide bands, its two kernels against their plain versions and timed at
+wide bands; its fused kernel at each of them at B = 1024 and 1 against its
+plain version, the chain and float64, timed beside its byte bound and the
+chain; the chain's two kernels against their plain versions and timed at
 gf3-8192, B = 1024 (`warped_dft_only`).
 
 Phases print one line each. The last lines are a JSON object with every
@@ -621,7 +623,8 @@ def launch_counters() -> dict:
             "minsum_decode": ldpc_bp.minsum_decode,
             "cut_dft": cut_dft.cut_dft,
             "fec_gather": fec_gather.fec_gather,
-            "czt_pre": czt.czt_pre, "czt_post": czt.czt_post}
+            "czt_pre": czt.czt_pre, "czt_post": czt.czt_post,
+            "czt_fused": czt.czt_fused}
 
 
 def launch_counts(counters, fn):
@@ -2010,23 +2013,121 @@ def hold_czt_kernels(cfg, strided, delta, dev) -> dict:
     return out
 
 
+# the fused chirp-z kernel against float64 (the bar the chain meets) and
+# against its plain version (not bit for bit: the kernel's R-point DFTs are
+# radix-2 networks with fused multiply-adds, the plain version's einsums over
+# DFT matrices), largest |difference| over largest |output|
+FUSED_DB = -125.0
+FUSED_REL = 2e-6
+FUSED_PLAIN_ROWS = 64     # rows held against the plain version on the host
+FUSED_DB_ROWS = 256       # rows held against float64
+
+
+def hold_czt_fused(band: str, Bk: int, dev) -> dict:
+    """The fused chirp-z kernel at a wide band on Bk recordings of random
+    symbols, read through the cut's strided view (row stride n_fft + cp):
+    against its plain version on the host (FUSED_PLAIN_ROWS rows, within
+    FUSED_REL of the largest output; also 8 rows cut to 99 samples short
+    of 2L/3), against the chain around cuFFT on the card (same tables,
+    within FUSED_REL), and against a float64 DFT (FUSED_DB_ROWS rows) at
+    150 ppm, 0 and −9e-4 (≤ FUSED_DB); then the kernel's µs beside its byte bound (the real samples in, the bins out)
+    and the chain's µs, both from torch.profiler, and CUDA-event ms of each
+    call and of the chirp tables with the reordering of H."""
+    from gf3x_torch import GF3_STANDARD
+    from gf3x_torch.ops.kernels import czt
+    from gf3x_torch.ops.ofdm import chirp_tables, czt_chain, czt_length
+
+    cfg = GF3_STANDARD.replace(**WIDE_BANDS[band])
+    N, M, L = cfg.n_fft, cfg.n_used, czt_length(cfg)
+    check(czt.takes_fused(L, N, M), f"{band}: L {L} does not take the fused "
+          "kernel")
+    S = cfg.n_known_symbols + cfg.n_data_symbols
+    g = torch.Generator(dev).manual_seed(Bk)
+    body = torch.randn(Bk, S * cfg.symbol_len, device=dev, generator=g)
+    strided = body.reshape(Bk, S, cfg.symbol_len)[..., cfg.cp:]
+    rows = Bk * S
+    out = dict(band=band, batch=Bk, rows=rows, N=N, L=L, M=M,
+               radices=list(czt.fused_radices(L)),
+               smem_bytes=czt.fused_smem_bytes(L), db={})
+    flat = strided.reshape(rows, N)
+    for label, d in (("150ppm", SFO_PPM * 1e-6), ("zero", 0.0),
+                     ("minus_9e-4", -9e-4)):
+        d = torch.tensor(np.float32(d), device=dev)
+        pre, post, H = chirp_tables(cfg, d, dev, L)
+        hf = czt.filter_table(H)
+        y = czt.czt_fused(strided, pre, hf, post)
+        n = min(rows, FUSED_DB_ROWS)
+        out["db"][label] = warped_db(cfg, flat[:n], d, y[:n])
+        check(out["db"][label] <= FUSED_DB, f"fused chirp-z at {band}, B = "
+              f"{Bk}, {label}: {out['db'][label]:.1f} dB > {FUSED_DB}")
+        if label == "150ppm":
+            n = min(rows, FUSED_PLAIN_ROWS)
+            yp = czt.czt_fused_plain(flat[:n].cpu(), pre.cpu(), hf.cpu(),
+                                     post.cpu())
+            out["rel_plain"] = float((y[:n].cpu() - yp).abs().max()
+                                     / yp.abs().max())
+            out["bit_for_bit_plain"] = bool(torch.equal(y[:n].cpu(), yp))
+            ch = czt_chain(strided, pre, H, post)
+            out["rel_chain"] = float((y - ch).abs().max() / ch.abs().max())
+            out["db_chain"] = warped_db(cfg, flat[:min(rows, FUSED_DB_ROWS)],
+                                        d, ch[:FUSED_DB_ROWS])
+            del ch
+            # fewer samples than the padding leaves room for: the loads
+            # past N read as zeros
+            n = 2 * L // 3 - 99
+            ys = czt.czt_fused(flat[:8, :n], pre[:n].contiguous(), hf, post)
+            yp = czt.czt_fused_plain(flat[:8, :n].cpu(), pre[:n].cpu(),
+                                     hf.cpu(), post.cpu())
+            out["rel_plain_short_rows"] = float((ys.cpu() - yp).abs().max()
+                                                / yp.abs().max())
+            for k in ("rel_plain", "rel_chain", "rel_plain_short_rows"):
+                check(out[k] <= FUSED_REL, f"fused chirp-z at {band}, B = "
+                      f"{Bk}: {k} {out[k]:.2e} > {FUSED_REL}")
+            out["kernel_us"] = kernel_us(
+                lambda: czt.czt_fused(strided, pre, hf, post),
+                ["czt_fused_kernel"])["us"]
+            out["chain_us"] = kernel_us(
+                lambda: czt_chain(strided, pre, H, post),
+                ["czt_pre_kernel", "fft", "elementwise", "czt_post_kernel"])
+            out["fused_ms"] = event_ms(
+                lambda: czt.czt_fused(strided, pre, hf, post), 20)
+            out["chain_ms"] = event_ms(
+                lambda: czt_chain(strided, pre, H, post), 20)
+            out["tables_ms"] = event_ms(
+                lambda: czt.filter_table(chirp_tables(cfg, d, dev, L)[2]), 20)
+            out.update(bound(rows * (4 * N + 8 * M)))
+    out["kernel_over_bound"] = 1e-3 * out["kernel_us"] / out["bound_ms"]
+    print(f"{band} B = {Bk} ({rows} rows, L {L}): fused {out['kernel_us']:.1f}"
+          f" us kernel (bound {1e3 * out['bound_ms']:.1f} us, "
+          f"{out['kernel_over_bound']:.2f}x), chain "
+          f"{out['chain_us']['us']:.1f} us; rel to plain "
+          f"{out['rel_plain']:.2e}, to chain {out['rel_chain']:.2e}; dB "
+          f"{ {k: round(v, 2) for k, v in out['db'].items()} }", flush=True)
+    return out
+
+
 def warped_dft_only() -> None:
     """`--warped-dft`: the δ-warped DFT of the clock-offset route on the
     card. At each wide band, B_WARPED rows of random symbols against a
     float64 DFT at 150 ppm (the cell's clock pair), 0 and −9e-4 (≤
     WARPED_DFT_DB). At gf3-8192 the recipe's batch at +SFO_PPM (B = 1024)
     cut and its δ̂ found by the loop: the whole batch's warped DFT against
-    float64 at δ̂ beside gf3x's float32 formula's; `czt_pre` and
-    `czt_post` against their plain versions and timed beside their bounds
-    (`hold_czt_kernels`); CUDA-event ms of the whole warped call on the cut's
-    strided view, as the route runs it, beside the dense product over the
-    reduced angle's tables (`library_ms`, which the port never runs), of
-    the call at each FFT length of CZT_LENGTHS, its kernels by name, and
-    the chirp tables' share of a `demodulate_sfo` step; the step's peak
-    memory. One JSON line, then the card's name and power limit."""
+    float64 at δ̂ (≤ FUSED_DB) beside gf3x's float32 formula's; the
+    chain's `czt_pre` and `czt_post` against their plain versions and
+    timed beside their bounds (`hold_czt_kernels`); the fused kernel at
+    each wide band at B = 1024 and 1 (`hold_czt_fused`); CUDA-event ms of
+    the whole warped call on the cut's strided view, as the route runs it,
+    beside the chain's and the dense product over the reduced angle's
+    tables (`library_ms`, which the port never runs), of the call at each
+    FFT length of CZT_LENGTHS, its kernels by name, a `demodulate_sfo`
+    step's counters (every warped row through the fused kernel), and the
+    chirp tables' share of the step's device time; the step's peak memory.
+    One JSON line, then the card's name and power limit."""
     from gf3x_torch import GF3_STANDARD, Modem
-    from gf3x_torch.ops.ofdm import (chirp_tables, czt_dft, czt_length,
-                                     ofdm_dft, unreduced_angle)
+    from gf3x_torch.ops.kernels.czt import filter_table
+    from gf3x_torch.ops.ofdm import (chirp_tables, czt_chain, czt_dft,
+                                     czt_length, ofdm_dft, unreduced_angle)
+    from gf3x_torch.utils import profiling
     from gf3x_torch.utils.device import kernel_lib
 
     smi = subprocess.run(
@@ -2065,32 +2166,52 @@ def warped_dft_only() -> None:
                delta_ppm=float(delta) * 1e6)
     out["db_delta_hat"] = warped_db(cfg, strided, delta,
                                     ofdm_dft(cfg, strided, delta))
-    check(out["db_delta_hat"] <= WARPED_DFT_DB, f"warped DFT at B = {B}, "
-          f"δ̂: {out['db_delta_hat']:.1f} dB > {WARPED_DFT_DB}")
+    check(out["db_delta_hat"] <= FUSED_DB, f"warped DFT at B = {B}, "
+          f"δ̂: {out['db_delta_hat']:.1f} dB > {FUSED_DB}")
     out["db_gf3x_formula"] = warped_db(cfg, strided, delta, dense_dft(
         cfg, strided, delta, unreduced_angle))
     out["kernels"] = hold_czt_kernels(cfg, strided, delta, dev)
+    out["fused"] = [hold_czt_fused(band, Bk, dev) for band in WARPED_BANDS
+                    for Bk in (B, 1)]
     L0 = czt_length(cfg)
     out["table_ms"] = event_ms(lambda: chirp_tables(cfg, delta, dev, L0), 20)
-    out["table_ops_us"] = device_ops(lambda: chirp_tables(cfg, delta, dev,
-                                                          L0))
+    # a call's tables on the device: chirp_tables and H's reordering
+    out["table_ops_us"] = device_ops(lambda: filter_table(chirp_tables(
+        cfg, delta, dev, L0)[2]))
     out["warped_dft_ms"] = event_ms(lambda: ofdm_dft(cfg, strided, delta), 5)
     out["fft_length_ms"] = {L: event_ms(lambda: czt_dft(
         cfg, strided, delta, L), 5) for L in CZT_LENGTHS}
+    pre, post, H = chirp_tables(cfg, delta, dev, L0)
+    out["chain_ms"] = event_ms(lambda: czt_chain(strided, pre, H, post), 5)
+    del pre, post, H
     out["warped_dft_ops_us"] = device_ops(lambda: ofdm_dft(cfg, strided,
                                                            delta))
     out["library_ms"] = event_ms(lambda: dense_dft(cfg, strided, delta,
                                                    reduced_angle), 3)
+    profiling.reset()
+    with profiling.recording():
+        modem.demodulate_sfo(rx)
+    out["counters"] = profiling.counters()
+    profiling.reset()
+    c = out["counters"]
+    check(c["ofdm.czt_fused_rows"] == c["ofdm.czt_rows"]
+          == c["ofdm.warped_rows"] == 2 * out["rows"], f"a demodulate_sfo "
+          f"step's counters: {c}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     out["step_ms"] = median_ms(lambda: modem.demodulate_sfo(rx), runs=5)
     out["step_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-    out["table_share_of_step_pct"] = (200.0 * out["table_ms"]
-                                      / out["step_ms"])
+    # the step is the device's (the host runs well ahead of it), so the
+    # tables cost it their device time; table_ms, CUDA events over
+    # back-to-back calls, is the rate the host launches them at
+    out["table_share_of_step_pct"] = (
+        0.2 * sum(out["table_ops_us"].values()) / out["step_ms"])
+    out["table_host_share_of_step_pct"] = (200.0 * out["table_ms"]
+                                            / out["step_ms"])
     record("warped_dft", out, print_too=True)
     check(out["table_share_of_step_pct"] < 1.0, f"the chirp tables of the "
           f"two warped calls take {out['table_share_of_step_pct']:.2f} % of "
-          "a step")
+          "a step's device time")
     print(smi, flush=True)
 
 
@@ -2124,12 +2245,14 @@ def run_wide_routes(counters, total, modem, rx, payload, delays,
         for name in ("minsum_totals", "fused_eq_demap"):
             check(launches[name] > 0, f"wide {label}, {route}: {name} did "
                   f"not launch: {launches}")
-        # the loop's two warped DFTs, each one chirp-z transform
+        # the loop's two warped DFTs, each one launch of the fused chirp-z
+        # kernel (every wide band's L is one it is built for)
         want = 0 if route == "dd" else 2
-        check(launches["czt_pre"] == launches["czt_post"] == want,
-              f"wide {label}, {route}: the chirp-z passes launched "
-              f"{launches['czt_pre']} and {launches['czt_post']} times, not "
-              f"{want}")
+        check(launches["czt_fused"] == want
+              and launches["czt_pre"] == launches["czt_post"] == 0,
+              f"wide {label}, {route}: the fused chirp-z kernel launched "
+              f"{launches['czt_fused']} times, not {want}, the chain's passes "
+              f"{launches['czt_pre']} and {launches['czt_post']}, not 0")
         sum_counts(total, launches)
         ppm = diag.clock_ppm.float()
         if route != "dd":

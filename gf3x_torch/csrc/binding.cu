@@ -61,6 +61,9 @@ int gf3x_czt_pre(const float*, const float2*, float2*, long long, long long,
                  long long, long long, int, int, void*);
 int gf3x_czt_post(const float2*, const float2*, float2*, long long, int, int,
                   void*);
+int gf3x_czt_fused(const float*, const float2*, const float2*, const float2*,
+                   const float2*, float2*, long long, long long, long long,
+                   long long, int, int, int, void*);
 const char* gf3x_error_string(int);
 }
 
@@ -168,6 +171,9 @@ ENTRY(gf3x_czt_pre, "pppllllllp",
                    P(9)))
 ENTRY(gf3x_czt_post, "ppplllp",
       gf3x_czt_post(P(0), P(1), P(2), L(3), I(4), I(5), P(6)))
+ENTRY(gf3x_czt_fused, "pppppplllllllp",
+      gf3x_czt_fused(P(0), P(1), P(2), P(3), P(4), P(5), L(6), L(7), L(8),
+                     L(9), I(10), I(11), I(12), P(13)))
 
 PyObject* py_gf3x_error_string(PyObject*, PyObject* const* a, Py_ssize_t n) {
     Val v[1];
@@ -188,6 +194,7 @@ PyMethodDef kMethods[] = {
     METHOD(gf3x_minsum_decode_blocks), METHOD(gf3x_minsum_decode),
     METHOD(gf3x_fec_gather),     METHOD(gf3x_fec_gather_tile),
     METHOD(gf3x_czt_pre),        METHOD(gf3x_czt_post),
+    METHOD(gf3x_czt_fused),
     METHOD(gf3x_error_string),
     {nullptr, nullptr, 0, nullptr}};
 

@@ -1,8 +1,9 @@
 """OFDM layer: batched real-FFT modulation with cyclic prefix, the used-band
 DFT of CP-stripped symbols and its δ-warped form for the clock-offset loop
 (counterpart of gf3x/ops/ofdm.py's CPU route: `torch.fft`, which is cuFFT on
-the card; the wide bands' warped form a chirp-z transform around cuFFT),
-and the deroll ramp of a block-grid cut."""
+the card; the wide bands' warped form a chirp-z transform, one hand-written
+kernel a row at gf3-4096, gf3-8192 and gf3-16384), and the deroll ramp of a
+block-grid cut."""
 
 from __future__ import annotations
 
@@ -11,11 +12,12 @@ import torch
 
 from ..config import ModemConfig
 from ..utils.profiling import count, span
-from .kernels.czt import czt_post, czt_pre
+from .kernels.czt import (czt_fused, czt_post, czt_pre, filter_table,
+                          takes_fused)
 
 __all__ = ["ofdm_modulate", "ofdm_demodulate", "ofdm_dft", "warped_angle",
            "unreduced_angle", "UNREDUCED_MAX_ANGLE", "takes_czt", "czt_length",
-           "chirp_tables", "czt_dft", "deroll", "matmul_f32"]
+           "chirp_tables", "czt_dft", "czt_chain", "deroll", "matmul_f32"]
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -150,16 +152,29 @@ def czt_dft(cfg: ModemConfig, sym: torch.Tensor, delta,
             L: int | None = None) -> torch.Tensor:
     """The δ-warped used-band DFT as a chirp-z transform: (..., S, n_fft)
     float32 → (..., S, n_used) complex64, scaled by 1/ofdm_scale, exact to
-    float32's rounding (−129 to −135 dB against float64 at the wide
-    bands). `czt_pre`
-    (reads the rows at their strides) → cuFFT over L (`czt_length`
-    unless given) → the product with H → the inverse FFT, unscaled (1/L is
-    in H) → `czt_post`."""
+    float32's rounding (−131 to −135 dB against float64 at the wide
+    bands). Over L (`czt_length` unless given), by shape alone: the fused
+    kernel where `takes_fused` (L = 6144, 12 288, 24 576: gf3-4096,
+    gf3-8192, gf3-16384), H reordered for it (`filter_table`); else the
+    chain around cuFFT (`czt_chain`)."""
     L = L or czt_length(cfg)
     pre, post, H = chirp_tables(cfg, delta, sym.device, L)
-    z = torch.fft.fft(czt_pre(sym, pre, L))
+    if takes_fused(L, cfg.n_fft, cfg.n_used):
+        y = czt_fused(sym, pre, filter_table(H), post)
+    else:
+        y = czt_chain(sym, pre, H, post)
+    return y.reshape(*sym.shape[:-1], cfg.n_used)
+
+
+def czt_chain(sym: torch.Tensor, pre: torch.Tensor, H: torch.Tensor,
+              post: torch.Tensor) -> torch.Tensor:
+    """The chirp-z transform as five passes, at any L = H's length:
+    `czt_pre` (reads the rows at their strides) → cuFFT over L → the
+    product with H → the inverse FFT, unscaled (1/L is in H) → `czt_post`;
+    (rows, M) complex64."""
+    z = torch.fft.fft(czt_pre(sym, pre, H.shape[0]))
     z = torch.fft.ifft(z.mul_(H), norm="forward")
-    return czt_post(z, post).reshape(*sym.shape[:-1], cfg.n_used)
+    return czt_post(z, post)
 
 
 def ofdm_dft(cfg: ModemConfig, sym: torch.Tensor,
@@ -173,8 +188,9 @@ def ofdm_dft(cfg: ModemConfig, sym: torch.Tensor,
     product over the cos/sin tables of `warped_angle`, built on the
     tensor's device. The warped branch is the `warped_dft` span and counts
     its transforms (`ofdm.warped_dfts`), the symbol rows they take
-    (`ofdm.warped_rows`) and those of them the chirp-z transform takes
-    (`ofdm.czt_rows`)."""
+    (`ofdm.warped_rows`), those of them the chirp-z transform takes
+    (`ofdm.czt_rows`) and those of these its fused kernel takes
+    (`ofdm.czt_fused_rows`)."""
     if delta is None:
         spec = torch.fft.rfft(sym, cfg.n_fft, dim=-1)
         return spec[..., cfg.bin_lo: cfg.bin_hi + 1] / np.float32(
@@ -186,6 +202,8 @@ def ofdm_dft(cfg: ModemConfig, sym: torch.Tensor,
         xr = sym.to(torch.float32)
         if takes_czt(cfg):
             count("ofdm.czt_rows", rows)
+            if takes_fused(czt_length(cfg), cfg.n_fft, cfg.n_used):
+                count("ofdm.czt_fused_rows", rows)
             return czt_dft(cfg, xr, delta)
         th = warped_angle(cfg, delta, sym.device)
         inv = np.float32(1.0 / cfg.ofdm_scale)

@@ -34,8 +34,9 @@ with no launch added: the codewords the check pass queued for it
 the codewords it was given (`ldpc.codewords`). The plain (CPU) route counts
 the same from its `passes` with torch ops. The host also counts, from
 shapes, the δ-warped DFTs a call ran (`ofdm.warped_dfts`), the symbol
-rows they transformed (`ofdm.warped_rows`) and those of the rows the
-chirp-z transform took (`ofdm.czt_rows`), through `count`.
+rows they transformed (`ofdm.warped_rows`), those of the rows the
+chirp-z transform took (`ofdm.czt_rows`) and those of these its fused
+kernel took (`ofdm.czt_fused_rows`), through `count`.
 
 An operator's stage times, without the profiler's overhead:
 
@@ -73,7 +74,7 @@ __all__ = ["trace", "maybe_trace", "span", "recording", "span_totals",
 _NOOP = contextlib.nullcontext()
 # the counts kept on the host
 HOST_COUNTS = ("ldpc.codewords", "ofdm.warped_dfts", "ofdm.warped_rows",
-               "ofdm.czt_rows")
+               "ofdm.czt_rows", "ofdm.czt_fused_rows")
 
 
 class Span(NamedTuple):
@@ -223,11 +224,12 @@ def span_totals() -> dict:
 
 def counters() -> dict:
     """{"ldpc.codewords", "ldpc.queued", "ldpc.sweeps", "ofdm.warped_dfts",
-    "ofdm.warped_rows", "ofdm.czt_rows"} counted while tracing was on: the
-    codewords given to the LDPC decoder, those the check pass queued for
-    the decode pass and the sweeps they ran; the δ-warped DFTs run, the
-    symbol rows they transformed and those of the rows the chirp-z
-    transform took. Synchronises the device."""
+    "ofdm.warped_rows", "ofdm.czt_rows", "ofdm.czt_fused_rows"} counted
+    while tracing was on: the codewords given to the LDPC decoder, those
+    the check pass queued for the decode pass and the sweeps they ran; the
+    δ-warped DFTs run, the symbol rows they transformed, those of the rows
+    the chirp-z transform took and those of these its fused kernel took.
+    Synchronises the device."""
     queued = sweeps = 0
     for b in _T.buffers.values():
         q, s = b.tolist()     # waits for the work queued before it
@@ -236,7 +238,8 @@ def counters() -> dict:
     return {"ldpc.codewords": c["ldpc.codewords"], "ldpc.queued": queued,
             "ldpc.sweeps": sweeps, "ofdm.warped_dfts": c["ofdm.warped_dfts"],
             "ofdm.warped_rows": c["ofdm.warped_rows"],
-            "ofdm.czt_rows": c["ofdm.czt_rows"]}
+            "ofdm.czt_rows": c["ofdm.czt_rows"],
+            "ofdm.czt_fused_rows": c["ofdm.czt_fused_rows"]}
 
 
 def count(name: str, n: int) -> None:

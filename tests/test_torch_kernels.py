@@ -282,6 +282,45 @@ def test_czt_wrapper_dispatch(pass_):
     assert fn.launches == before
 
 
+def test_czt_fused_wrapper_dispatch():
+    """The fused chirp-z kernel's wrapper: CPU tensors run the plain
+    version (on the cut's strided view, rows of two recordings) and launch
+    nothing; a wrong dtype, a table of the wrong shape, an L it is not
+    built for, N past 2L/3 or M past L/3, or tensors on another device
+    than the CPU or one card are refused, with no launch."""
+    rng = np.random.default_rng(4)
+    L, N, M, cp = 6144, 4096, 1120, 1024
+    body = torch.as_tensor(rng.standard_normal((2, 3 * (N + cp))),
+                           dtype=torch.float32)
+    sym = body.reshape(2, 3, N + cp)[..., cp:]
+    pre, hr, post = (torch.as_tensor(np.exp(1j * rng.uniform(0, 7, n)),
+                                     dtype=torch.complex64)
+                     for n in (N, L, M))
+    before = czt.czt_fused.launches
+    got = czt.czt_fused(sym, pre, hr, post)
+    assert got.shape == (6, M) and got.dtype == torch.complex64
+    assert torch.equal(got, czt.czt_fused_plain(sym, pre, hr, post))
+    assert torch.equal(got[3:], czt.czt_fused_plain(sym[1], pre, hr, post))
+    long_pre = torch.ones(L + 3, dtype=torch.complex64)
+    bads = ((sym.double(), pre, hr, post), (sym, pre.to(torch.complex128),
+                                            hr, post),
+            (sym, pre, hr.to(torch.complex128), post),
+            (sym, pre, hr, post.to(torch.complex128)),
+            (sym, pre[:-1], hr, post), (sym, pre, hr[:-1], post),
+            (sym, pre, hr[None], post), (sym, pre, hr, post[None]),
+            (sym, pre, torch.ones(16384, dtype=torch.complex64), post),
+            (torch.zeros(2, L + 3), long_pre, hr, post),
+            (torch.zeros(2, N + 1), torch.ones(N + 1, dtype=torch.complex64),
+             hr, post),
+            (sym, pre, hr, torch.ones(L // 3 + 1, dtype=torch.complex64)),
+            (sym.to("meta"), pre.to("meta"), hr.to("meta"), post.to("meta")),
+            (sym, pre, hr.to("meta"), post))
+    for bad in bads:
+        with pytest.raises(ValueError):
+            czt.czt_fused(*bad)
+    assert czt.czt_fused.launches == before
+
+
 def test_fec_gather_chunk_fills_the_card():
     """The indexed kernel's block walks a whole number of passes, at most
     MAX_CHUNK outputs of one row; one recording spreads its row over every

@@ -172,28 +172,183 @@ def float64_dft_db(cfg, syms, delta, got) -> float:
     return 10 * np.log10(err / sig)
 
 
+def _strided_symbols(cfg, seed):
+    """Two recordings of two symbols each, CP-stripped through a strided
+    view as the cut leaves them (row stride n_fft + cp)."""
+    rng = np.random.default_rng(seed)
+    body = rng.standard_normal((2, 2 * cfg.symbol_len)).astype(np.float32)
+    view = torch.as_tensor(body).reshape(2, 2, cfg.symbol_len)[..., cfg.cp:]
+    assert not view.is_contiguous()
+    return view
+
+
 @pytest.mark.parametrize("delta", [0.0, 1.5e-4, -9e-4, 1e-3])
 @pytest.mark.parametrize("n_fft", CZT_BANDS)
 def test_czt_holds_float64(n_fft, delta):
-    """The chirp-z transform's plain version (`czt_dft`, which
-    `ofdm_dft(delta=δ)` runs at every wide band) against a float64 DFT at
-    ≤ −125 dB, on symbols read through a strided view as the cut leaves
-    them (row stride n_fft + cp): tables in float64 rounded once, the
-    FFTs in float32."""
+    """The chirp-z transform's chain (`czt_chain`: `czt_pre`, the FFT, the
+    product with H, the inverse, `czt_post`, in their plain versions;
+    `czt_dft` takes it at any L the fused kernel is not built for) against
+    a float64 DFT at ≤ −125 dB, on symbols read through a strided view as
+    the cut leaves them (row stride n_fft + cp): tables in float64 rounded
+    once, the FFTs in float32."""
     from gf3x_torch import GF3_STANDARD as T_STANDARD
 
     cfg = T_STANDARD.replace(**WARPED_BANDS[n_fft])
     assert tofdm.takes_czt(cfg)
-    rng = np.random.default_rng(7)
-    body = rng.standard_normal((2, 2 * cfg.symbol_len)).astype(np.float32)
-    view = torch.as_tensor(body).reshape(2, 2, cfg.symbol_len)[..., cfg.cp:]
-    assert not view.is_contiguous()
+    view = _strided_symbols(cfg, 7)
+    d = torch.tensor(np.float32(delta))
+    pre, post, H = tofdm.chirp_tables(cfg, d, "cpu", tofdm.czt_length(cfg))
+    got = tofdm.czt_chain(view, pre, H, post)
+    assert got.shape == (4, cfg.n_used) and got.dtype == torch.complex64
+    got = got.reshape(2, 2, cfg.n_used)
+    db = float64_dft_db(cfg, view.numpy(), np.float32(delta), got.numpy())
+    assert db <= -125.0, (n_fft, delta, db)
+
+
+@pytest.mark.parametrize("delta", [0.0, 1.5e-4, -9e-4, 1e-3])
+@pytest.mark.parametrize("n_fft", CZT_BANDS)
+def test_czt_fused_holds_float64(n_fft, delta):
+    """The fused kernel's plain version (`czt_fused_plain`, which
+    `ofdm_dft(delta=δ)` runs at every wide band: its radix-3 and radix-2^b
+    stages, the digit-reversed product with H, the inverse stages, in
+    float32) against a float64 DFT at ≤ −125 dB, on the cut's strided
+    view."""
+    from gf3x_torch import GF3_STANDARD as T_STANDARD
+    from gf3x_torch.ops.kernels import czt
+
+    cfg = T_STANDARD.replace(**WARPED_BANDS[n_fft])
+    L = tofdm.czt_length(cfg)
+    assert czt.takes_fused(L, cfg.n_fft, cfg.n_used)
+    view = _strided_symbols(cfg, 7)
     d = torch.tensor(np.float32(delta))
     got = tofdm.czt_dft(cfg, view, d)
     assert got.shape == (2, 2, cfg.n_used) and got.dtype == torch.complex64
     assert torch.equal(tofdm.ofdm_dft(cfg, view, d), got)
+    pre, post, H = tofdm.chirp_tables(cfg, d, "cpu", L)
+    assert torch.equal(czt.czt_fused_plain(view, pre, czt.filter_table(H),
+                                           post).reshape(got.shape), got)
     db = float64_dft_db(cfg, view.numpy(), np.float32(delta), got.numpy())
     assert db <= -125.0, (n_fft, delta, db)
+
+
+@pytest.mark.parametrize("n_fft", CZT_BANDS)
+def test_czt_fused_matches_the_chain(n_fft):
+    """The fused kernel's plain version against the chain's on the same
+    tables, at δ = 1.5e-4 and −9e-4, on whole rows and on rows 99 samples
+    short: ≤ −125 dB of the chain's energy (two float32 computations of
+    one exact transform)."""
+    from gf3x_torch import GF3_STANDARD as T_STANDARD
+    from gf3x_torch.ops.kernels import czt
+
+    cfg = T_STANDARD.replace(**WARPED_BANDS[n_fft])
+    L = tofdm.czt_length(cfg)
+    view = _strided_symbols(cfg, 8)
+    n = cfg.n_fft - 99     # rows shorter than the padding leaves room for
+    for delta in map(np.float32, (1.5e-4, -9e-4)):
+        pre, post, H = tofdm.chirp_tables(cfg, torch.tensor(delta), "cpu", L)
+        for x, p in ((view, pre), (view[..., :n], pre[:n])):
+            fused = czt.czt_fused_plain(x, p, czt.filter_table(H), post)
+            chain = tofdm.czt_chain(x, p, H, post)
+            db = 10 * np.log10(float((fused - chain).abs().pow(2).sum()
+                                     / chain.abs().pow(2).sum()))
+            assert db <= -125.0, (n_fft, delta, x.shape[-1], db)
+
+
+def test_czt_route_is_chosen_by_length(monkeypatch):
+    """`czt_dft` takes the fused kernel at the lengths it is built for
+    (6144, 12 288, 24 576: the three wide bands) where N ≤ 2L/3 and
+    M ≤ L/3, and the chain at any other L, a length not built (16 384) or
+    one whose block would not fit in shared memory (49 152, past
+    SMEM_BLOCK); both give the transform."""
+    from gf3x_torch import GF3_STANDARD as T_STANDARD
+    from gf3x_torch.ops.kernels import czt
+    from gf3x_torch.utils.device import SMEM_BLOCK
+
+    assert [tofdm.czt_length(T_STANDARD.replace(**WARPED_BANDS[n]))
+            for n in CZT_BANDS] == list(czt.FUSED_LENGTHS)
+    for n, L in zip(CZT_BANDS, czt.FUSED_LENGTHS):
+        c = T_STANDARD.replace(**WARPED_BANDS[n])
+        assert czt.takes_fused(L, c.n_fft, c.n_used)
+        assert czt.fused_smem_bytes(L) <= SMEM_BLOCK
+        # the radix-3 stages' pruning: N ≤ 2L/3 in, M ≤ L/3 out
+        assert czt.takes_fused(L, 2 * L // 3, L // 3)
+        assert not czt.takes_fused(L, 2 * L // 3 + 1, L // 3)
+        assert not czt.takes_fused(L, 2 * L // 3, L // 3 + 1)
+    assert czt.fused_smem_bytes(12288) == 8 * (12288 + 768 + 64 + 192 + 256)
+    assert czt.fused_smem_bytes(49152) > SMEM_BLOCK
+    for L in (16384, 49152, 3 << 20, 4096):
+        assert not czt.takes_fused(L, L // 2, L // 8)
+    cfg = T_STANDARD.replace(**WARPED_BANDS[8192])
+    view = _strided_symbols(cfg, 9)
+    d = torch.tensor(np.float32(1.5e-4))
+    taken = []
+    for name in ("czt_fused", "czt_chain"):
+        real = getattr(tofdm, name)
+        monkeypatch.setattr(tofdm, name, lambda *a, _f=real, _n=name: (
+            taken.append(_n), _f(*a))[1])
+    fused = tofdm.czt_dft(cfg, view, d)
+    chain = tofdm.czt_dft(cfg, view, d, 16384)
+    assert taken == ["czt_fused", "czt_chain"]
+    for got in (fused, chain):
+        db = float64_dft_db(cfg, view.numpy(), np.float32(1.5e-4),
+                            got.numpy())
+        assert db <= -125.0, db
+
+
+@pytest.mark.parametrize("L", [6144, 12288, 24576])
+def test_fused_stages_and_twiddles(L):
+    """The fused kernel's factorisation: its radices multiply to L, radix 3
+    first and radix 16 last; the twiddle table's entries are e^{−2πie/L}
+    (the fine ones at their swizzled slots) and e^{−2πi·kq/256} (at
+    [k][q]) rounded once, coarse·fine reaches every ω_L^e
+    within 2.5e-7, and every stage's twiddle ω_S^{qk} as the kernel forms
+    it is within 5e-7;
+    `digit_reversed` is the order the forward stages leave the spectrum
+    in (the plain forward stages of a unit impulse at bin k put 1 at the
+    position holding k), and `filter_table` holds it as the kernel reads
+    it."""
+    from gf3x_torch.ops.kernels import czt
+
+    rad = czt.fused_radices(L)
+    assert rad[0] == 3 and rad[-1] == 16 and int(np.prod(rad)) == L
+    assert set(rad[1:]) <= {2, 4, 8, 16} and rad.count(16) >= len(rad) - 2
+    tab = czt.twiddle_table(L, "cpu").numpy().astype(np.complex128)
+    slots = czt._fine_slot(np.arange(64))
+    assert sorted(slots) == list(range(64))
+    kq = np.outer(np.arange(16), np.arange(16)).ravel()   # [k][q]
+    assert np.abs(tab[slots] - np.exp(-2j * np.pi * np.arange(64) / L)
+                  ).max() <= 6e-8
+    e = np.concatenate([64 * np.arange(L // 64), L // 256 * kq])
+    assert np.abs(tab[64:] - np.exp(-2j * np.pi * e / L)).max() <= 6e-8
+    for R, S, W, tw in czt._fused_stages(L, "cpu"):
+        assert (tw is None) == (S == R)
+        if tw is not None:
+            qk = np.arange(R)[:, None] * np.arange(S // R)[None, :]
+            assert np.abs(tw.numpy() - np.exp(-2j * np.pi * qk / S)).max() \
+                <= 5e-7, (L, S)
+    e = np.arange(L)
+    fine = torch.as_tensor(tab[slots].astype(np.complex64))
+    got = (czt.twiddle_table(L, "cpu")[64 + (e >> 6)] * fine[e & 63]).numpy()
+    assert np.abs(got - np.exp(-2j * np.pi * e / L)).max() <= 2.5e-7
+    # the spectrum of e^{−2πi·n·k/L}·… : X = L·δ[bin k]; its digit-reversed
+    # position is where digit_reversed(arange) holds k
+    pos = czt.digit_reversed(torch.arange(L))
+    assert sorted(pos.tolist()) == list(range(L))
+    # filter_table: the same order, pairs of a lane's 16 points laid out so
+    # that 32 lanes' loads of one pair are contiguous
+    hf = czt.filter_table(torch.arange(L))
+    g, k = np.meshgrid(np.arange(L // 16), np.arange(8), indexing="ij")
+    at = 2 * (256 * (g // 32) + 32 * k + g % 32)
+    assert torch.equal(hf[at], pos[16 * g + 2 * k])
+    assert torch.equal(hf[at + 1], pos[16 * g + 2 * k + 1])
+    for k in (0, 1, 3, 17, L // 3 + 5, L - 1):
+        p = int((pos == k).nonzero())
+        x = torch.as_tensor(np.exp(2j * np.pi * k * np.arange(L) / L)
+                            .astype(np.complex64))[None]
+        for R, S, W, tw in czt._fused_stages(L, "cpu"):
+            b = torch.einsum("nbjq,jk->nbkq", x.view(1, L // S, R, S // R), W)
+            x = (b if tw is None else b * tw).reshape(1, L)
+        assert int(x.abs().argmax()) == p, (L, k)
 
 
 @pytest.mark.parametrize("n_fft", CZT_BANDS)
@@ -231,7 +386,8 @@ def test_chirp_tables_are_their_closed_forms(n_fft):
 def test_czt_rows_are_counted(n_fft):
     """`ofdm.czt_rows` counts the symbol rows the chirp-z transform takes:
     every warped row at a wide band, none at config 5 (gf3x's dense
-    product) and none of an unwarped DFT."""
+    product) and none of an unwarped DFT; `ofdm.czt_fused_rows` those of
+    them its fused kernel takes: all of them at the three wide bands."""
     from gf3x_torch import GF3_STANDARD as T_STANDARD
     from gf3x_torch.utils import profiling
 
@@ -247,6 +403,7 @@ def test_czt_rows_are_counted(n_fft):
         profiling.reset()
     assert (c["ofdm.warped_dfts"], c["ofdm.warped_rows"]) == (1, 6)
     assert c["ofdm.czt_rows"] == (6 if n_fft > 1024 else 0)
+    assert c["ofdm.czt_fused_rows"] == c["ofdm.czt_rows"]
 
 
 def _known_rx(rng, B=3):

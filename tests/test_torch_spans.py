@@ -126,7 +126,8 @@ def test_spans_off_record_nothing(cpu_case, clean, monkeypatch):
     assert profiling.counters() == {"ldpc.codewords": 0, "ldpc.queued": 0,
                                     "ldpc.sweeps": 0, "ofdm.warped_dfts": 0,
                                     "ofdm.warped_rows": 0,
-                                    "ofdm.czt_rows": 0}
+                                    "ofdm.czt_rows": 0,
+                                    "ofdm.czt_fused_rows": 0}
 
 
 def test_span_totals_are_idempotent(cpu_case, clean):
@@ -170,7 +171,8 @@ def test_plain_ldpc_counts_are_the_passes(clean):
                                     "ldpc.sweeps": want_s,
                                     "ofdm.warped_dfts": 0,
                                     "ofdm.warped_rows": 0,
-                                    "ofdm.czt_rows": 0}
+                                    "ofdm.czt_rows": 0,
+                                    "ofdm.czt_fused_rows": 0}
 
 
 @pytest.fixture(scope="module")
@@ -290,7 +292,8 @@ def test_device_counters_on_the_card(clean, monkeypatch):
     assert profiling.counters() == {
         "ldpc.codewords": lam.shape[0], "ldpc.queued": int((passes > 0).sum()),
         "ldpc.sweeps": int(passes.sum()), "ofdm.warped_dfts": 0,
-        "ofdm.warped_rows": 0, "ofdm.czt_rows": 0}
+        "ofdm.warped_rows": 0, "ofdm.czt_rows": 0,
+        "ofdm.czt_fused_rows": 0}
 
     modem = Modem(CFG, max_delay=MARGIN + CFG.cp)
     rx = recordings(modem, 64, 4.0)

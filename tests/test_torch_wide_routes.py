@@ -177,7 +177,8 @@ def test_demodulate_sfo_decodes_a_clock_offset(modems, planted):
 def test_clock_offset_route_takes_the_chirp_z_transform(modems, planted):
     """`demodulate_sfo` at the band runs both warped DFTs (the δ₀ pass and
     the final demod) as chirp-z transforms on the cut's symbols: every
-    warped row is counted in `ofdm.czt_rows`, and the chirp-z passes' plain
+    warped row is counted in `ofdm.czt_rows` and, the band's L being one
+    the fused kernel is built for, in `ofdm.czt_fused_rows`; the plain
     versions run (CPU tensors), launching nothing."""
     from gf3x_torch.ops.kernels import czt
     from gf3x_torch.utils import profiling
@@ -185,7 +186,8 @@ def test_clock_offset_route_takes_the_chirp_z_transform(modems, planted):
     _, tm = modems
     rx, _, _ = planted
     S = tm.cfg.n_known_symbols + tm.cfg.n_data_symbols
-    before = (czt.czt_pre.launches, czt.czt_post.launches)
+    launches = (czt.czt_pre, czt.czt_post, czt.czt_fused)
+    before = [f.launches for f in launches]
     profiling.reset()
     try:
         with profiling.recording():
@@ -195,7 +197,8 @@ def test_clock_offset_route_takes_the_chirp_z_transform(modems, planted):
         profiling.reset()
     assert c["ofdm.warped_dfts"] == 2
     assert c["ofdm.czt_rows"] == c["ofdm.warped_rows"] == 2 * B * S
-    assert (czt.czt_pre.launches, czt.czt_post.launches) == before
+    assert c["ofdm.czt_fused_rows"] == c["ofdm.czt_rows"]
+    assert [f.launches for f in launches] == before
 
 
 def test_demodulate_sc_with_the_loop(modems, planted):
