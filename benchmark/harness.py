@@ -100,18 +100,23 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+def _replace(cell: Cell) -> dict:
+    """The config file's `replace` block with each list (a loading table)
+    as the tuple a ModemConfig holds."""
+    return {k: tuple(v) if isinstance(v, list) else v
+            for k, v in cell.config["replace"].items()}
+
+
 def reference_config(cell: Cell):
     """The reference's ModemConfig from the cell's config file."""
-    c = cell.config
-    return ref_config.preset(c["preset"]).replace(**c["replace"])
+    return ref_config.preset(cell.config["preset"]).replace(**_replace(cell))
 
 
 def _configs(cell: Cell):
     """(the program's ModemConfig, the reference's) from the config file."""
     from gf3x_torch.config import preset
 
-    c = cell.config
-    return (preset(c["preset"]).replace(**c["replace"]),
+    return (preset(cell.config["preset"]).replace(**_replace(cell)),
             reference_config(cell))
 
 

@@ -13,15 +13,17 @@ the per-symbol noise floor; the max-log demap; the deinterleave and
 descramble into codewords; layered normalised min-sum with a per-codeword
 freeze; and, for the clock-offset route, the SC coarse estimate, a warped
 demod whose pilot slopes give one batch-wide offset, and the final warped
-demod. Every table (chirp, known symbols, pilots, scrambler, interleaver,
-denoise projector, the code's edges and parity projector) is rebuilt here
-from the configuration; nothing is taken from the program.
+demod. A bit-loaded band (a `bit_loading` table) maps and demaps each
+bin at its own order (`loading.py`), its interleaver at R = Σ table. Every
+table (chirp, known symbols, pilots, scrambler, interleaver, loading
+groups, denoise projector, the code's edges and parity projector) is
+rebuilt here from the configuration; nothing is taken from the program.
 
 `Precision` sets the arithmetic: `F64` is the reference; `CONTROL` computes
 in float32 and rounds the recording and every stage's output (spectra, Ĥ,
 noise, equalised bins, LLRs) to TF32's 10-bit mantissa, the precision below
 the float32 (TF32 off) the program computes in; its caller runs the
-matrix products in TF32 where the device has it. Uniform constellations only (no bit loading).
+matrix products in TF32 where the device has it.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import torch
 from .bits import bytes_to_bits, pack_header
 from .codes import N_BLOCK_COLS, build_H_blocks, gf2_solve_parity
 from .config import ModemConfig, layout
+from .loading import axis_llr, gray_levels, gray_map, loaded_demap, \
+    loaded_map, loading
 
 __all__ = ["Precision", "F64", "CONTROL", "make_chirp", "info_bits",
            "encode_frames", "Receiver"]
@@ -81,20 +85,6 @@ def make_chirp(cfg: ModemConfig) -> np.ndarray:
     return cfg.chirp_amplitude * np.sin(phase) * win
 
 
-def _pam_levels(m: int) -> np.ndarray:
-    """Gray PAM: label ℓ → amplitude (M−1)−2·idx with ℓ = idx ^ (idx>>1)."""
-    M = 1 << m
-    idx = np.arange(M)
-    lut = np.empty(M)
-    lut[idx ^ (idx >> 1)] = (M - 1) - 2 * idx
-    return lut
-
-
-def _qam_norm(bps: int) -> float:
-    M = 1 << (bps // 2)
-    return 1.0 / np.sqrt(2.0 * (M * M - 1) / 3.0)
-
-
 def interleave_bits(cfg: ModemConfig, arr, inverse: bool = False):
     """The channel-bit interleaver: an (R × D) symbol spread, then an
     (A2 × B2) bin scatter with B2 the divisor of R nearest √R."""
@@ -139,11 +129,8 @@ def _ofdm_modulate(cfg: ModemConfig, bins: np.ndarray) -> np.ndarray:
 def encode_frames(cfg: ModemConfig, info: np.ndarray) -> np.ndarray:
     """Info bits (F, payload_bits_per_frame) → waveforms (F, frame_len)
     float64: systematic LDPC [u | P·u], pad, scramble, interleave, Gray QAM
-    with pilots, known symbols, OFDM with CP, after the chirp and the SC
-    symbol."""
-    if cfg.bit_loading is not None:
-        raise NotImplementedError("the reference maps uniform "
-                                  "constellations only")
+    (each bin at its loaded order on a loaded band) with pilots, known
+    symbols, OFDM with CP, after the chirp and the SC symbol."""
     lay = layout(cfg)
     F = info.shape[0]
     if cfg.fec == "ldpc":
@@ -159,11 +146,13 @@ def encode_frames(cfg: ModemConfig, info: np.ndarray) -> np.ndarray:
     coded = coded ^ lay.scramble[None, :]
     if cfg.interleave:
         coded = interleave_bits(cfg, coded)
-    bps, m = cfg.bits_per_symbol, cfg.bits_per_symbol // 2
-    grp = coded.reshape(F, cfg.n_data_symbols, cfg.n_data_bins, bps)
-    w = 1 << np.arange(m - 1, -1, -1)
-    lut = _pam_levels(m) * _qam_norm(bps)
-    dsym = lut[grp[..., :m] @ w] + 1j * lut[grp[..., m:] @ w]
+    if cfg.bit_loading is None:
+        bps = cfg.bits_per_symbol
+        dsym = gray_map(coded.reshape(F, cfg.n_data_symbols,
+                                      cfg.n_data_bins, bps), bps)
+    else:
+        dsym = loaded_map(cfg, coded.reshape(F, cfg.n_data_symbols,
+                                             cfg.bits_per_ofdm_symbol))
     data = np.zeros((F, cfg.n_data_symbols, cfg.n_used), np.complex128)
     data[..., lay.data_pos] = dsym
     data[..., lay.pilot_pos] = lay.pilot_vals
@@ -212,9 +201,6 @@ class Receiver:
 
     def __init__(self, cfg: ModemConfig, max_delay: int, device,
                  precision: Precision = F64):
-        if cfg.bit_loading is not None:
-            raise NotImplementedError("the reference demaps uniform "
-                                      "constellations only")
         self.cfg, self.max_delay = cfg, max_delay
         self.dev = torch.device(device)
         self.R, self.C = precision.real, precision.cplx
@@ -227,6 +213,8 @@ class Receiver:
         self.pilots = t(lay.pilot_vals, self.C)
         self.ppos = t(lay.pilot_pos, torch.long)
         self.dpos = t(lay.data_pos, torch.long)
+        self.loading = (loading(cfg) if cfg.bit_loading is not None
+                        else None)
         self.kp = lay.pilot_pos.astype(np.float64)
         self.scramble = t(lay.scramble, torch.long)
         fec = np.arange(cfg.raw_bits_per_frame)
@@ -342,7 +330,8 @@ class Receiver:
             H = ((H * ramp) @ self.P.T) * torch.conj(ramp)
         return self.q(H), self.q(nv)
 
-    # ---- one-tap EQ, pilot-slope ladder, noise floor, max-log demap
+    # ---- one-tap EQ, pilot-slope ladder, noise floor, max-log demap (per
+    #      group on a loaded band)
     def tail(self, Y, H, nv):
         cfg = self.cfg
         eq = Y[:, cfg.n_known_symbols:] / H[:, None, :]
@@ -381,24 +370,14 @@ class Receiver:
         inv_csi = 1.0 / torch.clamp(csi[:, self.dpos], min=1e-12)
         nv_eff = torch.clamp(nv_sym[..., None] * inv_csi[:, None, :],
                              min=1e-12)
+        if self.loading is not None:
+            llr3, evm = loaded_demap(self.loading, data, nv_eff)
+            llr = self.q(llr3.reshape(B, cfg.raw_bits_per_frame))
+            return llr, slope, cpe, evm, torch.mean(torch.abs(llr), dim=-1)
         bps, m = cfg.bits_per_symbol, cfg.bits_per_symbol // 2
-        M = 1 << m
-        lv = torch.as_tensor(_pam_levels(m) * _qam_norm(bps), dtype=self.R,
-                             device=self.dev)
-        labels = np.arange(M)
-
-        def axis(x):
-            d = (x[..., None] - lv) ** 2
-            out = []
-            for j in range(m):
-                one = torch.as_tensor(((labels >> (m - 1 - j)) & 1)
-                                      .astype(bool), device=self.dev)
-                out.append(torch.amin(torch.where(one, d, _BIG), -1)
-                           - torch.amin(torch.where(one, _BIG, d), -1))
-            return torch.stack(out, -1)
-
-        llr3 = torch.cat([axis(data.real), axis(data.imag)], -1) / nv_eff[
-            ..., None]
+        lv = torch.as_tensor(gray_levels(bps), dtype=self.R, device=self.dev)
+        llr3 = torch.cat([axis_llr(data.real, lv, m),
+                          axis_llr(data.imag, lv, m)], -1) / nv_eff[..., None]
         hard = (llr3 < 0).to(torch.long)
         w = torch.as_tensor(1 << np.arange(m - 1, -1, -1), device=self.dev)
         xd = torch.complex(lv[(hard[..., :m] * w).sum(-1)],
