@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the gf3x_torch port on one CUDA card (an H100 for sm_90a).
 
-Builds the nine CUDA kernels from `gf3x_torch/csrc/`, holds each against
+Builds the ten CUDA kernels from `gf3x_torch/csrc/`, holds each against
 its plain PyTorch version on the card at the shapes its path gives it, and
 drives the receive paths once each through the port's entry points:
 
@@ -63,7 +63,8 @@ drives the receive paths once each through the port's entry points:
   `streamed_geometry`'s; sha256), kernel 2 bit for bit against A + B;
   `use_cut_dft` on each band and on an aligned CP
   (kernel 8 at n_fft 4096 only) and `Modem.decode` of one gf3-4096
-  recording (kernels 7, 2, 3);
+  recording (kernels 7, 2, 3); the ISI profile's onset kernel launched
+  once in each band's `demodulate`;
   and, on each uniform band, its other routes: `demodulate_sfo` and
   `demodulate_sc` with the clock-offset loop on the batch recipe at +150
   ppm, `demodulate_dd` on the band's batch, `decode(dd='on')` and
@@ -71,6 +72,10 @@ drives the receive paths once each through the port's entry points:
   chirp-z transform) held to its plain versions on the host and to a
   float64 DFT at δ̂, 0 and −9e-4, and each band's `Modem(cfg)`
   construction timed;
+- the ISI profile's onset kernel (`isi_onset`, `run_isi_onset`) at
+  gf3-8192, B = 1024 and 1, through the loaded benchmark cell's room and
+  on one-tap rows: one launch a `demodulate`, its inputs from that call
+  held bit for bit against the plain version, its µs beside its bound;
 - kernels 2 and A past the pilot bound of shared memory (the spilled
   layout, pilot scratch in global memory): forced at config 5 against the
   staged layout's sha256, and at a synthetic n_fft = 65536 band of 15 616
@@ -138,7 +143,9 @@ warped DFT, the chirp-z transform, against float64 on the card at the three
 wide bands; its fused kernel at each of them at B = 1024 and 1 against its
 plain version, the chain and float64, timed beside its byte bound and the
 chain; the chain's two kernels against their plain versions and timed at
-gf3-8192, B = 1024 (`warped_dft_only`).
+gf3-8192, B = 1024 (`warped_dft_only`); an eighth,
+`python3 chip_smoke.py --isi-onset`, the onset phase alone
+(`isi_onset_only`).
 
 Phases print one line each. The last lines are a JSON object with every
 kernel's measurements (host-clock and CUDA-event times, the kernel's own
@@ -610,7 +617,8 @@ def hold_minsum(code, lam, iters, label) -> dict:
 def launch_counters() -> dict:
     """Every kernel wrapper by name, each with its `launches` count."""
     from gf3x_torch.ops.kernels import (cut_dft, czt, fec_gather, fused_eq,
-                                        gather_cut, ldpc_bp, split_eq)
+                                        gather_cut, isi_onset, ldpc_bp,
+                                        split_eq)
 
     return {"cut_symbols": gather_cut.cut_symbols,
             "gather_cut": gather_cut.gather_cut,
@@ -624,7 +632,8 @@ def launch_counters() -> dict:
             "cut_dft": cut_dft.cut_dft,
             "fec_gather": fec_gather.fec_gather,
             "czt_pre": czt.czt_pre, "czt_post": czt.czt_post,
-            "czt_fused": czt.czt_fused}
+            "czt_fused": czt.czt_fused,
+            "isi_onset": isi_onset.isi_onset}
 
 
 def launch_counts(counters, fn):
@@ -2296,6 +2305,111 @@ def run_wide_routes(counters, total, modem, rx, payload, delays,
     return out
 
 
+# the onset phase's batches: (label, frames, through the loaded cell's room)
+ISI_ONSET_CASES = (("room", B, True), ("room B = 1", 1, True),
+                   ("one-tap", B, False), ("one-tap B = 1", 1, False))
+ISI_ONSET_CELL = "gf3-8192-loaded.b1024-15db-room"
+
+
+def run_isi_onset(dev, counters) -> dict:
+    """The ISI profile's onset kernel (`isi_onset`) on the inputs the main
+    path gives it at gf3-8192 (ISI_ONSET_CASES): through the room, the
+    benchmark cell ISI_ONSET_CELL's loaded configuration on its traffic
+    (`benchmark.traffic.make_inputs`, seed 1234567); one-tap, gf3-8192's
+    uniform configuration on config 5's batch recipe. Each batch goes
+    through `Modem.demodulate` once with every launch counter at 0: the
+    onset kernel launches once (one channel estimate), and its inputs and
+    output, copied there, are held bit for bit (`torch.equal`) against the
+    plain version on the CPU; the kernel's µs beside its byte bound (h
+    read once, the anchor and noise_var read once, the anchor written
+    once). Returns {label: what was held and timed}."""
+    from benchmark import harness
+    from benchmark.traffic import make_inputs
+    from gf3x_torch import GF3_STANDARD, Modem
+    from gf3x_torch.ops import chanest
+    from gf3x_torch.ops.kernels.isi_onset import isi_onset_plain
+
+    cell = harness.load_cell(ISI_ONSET_CELL)
+    loaded, rcfg = harness._configs(cell)
+    uniform = GF3_STANDARD.replace(**WIDE_BANDS["gf3-8192"])
+    modems = {}
+    out = {}
+    for label, Bk, room in ISI_ONSET_CASES:
+        cfg = loaded if room else uniform
+        margin = int(cell.traffic["margin"]) if room else MARGIN
+        if room not in modems:
+            modems[room] = Modem(cfg, max_delay=margin + cfg.cp, device=dev)
+        modem = modems[room]
+        if room:
+            rx = make_inputs(rcfg, dict(cell.traffic, batch=Bk, ring=1),
+                             1234567, dev).ring[0]
+        else:
+            rx_np, _, _ = build_batch(modem, Bk, MARGIN,
+                                      np.random.default_rng(0))
+            rx = torch.as_tensor(rx_np, device=dev)
+            del rx_np
+        seen = []
+        kernel = chanest.isi_onset
+
+        def spy(h, anchor, noise_var, **kw):
+            a = kernel(h, anchor, noise_var, **kw)
+            seen.append((h.clone(), anchor.clone(), noise_var.clone(), kw,
+                         a.clone()))
+            return a
+
+        chanest.isi_onset = spy
+        try:
+            (_, diag), launches = launch_counts(
+                counters, lambda: modem.demodulate(rx))
+        finally:
+            chanest.isi_onset = kernel
+        check(launches["isi_onset"] == 1 and len(seen) == 1,
+              f"isi_onset {label}: {launches['isi_onset']} launches and "
+              f"{len(seen)} calls in one demodulate, not 1")
+        h, a0, nv, kw, got = seen[0]
+        want = isi_onset_plain(h.cpu(), a0.cpu(), nv.cpu(), **kw)
+        check(torch.equal(got.cpu(), want), f"isi_onset {label}: the "
+              "kernel's anchors differ from its plain version's")
+        n = h.shape[-1]
+        nbytes = Bk * n * 8 + 3 * Bk * 4
+        t = kernel_us(lambda: kernel(h, a0, nv, **kw), ["isi_onset"])
+        out[label] = dict(
+            batch=Bk, n=n, D=kw["D"], span=kw["span"], g=kw["g"],
+            moved=int((want != a0.cpu()).sum()),
+            isi_db_max=float(diag.isi_db.max()),
+            isi_db_median=float(diag.isi_db.median()),
+            fec_unsat=int(diag.fec_unsat.sum()), launches=launches,
+            kernel_us=t["us"], by=t["by"], **bound(nbytes))
+        r = out[label]
+        print(f"isi_onset {label} (B {Bk}, h {Bk} x {n}, D {kw['D']}, span "
+              f"{kw['span']}): one launch in demodulate, bit for bit to the "
+              f"plain version; {r['moved']}/{Bk} anchors moved; isi_db "
+              f"median {r['isi_db_median']:.1f}, max {r['isi_db_max']:.1f} "
+              f"dB; {r['kernel_us']:.1f} us ({r['by']}) against a bound of "
+              f"{1e3 * r['bound_ms']:.1f} us", flush=True)
+        del rx, seen, h, a0, nv, got, diag
+    return out
+
+
+def isi_onset_only() -> None:
+    """`--isi-onset`: the onset phase alone after the build's ptxas report;
+    prints its result as one JSON line and the card's name and power
+    limit."""
+    from gf3x_torch.utils.device import kernel_lib, library_path
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"device: {smi}", flush=True)
+    kernel_lib()
+    print("build: " + build_report(
+        (library_path().parent / "build.log").read_text()), flush=True)
+    record("isi_onset", run_isi_onset(torch.device("cuda", 0),
+                                      launch_counters()), print_too=True)
+    print(smi, flush=True)
+
+
 def tail_bytes(cfg, Bk: int, kernel: str) -> float:
     """The bytes kernel 2, A or B must move on a batch of Bk frames: 2 reads
     the data symbols' spectra, Ĥ and the noise floor and writes the LLRs,
@@ -2459,6 +2573,10 @@ def run_wide(dev, counters, rows):
         check(all(launches[n] == 0 for n in other + ("cut_symbols",
                                                       "cut_dft")),
               f"wide {label}: another cut or tail launched: {launches}")
+        want = int(getattr(modem, "isi_M", None) is not None)
+        check(launches["isi_onset"] == want, f"wide {label}: the ISI onset "
+              f"kernel launched {launches['isi_onset']} times in one channel "
+              f"estimate, not {want}")
         sum_counts(total, launches)
         step = median_ms(lambda: modem.demodulate(rx))
         held.update(step_ms=step, sync_err=sync_err, launches=launches,
@@ -3425,6 +3543,7 @@ def main() -> None:
     # mesh and the four walkthroughs
     launchesP, pilots = run_pilots(dev, counters)
     launchesWd, wide = run_wide(dev, counters, rows)
+    isi_onset_held = run_isi_onset(dev, counters)
     from gf3x_torch.parallel import make_mesh
     check(len(make_mesh()) == torch.cuda.device_count() == 1,
           f"make_mesh() has {len(make_mesh())} devices on a one-card run")
@@ -3474,7 +3593,8 @@ def main() -> None:
                       "harq_s": harq_s, "harq_joint_ppm": harq_ppm,
                       "arq_s": arq_s, "long_recording_s": long_s,
                       "sweep": sweep, "cli": cli, "golden": golden,
-                      "pilots": pilots, "wide": wide, "mesh": mesh,
+                      "pilots": pilots, "wide": wide,
+                      "isi_onset": isi_onset_held, "mesh": mesh,
                       "examples": examples, "lifts": lifts,
                       "reports": reports, "spilled": spill,
                       "layouts": layouts,
@@ -3770,6 +3890,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             raise RuntimeError("chip_smoke needs a CUDA device")
         warped_dft_only()
+    elif len(sys.argv) == 2 and sys.argv[1] == "--isi-onset":
+        if not torch.cuda.is_available():
+            raise RuntimeError("chip_smoke needs a CUDA device")
+        isi_onset_only()
     elif len(sys.argv) == 2 and sys.argv[1] == "--layouts":
         if not torch.cuda.is_available():
             raise RuntimeError("chip_smoke needs a CUDA device")

@@ -64,6 +64,8 @@ int gf3x_czt_post(const float2*, const float2*, float2*, long long, int, int,
 int gf3x_czt_fused(const float*, const float2*, const float2*, const float2*,
                    const float2*, float2*, long long, long long, long long,
                    long long, int, int, int, void*);
+int gf3x_isi_onset(const float2*, const float*, const float*, float*,
+                   long long, int, int, int, int, int, float, float, void*);
 const char* gf3x_error_string(int);
 }
 
@@ -174,6 +176,9 @@ ENTRY(gf3x_czt_post, "ppplllp",
 ENTRY(gf3x_czt_fused, "pppppplllllllp",
       gf3x_czt_fused(P(0), P(1), P(2), P(3), P(4), P(5), L(6), L(7), L(8),
                      L(9), I(10), I(11), I(12), P(13)))
+ENTRY(gf3x_isi_onset, "ppppllllllffp",
+      gf3x_isi_onset(P(0), P(1), P(2), P(3), L(4), I(5), I(6), I(7), I(8),
+                     I(9), F(10), F(11), P(12)))
 
 PyObject* py_gf3x_error_string(PyObject*, PyObject* const* a, Py_ssize_t n) {
     Val v[1];
@@ -194,7 +199,7 @@ PyMethodDef kMethods[] = {
     METHOD(gf3x_minsum_decode_blocks), METHOD(gf3x_minsum_decode),
     METHOD(gf3x_fec_gather),     METHOD(gf3x_fec_gather_tile),
     METHOD(gf3x_czt_pre),        METHOD(gf3x_czt_post),
-    METHOD(gf3x_czt_fused),
+    METHOD(gf3x_czt_fused),      METHOD(gf3x_isi_onset),
     METHOD(gf3x_error_string),
     {nullptr, nullptr, 0, nullptr}};
 

@@ -72,7 +72,7 @@ from ..ops.sync import (cut_dft_spectra, cut_symbols, find_frame_start,
                         max_cut_start, sc_metric_window)
 from ..utils.bits import (bits_to_bytes, bytes_to_bits, pack_header,
                           parse_frame_header)
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .frame import (data_symbols_from_bits, demap_bin_tables,
                     frame_bin_matrix, interleave_bits, interleave_pilots,
                     loaded_qam_map, scatter_factors, split_pilots)
@@ -384,12 +384,17 @@ class Modem(torch.nn.Module):
         """The same tail on the split pair, for any config (uniform too):
         kernel A equalizes, tracks and derotates, kernel B demaps each data
         bin at its order with the modem's per-bin tables. Same return
-        contract as `_fused_eq_demap`."""
-        eq, slope, cpe, nv_sym = eq_track(self.cfg, Y, H, noise_var,
-                                          self.pilot_vals)
-        llr, evm, mabs = demap_bins(
-            self.cfg, eq, H, nv_sym,
-            (self.demap_used, self.demap_bits, self.demap_off))
+        contract as `_fused_eq_demap`. Each kernel has its span, and counts
+        from shapes the frames it equalizes and the LLRs it demaps."""
+        with span("eq_track"):
+            count("eq_track.rows", Y.shape[0])
+            eq, slope, cpe, nv_sym = eq_track(self.cfg, Y, H, noise_var,
+                                              self.pilot_vals)
+        with span("demap_bins"):
+            count("demap_bins.llrs", Y.shape[0] * self.cfg.raw_bits_per_frame)
+            llr, evm, mabs = demap_bins(
+                self.cfg, eq, H, nv_sym,
+                (self.demap_used, self.demap_bits, self.demap_off))
         return llr, slope, cpe, evm, mabs
 
     def _tail(self, Y: torch.Tensor, H: torch.Tensor,

@@ -6,8 +6,9 @@ Chrome trace hook.
 Spans. `Modem` wraps each stage of a call in `span(name)`: the public
 entries (`demodulate`, `demodulate_sfo`, ...) open the root span, the
 stages (`sync`, `cut`, `dft` with `warped_dft` on the clock-offset route,
-`chanest`, `eq_demap`, `fec_gather`, `ldpc` with `ldpc.check` and
-`ldpc.decode`, `diag`, `clock_offset`, ...) its children.
+`chanest`, `eq_demap` with `eq_track` and `demap_bins` on the split
+tail, `fec_gather`, `ldpc` with `ldpc.check` and `ldpc.decode`, `diag`,
+`clock_offset`, ...) its children.
 Tracing is on while the torch profiler runs or inside `recording()`;
 while it is off a span is one flag check that returns a shared no-op
 context (no allocation, no `record_function`, no CUDA call). While it is
@@ -36,7 +37,9 @@ the same from its `passes` with torch ops. The host also counts, from
 shapes, the δ-warped DFTs a call ran (`ofdm.warped_dfts`), the symbol
 rows they transformed (`ofdm.warped_rows`), those of the rows the
 chirp-z transform took (`ofdm.czt_rows`) and those of these its fused
-kernel took (`ofdm.czt_fused_rows`), through `count`.
+kernel took (`ofdm.czt_fused_rows`), and on the split tail the frames
+kernel A equalized (`eq_track.rows`) and the coded bits kernel B demapped
+(`demap_bins.llrs`), through `count`.
 
 An operator's stage times, without the profiler's overhead:
 
@@ -74,7 +77,8 @@ __all__ = ["trace", "maybe_trace", "span", "recording", "span_totals",
 _NOOP = contextlib.nullcontext()
 # the counts kept on the host
 HOST_COUNTS = ("ldpc.codewords", "ofdm.warped_dfts", "ofdm.warped_rows",
-               "ofdm.czt_rows", "ofdm.czt_fused_rows")
+               "ofdm.czt_rows", "ofdm.czt_fused_rows", "eq_track.rows",
+               "demap_bins.llrs")
 
 
 class Span(NamedTuple):
@@ -224,12 +228,14 @@ def span_totals() -> dict:
 
 def counters() -> dict:
     """{"ldpc.codewords", "ldpc.queued", "ldpc.sweeps", "ofdm.warped_dfts",
-    "ofdm.warped_rows", "ofdm.czt_rows", "ofdm.czt_fused_rows"} counted
-    while tracing was on: the codewords given to the LDPC decoder, those
-    the check pass queued for the decode pass and the sweeps they ran; the
-    δ-warped DFTs run, the symbol rows they transformed, those of the rows
-    the chirp-z transform took and those of these its fused kernel took.
-    Synchronises the device."""
+    "ofdm.warped_rows", "ofdm.czt_rows", "ofdm.czt_fused_rows",
+    "eq_track.rows", "demap_bins.llrs"} counted while tracing was on: the
+    codewords given to the LDPC decoder, those the check pass queued for
+    the decode pass and the sweeps they ran; the δ-warped DFTs run, the
+    symbol rows they transformed, those of the rows the chirp-z transform
+    took and those of these its fused kernel took; the frames kernel A
+    equalized and the coded bits kernel B demapped. Synchronises the
+    device."""
     queued = sweeps = 0
     for b in _T.buffers.values():
         q, s = b.tolist()     # waits for the work queued before it
@@ -239,7 +245,9 @@ def counters() -> dict:
             "ldpc.sweeps": sweeps, "ofdm.warped_dfts": c["ofdm.warped_dfts"],
             "ofdm.warped_rows": c["ofdm.warped_rows"],
             "ofdm.czt_rows": c["ofdm.czt_rows"],
-            "ofdm.czt_fused_rows": c["ofdm.czt_fused_rows"]}
+            "ofdm.czt_fused_rows": c["ofdm.czt_fused_rows"],
+            "eq_track.rows": c["eq_track.rows"],
+            "demap_bins.llrs": c["demap_bins.llrs"]}
 
 
 def count(name: str, n: int) -> None:

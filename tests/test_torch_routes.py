@@ -31,6 +31,8 @@ from gf3x_torch.ops import ofdm as tofdm
 from gf3x_torch.ops import sfo as tsfo
 from gf3x_torch.ops import sync as tsync
 
+import isi_plain
+
 CFG = GF3_STANDARD
 ONSET = 2000
 
@@ -122,7 +124,9 @@ def test_matmul_f32_keeps_tf32_off():
 @pytest.mark.parametrize("delta", [None, 6e-4])
 def test_estimate_channel_delta_matches(delta):
     """`estimate_channel(known, δ)`: Ĥ, noise_var and the ISI profile
-    within 1e-4 of their scale (the derotation is float32 on both)."""
+    within 1e-4 of their scale (the derotation is float32 on both), all
+    against gf3x: on noise alone the port's anchor is gf3x's on every row
+    (tests/isi_plain.py)."""
     rng = np.random.default_rng(2)
     K, U = CFG.n_known_symbols, CFG.n_used
     Y = (rng.standard_normal((3, K, U))
@@ -133,6 +137,7 @@ def test_estimate_channel_delta_matches(delta):
                                                      d_j, with_isi=True)
     H_t, nv_t, (iv_t, ir_t) = tchan.estimate_channel(
         CFG, torch.as_tensor(Y), d_t, with_isi=True)
+    assert isi_plain.stays(CFG, *isi_plain.raw_estimate(CFG, Y, delta)).all()
     for got, ref in ((H_t, H_r), (nv_t, nv_r), (iv_t, iv_r), (ir_t, ir_r)):
         ref = np.asarray(ref)
         assert np.max(np.abs(got.numpy() - ref)) <= 1e-4 * np.max(np.abs(ref))

@@ -127,7 +127,9 @@ def test_spans_off_record_nothing(cpu_case, clean, monkeypatch):
                                     "ldpc.sweeps": 0, "ofdm.warped_dfts": 0,
                                     "ofdm.warped_rows": 0,
                                     "ofdm.czt_rows": 0,
-                                    "ofdm.czt_fused_rows": 0}
+                                    "ofdm.czt_fused_rows": 0,
+                                    "eq_track.rows": 0,
+                                    "demap_bins.llrs": 0}
 
 
 def test_span_totals_are_idempotent(cpu_case, clean):
@@ -172,7 +174,9 @@ def test_plain_ldpc_counts_are_the_passes(clean):
                                     "ofdm.warped_dfts": 0,
                                     "ofdm.warped_rows": 0,
                                     "ofdm.czt_rows": 0,
-                                    "ofdm.czt_fused_rows": 0}
+                                    "ofdm.czt_fused_rows": 0,
+                                    "eq_track.rows": 0,
+                                    "demap_bins.llrs": 0}
 
 
 @pytest.fixture(scope="module")
@@ -216,8 +220,48 @@ def test_plain_route_runs_no_warped_dft(cpu_case, clean):
     assert c["ofdm.warped_dfts"] == c["ofdm.warped_rows"] == 0
 
 
+def loaded_table(n: int) -> tuple:
+    """A table of n bins at 0, 2, 4 and 6 bits in turn."""
+    return tuple((2 * (i % 4)) for i in range(n))
+
+
+def test_split_tail_spans_nest_in_eq_demap(clean):
+    """A bit-loaded `demodulate` takes the split tail: `gf3x.eq_track` then
+    `gf3x.demap_bins`, each a child of `gf3x.eq_demap`, and the counters
+    equal the shapes: B frames through kernel A, B·D·R coded bits through
+    kernel B."""
+    cfg = CFG.replace(bit_loading=loaded_table(CFG.n_data_bins))
+    modem = Modem(cfg, max_delay=MARGIN + cfg.cp, device="cpu")
+    rx = recordings(modem, 3, 25.0)
+    with profiling.recording():
+        modem.demodulate(rx)
+    recs = profiling.records()
+    split = [r for r in recs if r.name in ("gf3x.eq_track",
+                                           "gf3x.demap_bins")]
+    assert [r.name for r in split] == ["gf3x.eq_track", "gf3x.demap_bins"]
+    assert all(recs[r.parent].name == "gf3x.eq_demap" for r in split)
+    c = profiling.counters()
+    assert c["eq_track.rows"] == 3
+    assert c["demap_bins.llrs"] == (3 * cfg.n_data_symbols
+                                    * sum(cfg.bit_loading))
+
+
+def test_fused_tail_records_no_split_spans(cpu_case, clean):
+    """A uniform `demodulate` takes kernel 2: neither split span appears
+    and neither split counter counts."""
+    modem, rx = cpu_case
+    with profiling.recording():
+        modem.demodulate(rx)
+    names = {r.name for r in profiling.records()}
+    assert "gf3x.eq_demap" in names
+    assert not names & {"gf3x.eq_track", "gf3x.demap_bins"}
+    c = profiling.counters()
+    assert c["eq_track.rows"] == c["demap_bins.llrs"] == 0
+
+
 WARPED_READERS = ("warped_dft.device_ms", "clock_offset.device_ms",
                   "warped_dft_roofline")
+SPLIT_READERS = ("eq_track_roofline", "demap_bins_roofline")
 
 
 def reader_ctx(device: bool, steps: int = 16) -> dict:
@@ -233,9 +277,10 @@ def reader_ctx(device: bool, steps: int = 16) -> dict:
                 (harness.ROOT / "benchmark" / "peaks.json").read_text())}
 
 
-@pytest.mark.parametrize("name", WARPED_READERS)
+@pytest.mark.parametrize("name", WARPED_READERS + SPLIT_READERS)
 def test_warped_readers_say_nothing_without_a_card(name, clean):
-    """Without device work in the trace each new reader returns None."""
+    """Without device work in the trace each of these readers returns
+    None."""
     from benchmark import harness
 
     read, params = harness._reader(harness.ROOT, name)
@@ -270,6 +315,41 @@ def test_warped_dft_roofline_reads_the_records(monkeypatch):
     assert read(dict(ctx, params=params)) is None
 
 
+@pytest.mark.parametrize("name", SPLIT_READERS)
+def test_split_rooflines_read_the_records(name, monkeypatch):
+    """Each split kernel's roofline from the program's records at the
+    loaded cell's configuration: its bytes for B = 1024 frames a step (in
+    and out once, from the shapes) at the HBM peak over its span's device
+    time; None where the program has no such span or counter (a checkout
+    older than them) or ran no split tail."""
+    from benchmark import harness, spans
+
+    cell = harness.load_cell("gf3-8192-loaded.b1024-15db-room")
+    ctx = dict(reader_ctx(True), cfg=harness.reference_config(cell))
+    cfg, steps, B = ctx["cfg"], ctx["trace"].steps, 1024
+    D, U, A = cfg.n_data_symbols, cfg.n_used, cfg.n_active_bins
+    R = sum(cfg.bit_loading)
+    span, counter, per_frame = {
+        "eq_track_roofline": ("gf3x.eq_track", "eq_track.rows",
+                              16 * D * U + 8 * U + 4 + 12 * D),
+        "demap_bins_roofline": ("gf3x.demap_bins", "demap_bins.llrs",
+                                4 * D * R + 8 * D * A + 8 * A + 4 * D + 8),
+    }[name]
+    count = steps * B * (1 if counter == "eq_track.rows" else D * R)
+    counts = {counter: count}
+    monkeypatch.setattr(spans, "_profiling", lambda ctx: types.SimpleNamespace(
+        span_totals=lambda: {span: {"device_s": steps * 1e-3}},
+        counters=lambda: counts))
+    read, params = harness._reader(harness.ROOT, name)
+    got = read(dict(ctx, params=params))
+    want = 100.0 * B * per_frame / ctx["peaks"]["hbm_bytes_per_s"] / 1e-3
+    assert got == pytest.approx(want) and 5.0 < got < 100.0
+    del counts[counter]
+    assert read(dict(ctx, params=params)) is None
+    counts[counter] = 0
+    assert read(dict(ctx, params=params)) is None
+
+
 @pytest.mark.card
 def test_device_counters_on_the_card(clean, monkeypatch):
     """Kernel 3's decode pass counts on the card: the counters equal the
@@ -293,7 +373,7 @@ def test_device_counters_on_the_card(clean, monkeypatch):
         "ldpc.codewords": lam.shape[0], "ldpc.queued": int((passes > 0).sum()),
         "ldpc.sweeps": int(passes.sum()), "ofdm.warped_dfts": 0,
         "ofdm.warped_rows": 0, "ofdm.czt_rows": 0,
-        "ofdm.czt_fused_rows": 0}
+        "ofdm.czt_fused_rows": 0, "eq_track.rows": 0, "demap_bins.llrs": 0}
 
     modem = Modem(CFG, max_delay=MARGIN + CFG.cp)
     rx = recordings(modem, 64, 4.0)
