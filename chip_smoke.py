@@ -76,6 +76,12 @@ drives the receive paths once each through the port's entry points:
   gf3-8192, B = 1024 and 1, through the loaded benchmark cell's room and
   on one-tap rows: one launch a `demodulate`, its inputs from that call
   held bit for bit against the plain version, its µs beside its bound;
+- the diagnostics' |LLR| histogram kernel (`llr_hist`, `run_llr_hist`)
+  on the path's own LLRs at gf3-8192 20 and 30 dB, through the loaded
+  cell's room and at config 5, B = 1024 and 1, on edge values and wide
+  synthetic rows: one launch a `demodulate`, counts integer-equal to the
+  plain version, no aten scatter or index kernel under `gf3x.diag`, its
+  µs beside its byte bound and sector floor;
 - kernels 2 and A past the pilot bound of shared memory (the spilled
   layout, pilot scratch in global memory): forced at config 5 against the
   staged layout's sha256, and at a synthetic n_fft = 65536 band of 15 616
@@ -145,7 +151,8 @@ plain version, the chain and float64, timed beside its byte bound and the
 chain; the chain's two kernels against their plain versions and timed at
 gf3-8192, B = 1024 (`warped_dft_only`); an eighth,
 `python3 chip_smoke.py --isi-onset`, the onset phase alone
-(`isi_onset_only`).
+(`isi_onset_only`); a ninth, `python3 chip_smoke.py --llr-hist`, the
+diagnostics' |LLR| histogram kernel alone (`llr_hist_only`).
 
 Phases print one line each. The last lines are a JSON object with every
 kernel's measurements (host-clock and CUDA-event times, the kernel's own
@@ -618,7 +625,7 @@ def launch_counters() -> dict:
     """Every kernel wrapper by name, each with its `launches` count."""
     from gf3x_torch.ops.kernels import (cut_dft, czt, fec_gather, fused_eq,
                                         gather_cut, isi_onset, ldpc_bp,
-                                        split_eq)
+                                        llr_hist, split_eq)
 
     return {"cut_symbols": gather_cut.cut_symbols,
             "gather_cut": gather_cut.gather_cut,
@@ -633,7 +640,8 @@ def launch_counters() -> dict:
             "fec_gather": fec_gather.fec_gather,
             "czt_pre": czt.czt_pre, "czt_post": czt.czt_post,
             "czt_fused": czt.czt_fused,
-            "isi_onset": isi_onset.isi_onset}
+            "isi_onset": isi_onset.isi_onset,
+            "llr_hist": llr_hist.llr_hist}
 
 
 def launch_counts(counters, fn):
@@ -2410,6 +2418,227 @@ def isi_onset_only() -> None:
     print(smi, flush=True)
 
 
+# the histogram phase's cases on the main path: (label, benchmark cell
+# whose configuration and traffic make the batch, or None for config 5 on
+# its batch recipe, frames)
+LLR_HIST_CASES = (("gf3-8192 20 dB", "gf3-8192.b1024-20db", B),
+                  ("gf3-8192 20 dB B = 1", "gf3-8192.b1024-20db", 1),
+                  ("gf3-8192 30 dB", "gf3-8192.b1024-30db", B),
+                  ("loaded, room", "gf3-8192-loaded.b1024-15db-room", B),
+                  ("loaded, room B = 1", "gf3-8192-loaded.b1024-15db-room",
+                   1),
+                  ("config 5", None, B))
+# aten's kernels of the histogram the kernel replaced: the gather of every
+# 8th LLR and the scatter_add_ into 16 bins
+ATEN_HIST = ("index_elementwise_kernel", "_scatter_gather_elementwise")
+# the synthetic rows: (rows, LLRs a row, samples in the table)
+LLR_HIST_WIDE = (600, 640_000, 80_000)
+
+
+def kernels_under(prof, span: str) -> tuple:
+    """The device kernels launched from inside the host span `span` (a
+    record_function of that name) in a profile, as [(kernel name, µs)],
+    and the aten ops run inside it: each kernel matched by correlation id
+    to the CUDA runtime call that launched it, kept where that call lies
+    inside one of the span's host intervals."""
+    from benchmark.trace import _RUNTIME   # the calls that launch device work
+
+    cpu = torch.autograd.DeviceType.CPU
+    evs = list(prof.profiler.kineto_results.events())
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in evs
+             if e.name() == span and e.device_type() == cpu]
+
+    def inside(t):
+        return any(a <= t <= b for a, b in spans)
+    calls = {e.correlation_id(): e.start_ns() for e in evs
+             if e.device_type() == cpu and _RUNTIME.match(e.name())}
+    kernels = [(e.name(), e.duration_ns() * 1e-3) for e in evs
+               if e.device_type() != cpu and not e.is_user_annotation()
+               and e.correlation_id() in calls
+               and inside(calls[e.correlation_id()])]
+    ops = sorted({e.name() for e in evs if e.device_type() == cpu
+                  and e.name().startswith("aten::")
+                  and inside(e.start_ns())})
+    return kernels, ops
+
+
+def llr_hist_edge_values() -> dict:
+    """The |LLR| histogram's edge values by group, float32: each bucket's
+    lower edge 2^(k−2) and the float just below it for k = 0..16, zeros,
+    the smallest denormal, the largest float, infinities and NaN."""
+    f32 = np.float32
+    edges = np.array([2.0 ** (k - 2) for k in range(17)], f32)
+    return {"zeros": np.array([0.0, -0.0], f32),
+            "denormal": np.array([np.finfo(f32).smallest_subnormal], f32),
+            "edges": edges,
+            "below_edges": np.nextafter(edges, f32(0.0)),
+            "largest": np.array([np.finfo(f32).max], f32),
+            "infinities": np.array([np.inf, -np.inf], f32),
+            "nan": np.array([np.nan, -np.nan], f32)}
+
+
+def llr_hist_edges(dev) -> torch.Tensor:
+    """A synthetic (2, 4096) row pair of the edge values, tiled, the second
+    row their negation."""
+    row = np.resize(np.concatenate(list(llr_hist_edge_values().values())),
+                    4096)
+    return torch.as_tensor(np.stack([row, -row]), device=dev)
+
+
+def run_llr_hist(dev, counters) -> dict:
+    """The diagnostics' |LLR| histogram kernel (`llr_hist`) on the LLRs the
+    main path gives it (LLR_HIST_CASES): each batch goes through
+    `Modem.demodulate` once with every launch counter at 0 — one histogram
+    launch — and the kernel's counts on that call's own LLRs and table,
+    copied there, are held integer-equal to `llr_hist_plain` on the card;
+    each row's counts sum to the table's length. Then synthetic rows: the
+    edge values, and 600 rows of 640 000 LLRs at magnitudes over every
+    bucket through an 80 000-sample table (a thread flushes its 8-bit
+    fields mid-row), at B = 600 and 1 (a row split over blocks). A
+    profiled `demodulate` at gf3-8192 20 dB shows which kernels the
+    `gf3x.diag` spans launch: no aten scatter or index kernel. The kernel's
+    µs at gf3-8192, B = 1024, against its byte bound (4 bytes a sample in,
+    64 a row out) and the sector floor (the 32-byte sectors the table
+    touches, a row each), with the plain version's times. Returns {label:
+    what was held and timed}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import harness
+    from benchmark.traffic import make_inputs
+    from gf3x_torch import GF3_STANDARD, Modem
+    from gf3x_torch.models import modem as modem_mod
+    from gf3x_torch.ops.kernels.llr_hist import llr_hist_plain
+
+    kernel = modem_mod.llr_hist
+    modems, out = {}, {}
+    for label, cell_name, Bk in LLR_HIST_CASES:
+        if cell_name is None:
+            cfg, margin = GF3_STANDARD, MARGIN
+        else:
+            cell = harness.load_cell(cell_name)
+            cfg, rcfg = harness._configs(cell)
+            margin = int(cell.traffic["margin"])
+        if cell_name not in modems:
+            modems.clear()
+            modems[cell_name] = Modem(cfg, max_delay=margin + cfg.cp,
+                                      device=dev)
+        modem = modems[cell_name]
+        if cell_name is None:
+            rx_np, _, _ = build_batch(modem, Bk, MARGIN,
+                                      np.random.default_rng(0))
+            rx = torch.as_tensor(rx_np, device=dev)
+            del rx_np
+        else:
+            rx = make_inputs(rcfg, dict(cell.traffic, batch=Bk, ring=1),
+                             2147483901, dev).ring[0]
+        seen = []
+
+        def spy(llr, index):
+            h = kernel(llr, index)
+            seen.append((llr.clone(), index, h.clone()))
+            return h
+
+        modem_mod.llr_hist = spy
+        try:
+            (_, diag), launches = launch_counts(
+                counters, lambda: modem.demodulate(rx))
+        finally:
+            modem_mod.llr_hist = kernel
+        check(launches["llr_hist"] == 1 and len(seen) == 1,
+              f"llr_hist {label}: {launches['llr_hist']} launches and "
+              f"{len(seen)} calls in one demodulate, not 1")
+        llr, table, got = seen[0]
+        want = llr_hist_plain(llr, table)
+        check(torch.equal(got, want) and torch.equal(diag.llr_hist, got),
+              f"llr_hist {label}: the kernel's counts differ from the plain "
+              "version's")
+        check(bool((got.sum(-1) == table.numel()).all()),
+              f"llr_hist {label}: a row's counts do not sum to the table")
+        n = table.numel()
+        r = out[label] = dict(batch=Bk, raw_bits=llr.shape[1], samples=n,
+                              launches=launches, counts=got.sum(0).tolist())
+        if label == "gf3-8192 20 dB":
+            sectors = int(torch.unique(table // 8).numel())
+            r.update(timed(lambda: kernel(llr, table),
+                           lambda: llr_hist_plain(llr, table),
+                           4 * Bk * n + 64 * Bk, kernel="llr_hist"),
+                     sectors_touched=sectors,
+                     sectors_row=-(-llr.shape[1] // 8),
+                     sector_floor_ms=Bk * sectors * 32 / HBM_BPS * 1e3)
+            print(f"llr_hist gf3-8192 B = 1024: {r['kernel_us']:.1f} us "
+                  f"kernel ({r['kernel_us_by']}), {1e3 * r['device_ms']:.1f}"
+                  f" us by events, against a byte bound of "
+                  f"{1e3 * r['bound_ms']:.1f} us and a sector floor of "
+                  f"{1e3 * r['sector_floor_ms']:.1f} us ({sectors} of "
+                  f"{r['sectors_row']} sectors a row); plain version "
+                  f"{r['plain_ms']:.3f} ms host", flush=True)
+            modem.demodulate(rx)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                modem.demodulate(rx)
+                torch.cuda.synchronize()
+            under, ops = kernels_under(prof, "gf3x.diag")
+            r["diag_kernels"], r["diag_ops"] = under, ops
+            print(f"llr_hist: kernels under gf3x.diag {under}; aten ops "
+                  f"there {ops}", flush=True)
+            check(any("llr_hist" in k for k, _ in under), "llr_hist: the "
+                  "profiler saw no llr_hist kernel under gf3x.diag")
+            check(not any(n in k for k, _ in under for n in ATEN_HIST)
+                  and "aten::scatter_add_" not in ops
+                  and "aten::index" not in ops, "llr_hist: aten's scatter or "
+                  "index kernel under gf3x.diag")
+        print(f"llr_hist {label} (B {Bk}, {n} samples a row): one launch in "
+              f"demodulate, integer-equal to the plain version; counts "
+              f"{r['counts']}", flush=True)
+        del rx, seen, llr, got, want, diag
+
+    modems.clear()
+    torch.cuda.empty_cache()
+    edges = llr_hist_edges(dev)
+    idx = torch.arange(edges.shape[1], dtype=torch.int32, device=dev)
+    got = kernel(edges, idx)
+    check(torch.equal(got, llr_hist_plain(edges, idx)),
+          "llr_hist edges: the kernel's counts differ from the plain "
+          "version's")
+    out["edges"] = dict(counts=got.tolist())
+    rows, R, n = LLR_HIST_WIDE
+    g = torch.Generator(device=dev).manual_seed(24)
+    wide = (torch.randn(rows, R, device=dev, generator=g)
+            * 10.0 ** (8.0 * torch.rand(rows, R, device=dev, generator=g)
+                       - 4.0))
+    table = torch.sort(torch.randperm(R, device=dev, generator=g)[:n]
+                       ).values.to(torch.int32)
+    for rows in (rows, 1):
+        got = kernel(wide[:rows], table)
+        check(torch.equal(got, llr_hist_plain(wide[:rows], table)),
+              f"llr_hist synthetic B = {rows}: the kernel's counts differ "
+              "from the plain version's")
+        out[f"synthetic B = {rows}"] = dict(counts=got.sum(0).tolist())
+    print("llr_hist: the edge values and 640 000-LLR rows (B = 600 and 1) "
+          "integer-equal to the plain version", flush=True)
+    return out
+
+
+def llr_hist_only() -> None:
+    """`--llr-hist`: the histogram phase alone after the build's ptxas
+    report; prints its result as one JSON line and the card's name and
+    power limit."""
+    from gf3x_torch.utils.device import kernel_lib, library_path
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"device: {smi}", flush=True)
+    kernel_lib()
+    print("build: " + build_report(
+        (library_path().parent / "build.log").read_text()), flush=True)
+    record("llr_hist", run_llr_hist(torch.device("cuda", 0),
+                                    launch_counters()), print_too=True)
+    print(smi, flush=True)
+
+
 def tail_bytes(cfg, Bk: int, kernel: str) -> float:
     """The bytes kernel 2, A or B must move on a batch of Bk frames: 2 reads
     the data symbols' spectra, Ĥ and the noise floor and writes the LLRs,
@@ -3544,6 +3773,7 @@ def main() -> None:
     launchesP, pilots = run_pilots(dev, counters)
     launchesWd, wide = run_wide(dev, counters, rows)
     isi_onset_held = run_isi_onset(dev, counters)
+    llr_hist_held = run_llr_hist(dev, counters)
     from gf3x_torch.parallel import make_mesh
     check(len(make_mesh()) == torch.cuda.device_count() == 1,
           f"make_mesh() has {len(make_mesh())} devices on a one-card run")
@@ -3594,7 +3824,8 @@ def main() -> None:
                       "arq_s": arq_s, "long_recording_s": long_s,
                       "sweep": sweep, "cli": cli, "golden": golden,
                       "pilots": pilots, "wide": wide,
-                      "isi_onset": isi_onset_held, "mesh": mesh,
+                      "isi_onset": isi_onset_held,
+                      "llr_hist": llr_hist_held, "mesh": mesh,
                       "examples": examples, "lifts": lifts,
                       "reports": reports, "spilled": spill,
                       "layouts": layouts,
@@ -3894,6 +4125,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             raise RuntimeError("chip_smoke needs a CUDA device")
         isi_onset_only()
+    elif len(sys.argv) == 2 and sys.argv[1] == "--llr-hist":
+        if not torch.cuda.is_available():
+            raise RuntimeError("chip_smoke needs a CUDA device")
+        llr_hist_only()
     elif len(sys.argv) == 2 and sys.argv[1] == "--layouts":
         if not torch.cuda.is_available():
             raise RuntimeError("chip_smoke needs a CUDA device")

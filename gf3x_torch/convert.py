@@ -54,6 +54,6 @@ def load_reference_tables(modem: torch.nn.Module,
             raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                              f"{tuple(buf.shape)}")
         buf.copy_(src.to(buf.dtype))
-    # the FEC gather's tables are derived from fec_index
-    if "fec_index" in tables and hasattr(modem, "codeword_index"):
-        modem._set_codeword_index()
+    # the histogram's and the FEC gather's tables are derived from fec_index
+    if "fec_index" in tables:
+        modem._set_fec_tables()

@@ -66,6 +66,8 @@ int gf3x_czt_fused(const float*, const float2*, const float2*, const float2*,
                    long long, int, int, int, void*);
 int gf3x_isi_onset(const float2*, const float*, const float*, float*,
                    long long, int, int, int, int, int, float, float, void*);
+int gf3x_llr_hist(const float*, const int*, int*, long long, long long, int,
+                  int, void*);
 const char* gf3x_error_string(int);
 }
 
@@ -179,6 +181,8 @@ ENTRY(gf3x_czt_fused, "pppppplllllllp",
 ENTRY(gf3x_isi_onset, "ppppllllllffp",
       gf3x_isi_onset(P(0), P(1), P(2), P(3), L(4), I(5), I(6), I(7), I(8),
                      I(9), F(10), F(11), P(12)))
+ENTRY(gf3x_llr_hist, "pppllllp",
+      gf3x_llr_hist(P(0), P(1), P(2), L(3), L(4), I(5), I(6), P(7)))
 
 PyObject* py_gf3x_error_string(PyObject*, PyObject* const* a, Py_ssize_t n) {
     Val v[1];
@@ -200,7 +204,7 @@ PyMethodDef kMethods[] = {
     METHOD(gf3x_fec_gather),     METHOD(gf3x_fec_gather_tile),
     METHOD(gf3x_czt_pre),        METHOD(gf3x_czt_post),
     METHOD(gf3x_czt_fused),      METHOD(gf3x_isi_onset),
-    METHOD(gf3x_error_string),
+    METHOD(gf3x_llr_hist),       METHOD(gf3x_error_string),
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "gf3x_kernels", nullptr, -1,

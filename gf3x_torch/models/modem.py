@@ -63,6 +63,7 @@ from ..ops.constellation import hard_bits, qam_map
 from ..ops.kernels import cut_dft as _cut_dft
 from ..ops.kernels.fec_gather import fec_gather, reversal_index
 from ..ops.kernels.fused_eq import fused_eq_demap
+from ..ops.kernels.llr_hist import llr_hist, sample_table
 from ..ops.kernels.split_eq import demap_bins, eq_track
 from ..ops.ofdm import deroll, ofdm_dft, ofdm_modulate
 from ..ops.sfo import (auto_retry_needed, prefer_retry, sc_clock_offset,
@@ -174,8 +175,7 @@ class Modem(torch.nn.Module):
             tables["ldpc_parity"] = self._code.P
         for name, arr in tables.items():
             self.register_buffer(name, torch.as_tensor(np.array(arr)))
-        if self._code is not None:
-            self._set_codeword_index()
+        self._set_fec_tables()
         self.to(torch.device("cuda" if device is None else device))
 
     @property
@@ -336,14 +336,6 @@ class Modem(torch.nn.Module):
         S = T // cfg.symbol_len
         return body.reshape(*lead, S, cfg.symbol_len)[..., cfg.cp:]
 
-    @staticmethod
-    def _hist16_of(x: torch.Tensor) -> torch.Tensor:
-        """16-bin log2 bucket of each element: bucket k ⇔ |x| ∈
-        [2^(k-2), 2^(k-1)), clipped to [0, 15] (zeros land in 0), read
-        from the float exponent bits."""
-        e = ((x.abs().view(torch.int32) >> 23) & 0xFF) - 125
-        return torch.clamp(e, 0, 15)
-
     def _spectra(self, syms: torch.Tensor, delta=None, roll=None):
         """CP-stripped symbols (B, K+D, n_fft) → derolled used-band spectra
         (B, K+D, n_used); δ-warped when `delta` is given."""
@@ -483,26 +475,37 @@ class Modem(torch.nn.Module):
                                                       roll=roll)
             return _median(slope_clock_offset(cfg, slope_a))
 
-    def _set_codeword_index(self) -> None:
-        """The FEC gather's tables from `fec_index`: its codewords' part as
-        int32 (the `codeword_index` buffer) and, where that is the reversal
-        of the interleaver's three axes (D, B2, A2), those axes, with which
-        the card takes the tiled kernel (`fec_gather`)."""
+    def _set_fec_tables(self) -> None:
+        """The tables derived from `fec_index`, whose entries the card's
+        kernels trust (checked here to lie in the frame): for every config
+        the histogram's sorted sample table (the `hist_index` buffer,
+        `llr_hist`); with LDPC the FEC gather's, the codewords' part as
+        int32 (`codeword_index`) and, where that is the reversal of the
+        interleaver's three axes (D, B2, A2), those axes, with which the
+        card takes the tiled kernel (`fec_gather`)."""
         cfg = self.cfg
-        idx = self.fec_index[:cfg.n_codewords * cfg.ldpc_n]
-        if idx.numel() and not (0 <= int(idx.min())
-                                and int(idx.max()) < cfg.raw_bits_per_frame):
+        fi = self.fec_index
+        if fi.numel() and not (0 <= int(fi.min())
+                               and int(fi.max()) < cfg.raw_bits_per_frame):
             raise ValueError("fec_index: entries must lie in [0, raw_bits)")
-        idx = idx.to(torch.int32)
-        if "codeword_index" in self._buffers:
-            self.codeword_index.copy_(idx)
-        else:
-            self.register_buffer("codeword_index", idx)
+        self._set_table("hist_index", sample_table(fi))
+        if self._code is None:
+            return
+        idx = fi[:cfg.n_codewords * cfg.ldpc_n].to(torch.int32)
+        self._set_table("codeword_index", idx)
         A2, B2 = scatter_factors(cfg.bits_per_ofdm_symbol)
         axes = (cfg.n_data_symbols, B2, A2)
         rev = reversal_index(*axes)[:idx.numel()]
         self._fec_axes = (axes if np.array_equal(idx.cpu().numpy(), rev)
                           else None)
+
+    def _set_table(self, name: str, value: torch.Tensor) -> None:
+        """Buffer `name` := value: registered at construction, rewritten in
+        place (on its device) afterwards."""
+        if name in self._buffers:
+            self.get_buffer(name).copy_(value)
+        else:
+            self.register_buffer(name, value)
 
     def _codeword_llrs(self, llr: torch.Tensor) -> torch.Tensor:
         """Scrambled wire-order LLRs (B, raw_bits) → descrambled LLRs in
@@ -528,10 +531,9 @@ class Modem(torch.nn.Module):
         (B, 16)); kernel 3 decodes the codewords."""
         cfg = self.cfg
         B = llr.shape[0]
-        with span("diag"):
-            bkt = self._hist16_of(llr[:, self.fec_index[::8]]).long()
-            hist = torch.zeros(B, 16, dtype=torch.int32, device=llr.device)
-            hist.scatter_add_(1, bkt, torch.ones_like(bkt, dtype=torch.int32))
+        with span("diag"), span("llr_hist"):
+            count("llr_hist.samples", B * self.hist_index.shape[0])
+            hist = llr_hist(llr, self.hist_index)
         if cfg.fec != "ldpc":
             with span("fec_gather"):
                 zeros = torch.zeros(B, dtype=torch.int32, device=llr.device)

@@ -7,8 +7,8 @@ Spans. `Modem` wraps each stage of a call in `span(name)`: the public
 entries (`demodulate`, `demodulate_sfo`, ...) open the root span, the
 stages (`sync`, `cut`, `dft` with `warped_dft` on the clock-offset route,
 `chanest`, `eq_demap` with `eq_track` and `demap_bins` on the split
-tail, `fec_gather`, `ldpc` with `ldpc.check` and `ldpc.decode`, `diag`,
-`clock_offset`, ...) its children.
+tail, `fec_gather`, `ldpc` with `ldpc.check` and `ldpc.decode`, `diag`
+with `llr_hist`, `clock_offset`, ...) its children.
 Tracing is on while the torch profiler runs or inside `recording()`;
 while it is off a span is one flag check that returns a shared no-op
 context (no allocation, no `record_function`, no CUDA call). While it is
@@ -39,7 +39,9 @@ rows they transformed (`ofdm.warped_rows`), those of the rows the
 chirp-z transform took (`ofdm.czt_rows`) and those of these its fused
 kernel took (`ofdm.czt_fused_rows`), and on the split tail the frames
 kernel A equalized (`eq_track.rows`) and the coded bits kernel B demapped
-(`demap_bins.llrs`), through `count`.
+(`demap_bins.llrs`), and the LLRs the diagnostics' histogram counted
+(`llr_hist.samples`, inside its `gf3x.llr_hist` span under `gf3x.diag`),
+through `count`.
 
 An operator's stage times, without the profiler's overhead:
 
@@ -78,7 +80,7 @@ _NOOP = contextlib.nullcontext()
 # the counts kept on the host
 HOST_COUNTS = ("ldpc.codewords", "ofdm.warped_dfts", "ofdm.warped_rows",
                "ofdm.czt_rows", "ofdm.czt_fused_rows", "eq_track.rows",
-               "demap_bins.llrs")
+               "demap_bins.llrs", "llr_hist.samples")
 
 
 class Span(NamedTuple):
@@ -229,13 +231,13 @@ def span_totals() -> dict:
 def counters() -> dict:
     """{"ldpc.codewords", "ldpc.queued", "ldpc.sweeps", "ofdm.warped_dfts",
     "ofdm.warped_rows", "ofdm.czt_rows", "ofdm.czt_fused_rows",
-    "eq_track.rows", "demap_bins.llrs"} counted while tracing was on: the
-    codewords given to the LDPC decoder, those the check pass queued for
-    the decode pass and the sweeps they ran; the δ-warped DFTs run, the
-    symbol rows they transformed, those of the rows the chirp-z transform
-    took and those of these its fused kernel took; the frames kernel A
-    equalized and the coded bits kernel B demapped. Synchronises the
-    device."""
+    "eq_track.rows", "demap_bins.llrs", "llr_hist.samples"} counted while
+    tracing was on: the codewords given to the LDPC decoder, those the
+    check pass queued for the decode pass and the sweeps they ran; the
+    δ-warped DFTs run, the symbol rows they transformed, those of the rows
+    the chirp-z transform took and those of these its fused kernel took;
+    the frames kernel A equalized, the coded bits kernel B demapped and the
+    LLRs the histogram counted. Synchronises the device."""
     queued = sweeps = 0
     for b in _T.buffers.values():
         q, s = b.tolist()     # waits for the work queued before it
@@ -247,7 +249,8 @@ def counters() -> dict:
             "ofdm.czt_rows": c["ofdm.czt_rows"],
             "ofdm.czt_fused_rows": c["ofdm.czt_fused_rows"],
             "eq_track.rows": c["eq_track.rows"],
-            "demap_bins.llrs": c["demap_bins.llrs"]}
+            "demap_bins.llrs": c["demap_bins.llrs"],
+            "llr_hist.samples": c["llr_hist.samples"]}
 
 
 def count(name: str, n: int) -> None:

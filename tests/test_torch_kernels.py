@@ -19,11 +19,12 @@ from gf3x.models.frame import interleave_bits as j_interleave
 
 import chip_smoke
 from gf3x_torch import Modem as TModem
+from gf3x_torch.config import CONFIG1_LOOPBACK
 from gf3x_torch.convert import load_reference_tables
 from gf3x_torch.fec.codes import N_BLOCK_COLS
 from gf3x_torch.fec.ldpc import LdpcCode as TCode
 from gf3x_torch.ops.kernels import (czt, fec_gather, fused_eq, gather_cut,
-                                    ldpc_bp, split_eq)
+                                    ldpc_bp, llr_hist, split_eq)
 from gf3x_torch.utils import device
 
 
@@ -374,6 +375,129 @@ def test_loaded_fec_index_refreshes_the_codeword_table():
     bad[5] = GF3_STANDARD.raw_bits_per_frame
     with pytest.raises(ValueError):
         load_reference_tables(tm, {"fec_index": bad})
+
+
+@pytest.mark.parametrize("group", list(chip_smoke.llr_hist_edge_values()))
+def test_llr_hist_plain_buckets_edge_values(group):
+    """`llr_hist_plain` counts each edge value, and its negation, in the
+    bucket gf3x's `_hist16_of` gives it: 2^(k−2) opens bucket k, the float
+    below it closes k − 1 (clipped to [0, 15]); ±0 and denormals fall in
+    0, the largest float, ±inf and NaN in 15."""
+    x = chip_smoke.llr_hist_edge_values()[group]
+    row = np.concatenate([x, -x])
+    want = np.bincount(np.asarray(JModem._hist16_of(jnp.asarray(row))),
+                       minlength=16)
+    got = llr_hist.llr_hist_plain(
+        torch.as_tensor(row)[None], torch.arange(row.size,
+                                                 dtype=torch.int32))
+    assert got.dtype == torch.int32 and got.shape == (1, 16)
+    assert np.array_equal(got[0].numpy(), want)
+    bucket = {"zeros": [0, 0], "denormal": [0], "largest": [15],
+              "infinities": [15, 15], "nan": [15, 15],
+              "edges": [min(k, 15) for k in range(17)],
+              "below_edges": [min(max(k - 1, 0), 15) for k in range(17)]}
+    assert np.array_equal(want, np.bincount(bucket[group] * 2, minlength=16))
+
+
+HIST_CONFIGS = {
+    "config5": GF3_STANDARD,
+    "gf3-8192": GF3_STANDARD.replace(**chip_smoke.WIDE_BANDS["gf3-8192"]),
+    "loaded-cell": "gf3-8192-loaded.b1024-15db-room",
+    "uninterleaved": GF3_STANDARD.replace(interleave=False),
+}
+
+
+def _hist_config(name: str):
+    cfg = HIST_CONFIGS[name]
+    if isinstance(cfg, str):   # the benchmark cell's configuration
+        from benchmark import harness
+        cfg = harness._configs(harness.load_cell(cfg))[0]
+    return cfg
+
+
+@pytest.mark.parametrize("name", list(HIST_CONFIGS))
+def test_llr_hist_sorted_table_counts_gf3x_samples(name):
+    """The Modem's sample table is gf3x's every-8th coded-stream position
+    (its deinterleaver, or none), sorted, int32; the histogram over it
+    equals, row by row, `np.bincount` of gf3x's buckets over gf3x's
+    unsorted samples — and so does the Modem's `_payload_bits`."""
+    cfg = _hist_config(name)
+    tm = TModem(cfg, device="cpu")
+    raw = cfg.raw_bits_per_frame
+    pos = (np.asarray(j_interleave(cfg, jnp.arange(raw), inverse=True))
+           if cfg.interleave else np.arange(raw))[::8]
+    table = tm.hist_index
+    assert table.dtype == torch.int32 and table.shape == (-(-raw // 8),)
+    assert np.array_equal(table.numpy(), np.sort(pos))
+    rng = np.random.default_rng(7)
+    llr = (rng.standard_normal((3, raw))
+           * 10.0 ** rng.uniform(-3, 4, (3, raw))).astype(np.float32)
+    got = llr_hist.llr_hist(torch.as_tensor(llr), table)
+    for r in range(3):
+        want = np.bincount(np.asarray(JModem._hist16_of(
+            jnp.asarray(llr[r, pos]))), minlength=16)
+        assert np.array_equal(got[r].numpy(), want)
+    if cfg.fec == "ldpc" and name != "gf3-8192":
+        assert torch.equal(tm._payload_bits(torch.as_tensor(llr))[3], got)
+
+
+@pytest.mark.parametrize("cfg", [GF3_STANDARD, CONFIG1_LOOPBACK],
+                         ids=["ldpc", "no-ldpc"])
+def test_loaded_fec_index_refreshes_the_hist_table(cfg):
+    """Loading another deinterleaver into a Modem re-derives the
+    histogram's sample table from it, with or without LDPC, and an entry
+    outside the frame is refused there too."""
+    tm = TModem(cfg, device="cpu")
+    assert hasattr(tm, "codeword_index") == (cfg.fec == "ldpc")
+    new = np.random.default_rng(5).permutation(cfg.raw_bits_per_frame)
+    load_reference_tables(tm, {"fec_index": new})
+    assert np.array_equal(tm.hist_index.numpy(), np.sort(new[::8]))
+    if cfg.fec == "ldpc":
+        used = cfg.n_codewords * cfg.ldpc_n
+        assert np.array_equal(tm.codeword_index.numpy(), new[:used])
+    bad = new.copy()
+    bad[8] = -1
+    with pytest.raises(ValueError):
+        load_reference_tables(tm, {"fec_index": bad})
+
+
+def test_llr_hist_wrapper_dispatch():
+    """A CPU tensor runs the plain version and launches nothing; a tensor
+    that is not float32 or 2-D, a table that is not int32, 1-D and
+    non-empty, and tensors neither on the CPU nor on a CUDA device are
+    refused, with no launch."""
+    tm = TModem(GF3_STANDARD, device="cpu")
+    idx = tm.hist_index
+    llr = torch.randn(2, GF3_STANDARD.raw_bits_per_frame)
+    before = llr_hist.llr_hist.launches
+    assert torch.equal(llr_hist.llr_hist(llr, idx),
+                       llr_hist.llr_hist_plain(llr, idx))
+    for bad in ((llr.double(), idx), (llr.half(), idx), (llr[0], idx),
+                (llr, idx.long()), (llr, idx[:, None]), (llr, idx[:0]),
+                (llr.to("meta"), idx.to("meta")), (llr.to("meta"), idx),
+                (llr, idx.to("meta"))):
+        with pytest.raises(ValueError):
+            llr_hist.llr_hist(*bad)
+    assert llr_hist.llr_hist.launches == before
+
+
+def test_llr_hist_chunk_fills_the_card():
+    """A batch whose rows give every SM FILL_BLOCKS blocks counts a row a
+    block (a plain store, no zeroing); fewer rows split each row into
+    equal chunks of at least MIN_CHUNK samples until the card is full."""
+    n8192 = -(-GF3_STANDARD.replace(
+        **chip_smoke.WIDE_BANDS["gf3-8192"]).raw_bits_per_frame // 8)
+    assert n8192 == 29400
+    for B, n in ((1024, n8192), (1023, n8192), (528, n8192), (64, n8192),
+                 (1, n8192), (1, 1225), (1024, 1225), (7, 4000)):
+        chunk = llr_hist.llr_hist_chunk(B, n, 132)
+        chunks = -(-n // chunk)
+        assert 1 <= chunk <= n
+        assert chunk >= llr_hist.MIN_CHUNK or chunks == 1
+        assert (B * chunks >= 132 * llr_hist.FILL_BLOCKS
+                or chunks == max(n // llr_hist.MIN_CHUNK, 1))
+    assert llr_hist.llr_hist_chunk(1024, n8192, 132) == n8192
+    assert llr_hist.llr_hist_chunk(1, n8192, 132) == 2100
 
 
 def test_cut_symbols_wrapper_dispatch():

@@ -23,6 +23,8 @@ CFG = preset("gf3-standard")
 MARGIN = 1024
 STAGES = {"gf3x.sync", "gf3x.cut", "gf3x.dft", "gf3x.chanest",
           "gf3x.eq_demap", "gf3x.fec_gather", "gf3x.ldpc", "gf3x.diag"}
+# the spans a plain `demodulate` on the CPU nests inside a stage
+NESTED = {"gf3x.llr_hist": "gf3x.diag"}
 # the CUDA runtime calls that issue device work (benchmark/trace.py's rule)
 RUNTIME = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|"
                      r"Memcpy|Memset)")
@@ -69,7 +71,8 @@ def noisy_lam(z: int = 96, L: int = 24, sigma: float = 0.8, seed: int = 5):
 
 def test_a_call_is_one_root_with_its_stages(cpu_case, clean):
     """Two `demodulate` calls under torch.profiler: one root span each,
-    every stage span a child of its call's root, sharing the root's id."""
+    every stage span a child of its call's root, sharing the root's id,
+    and every other span a child of the stage it belongs to (NESTED)."""
     modem, rx = cpu_case
     with profile(activities=[ProfilerActivity.CPU]):
         modem.demodulate(rx)
@@ -82,7 +85,9 @@ def test_a_call_is_one_root_with_its_stages(cpu_case, clean):
         kids = [r for r in recs if r.parent == root]
         assert {r.name for r in kids} == STAGES
         assert all(r.call == recs[root].call for r in kids)
-    assert all(r.parent in roots for r in recs if r.parent != -1)
+    assert all(r.parent in roots or recs[r.parent].name == NESTED[r.name]
+               for r in recs if r.parent != -1)
+    assert all(r.call == recs[r.parent].call for r in recs if r.parent != -1)
 
 
 def test_every_aten_op_lies_in_a_stage(cpu_case, clean):
@@ -129,7 +134,8 @@ def test_spans_off_record_nothing(cpu_case, clean, monkeypatch):
                                     "ofdm.czt_rows": 0,
                                     "ofdm.czt_fused_rows": 0,
                                     "eq_track.rows": 0,
-                                    "demap_bins.llrs": 0}
+                                    "demap_bins.llrs": 0,
+                                    "llr_hist.samples": 0}
 
 
 def test_span_totals_are_idempotent(cpu_case, clean):
@@ -142,7 +148,7 @@ def test_span_totals_are_idempotent(cpu_case, clean):
         modem.demodulate(rx)
     first = profiling.span_totals()
     assert first == profiling.span_totals()
-    assert set(first) == STAGES | {"gf3x.demodulate"}
+    assert set(first) == STAGES | set(NESTED) | {"gf3x.demodulate"}
     root = first["gf3x.demodulate"]
     assert root["count"] == 2 and first["gf3x.ldpc"]["count"] == 2
     kids = sum(first[n]["host_s"] for n in STAGES)
@@ -176,7 +182,8 @@ def test_plain_ldpc_counts_are_the_passes(clean):
                                     "ofdm.czt_rows": 0,
                                     "ofdm.czt_fused_rows": 0,
                                     "eq_track.rows": 0,
-                                    "demap_bins.llrs": 0}
+                                    "demap_bins.llrs": 0,
+                                    "llr_hist.samples": 0}
 
 
 @pytest.fixture(scope="module")
@@ -259,9 +266,28 @@ def test_fused_tail_records_no_split_spans(cpu_case, clean):
     assert c["eq_track.rows"] == c["demap_bins.llrs"] == 0
 
 
+def test_llr_hist_nests_in_diag_and_counts_its_samples(cpu_case, clean):
+    """One `demodulate` records one `gf3x.llr_hist` span, a child of the
+    first `gf3x.diag`, and counts rows × ⌈R/8⌉ sampled LLRs; an untraced
+    call counts none."""
+    modem, rx = cpu_case
+    modem.demodulate(rx)
+    assert profiling.counters()["llr_hist.samples"] == 0
+    with profiling.recording():
+        modem.demodulate(rx)
+    recs = profiling.records()
+    hist = [r for r in recs if r.name == "gf3x.llr_hist"]
+    assert len(hist) == 1
+    diag = [i for i, r in enumerate(recs) if r.name == "gf3x.diag"]
+    assert len(diag) == 2 and hist[0].parent == diag[0]
+    assert profiling.counters()["llr_hist.samples"] == (
+        rx.shape[0] * -(-CFG.raw_bits_per_frame // 8))
+
+
 WARPED_READERS = ("warped_dft.device_ms", "clock_offset.device_ms",
                   "warped_dft_roofline")
 SPLIT_READERS = ("eq_track_roofline", "demap_bins_roofline")
+HIST_READERS = ("llr_hist_roofline",)
 
 
 def reader_ctx(device: bool, steps: int = 16) -> dict:
@@ -277,7 +303,8 @@ def reader_ctx(device: bool, steps: int = 16) -> dict:
                 (harness.ROOT / "benchmark" / "peaks.json").read_text())}
 
 
-@pytest.mark.parametrize("name", WARPED_READERS + SPLIT_READERS)
+@pytest.mark.parametrize("name", WARPED_READERS + SPLIT_READERS
+                         + HIST_READERS)
 def test_warped_readers_say_nothing_without_a_card(name, clean):
     """Without device work in the trace each of these readers returns
     None."""
@@ -350,6 +377,39 @@ def test_split_rooflines_read_the_records(name, monkeypatch):
     assert read(dict(ctx, params=params)) is None
 
 
+HIST_CELLS = ("gf3-8192.b1024-20db", "gf3-8192.b1024-30db",
+              "gf3-8192.clock150-30db", "gf3-8192-loaded.b1024-15db-room")
+
+
+@pytest.mark.parametrize("cell", HIST_CELLS)
+def test_llr_hist_roofline_reads_the_records(cell, monkeypatch):
+    """The histogram's roofline from the program's records in each cell
+    that lists it: 4 bytes a sampled LLR and 64 a row (B = 1024 rows of
+    ⌈R/8⌉ samples a step, R from the cell's configuration) at the HBM
+    peak over the span's device time; None where the program has no such
+    span or counter (a checkout older than them)."""
+    from benchmark import harness, spans
+
+    ctx = dict(reader_ctx(True),
+               cfg=harness.reference_config(harness.load_cell(cell)))
+    cfg, steps, B = ctx["cfg"], ctx["trace"].steps, 1024
+    n = -(-cfg.raw_bits_per_frame // 8)
+    counts = {"llr_hist.samples": steps * B * n}
+    totals = {"gf3x.llr_hist": {"device_s": steps * 1e-4}}
+    monkeypatch.setattr(spans, "_profiling", lambda ctx: types.SimpleNamespace(
+        span_totals=lambda: totals, counters=lambda: counts))
+    read, params = harness._reader(harness.ROOT, "llr_hist_roofline")
+    assert params["layer"] == "diagnostics"
+    got = read(dict(ctx, params=params))
+    want = 100.0 * B * (4 * n + 64) / ctx["peaks"]["hbm_bytes_per_s"] / 1e-4
+    assert got == pytest.approx(want) and 20.0 < got < 50.0
+    del counts["llr_hist.samples"]
+    assert read(dict(ctx, params=params)) is None
+    counts["llr_hist.samples"] = steps * B * n
+    del totals["gf3x.llr_hist"]
+    assert read(dict(ctx, params=params)) is None
+
+
 @pytest.mark.card
 def test_device_counters_on_the_card(clean, monkeypatch):
     """Kernel 3's decode pass counts on the card: the counters equal the
@@ -373,7 +433,8 @@ def test_device_counters_on_the_card(clean, monkeypatch):
         "ldpc.codewords": lam.shape[0], "ldpc.queued": int((passes > 0).sum()),
         "ldpc.sweeps": int(passes.sum()), "ofdm.warped_dfts": 0,
         "ofdm.warped_rows": 0, "ofdm.czt_rows": 0,
-        "ofdm.czt_fused_rows": 0, "eq_track.rows": 0, "demap_bins.llrs": 0}
+        "ofdm.czt_fused_rows": 0, "eq_track.rows": 0, "demap_bins.llrs": 0,
+        "llr_hist.samples": 0}
 
     modem = Modem(CFG, max_delay=MARGIN + CFG.cp)
     rx = recordings(modem, 64, 4.0)
