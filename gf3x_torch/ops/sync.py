@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import ModemConfig
+from ..utils.profiling import count
 from .kernels import cut_dft as _cut_dft
 from .kernels import gather_cut as _cut
 
@@ -239,7 +240,11 @@ def cut_symbols(rx: torch.Tensor, starts: torch.Tensor, *, S: int,
       (`gather_cut_group`) cuts gf3x's 8-block-rounded windows, then the
       same slice;
     - otherwise (tiny-CP blocks under 128 included): kernel 1
-      (`ops.kernels.gather_cut.cut_symbols`), the fused cut."""
+      (`ops.kernels.gather_cut.cut_symbols`), the fused cut.
+
+    While tracing is on, the rows each route cut are counted from the
+    shapes: `cut.window_rows` (kernel 7), `cut.group_rows` (kernel 6),
+    `cut.fused_rows` (kernel 1)."""
     *lead, T = rx.shape
     starts = torch.broadcast_to(starts.to(rx.device), tuple(lead))
     q, valid, r = cut_plan(T, starts, S=S, n_fft=n_fft, sym_len=sym_len,
@@ -248,15 +253,18 @@ def cut_symbols(rx: torch.Tensor, starts: torch.Tensor, *, S: int,
     geo = dict(S=S, n_fft=n_fft, body_off=body_off, sym_len=sym_len,
                sc_off=sc_off)
     if rx2.shape[0] % 8:
+        count("cut.window_rows", rx2.shape[0])
         win = _cut.gather_cut(rx2, q, _cut.window_blocks(block, **geo),
                               block, valid)
         syms, scw = _cut.window_symbols(win, cp=cp, **geo)
     elif block % 128 == 0 and fused_cut_refuses(T, cp=cp, block=block,
                                                 **geo):
+        count("cut.group_rows", rx2.shape[0])
         win = _cut.gather_cut_group(rx2, q, _cut.group_blocks(block, **geo),
                                     block)
         syms, scw = _cut.window_symbols(win, cp=cp, **geo)
     else:
+        count("cut.fused_rows", rx2.shape[0])
         syms, scw = _cut.cut_symbols(rx2, q, valid=valid, block=block,
                                      cp=cp, **geo)
     syms = syms.reshape(*lead, S, n_fft)

@@ -41,7 +41,9 @@ kernel took (`ofdm.czt_fused_rows`), and on the split tail the frames
 kernel A equalized (`eq_track.rows`) and the coded bits kernel B demapped
 (`demap_bins.llrs`), and the LLRs the diagnostics' histogram counted
 (`llr_hist.samples`, inside its `gf3x.llr_hist` span under `gf3x.diag`),
-through `count`.
+and the rows each of the cut's three routes took (`cut.fused_rows` kernel
+1, `cut.group_rows` kernel 6, `cut.window_rows` kernel 7), through
+`count`.
 
 An operator's stage times, without the profiler's overhead:
 
@@ -80,7 +82,8 @@ _NOOP = contextlib.nullcontext()
 # the counts kept on the host
 HOST_COUNTS = ("ldpc.codewords", "ofdm.warped_dfts", "ofdm.warped_rows",
                "ofdm.czt_rows", "ofdm.czt_fused_rows", "eq_track.rows",
-               "demap_bins.llrs", "llr_hist.samples")
+               "demap_bins.llrs", "llr_hist.samples", "cut.fused_rows",
+               "cut.group_rows", "cut.window_rows")
 
 
 class Span(NamedTuple):
@@ -229,28 +232,19 @@ def span_totals() -> dict:
 
 
 def counters() -> dict:
-    """{"ldpc.codewords", "ldpc.queued", "ldpc.sweeps", "ofdm.warped_dfts",
-    "ofdm.warped_rows", "ofdm.czt_rows", "ofdm.czt_fused_rows",
-    "eq_track.rows", "demap_bins.llrs", "llr_hist.samples"} counted while
-    tracing was on: the codewords given to the LDPC decoder, those the
-    check pass queued for the decode pass and the sweeps they ran; the
-    δ-warped DFTs run, the symbol rows they transformed, those of the rows
-    the chirp-z transform took and those of these its fused kernel took;
-    the frames kernel A equalized, the coded bits kernel B demapped and the
-    LLRs the histogram counted. Synchronises the device."""
+    """Each of HOST_COUNTS and the decode pass's "ldpc.queued" and
+    "ldpc.sweeps", counted while tracing was on: the codewords given to
+    the LDPC decoder, those the check pass queued for the decode pass and
+    the sweeps they ran; the δ-warped DFTs run, the symbol rows they
+    transformed, those of the rows the chirp-z transform took and those of
+    these its fused kernel took; the frames kernel A equalized, the coded
+    bits kernel B demapped and the LLRs the histogram counted; the rows
+    kernels 1, 6 and 7 cut. Synchronises the device."""
     queued = sweeps = 0
     for b in _T.buffers.values():
         q, s = b.tolist()     # waits for the work queued before it
         queued, sweeps = queued + q, sweeps + s
-    c = _T.counts
-    return {"ldpc.codewords": c["ldpc.codewords"], "ldpc.queued": queued,
-            "ldpc.sweeps": sweeps, "ofdm.warped_dfts": c["ofdm.warped_dfts"],
-            "ofdm.warped_rows": c["ofdm.warped_rows"],
-            "ofdm.czt_rows": c["ofdm.czt_rows"],
-            "ofdm.czt_fused_rows": c["ofdm.czt_fused_rows"],
-            "eq_track.rows": c["eq_track.rows"],
-            "demap_bins.llrs": c["demap_bins.llrs"],
-            "llr_hist.samples": c["llr_hist.samples"]}
+    return {**_T.counts, "ldpc.queued": queued, "ldpc.sweeps": sweeps}
 
 
 def count(name: str, n: int) -> None:

@@ -20,6 +20,7 @@ from gf3x.ops.pallas.gather_cut import gather_cut_group_tpu, gather_cut_tpu
 
 from gf3x_torch.ops import sync as tsync
 from gf3x_torch.ops.kernels import gather_cut as tcut
+from gf3x_torch.utils import profiling
 
 BLOCK = 128
 GEOM = dict(S=5, n_fft=512, sym_len=640, cp=128, body_off=640, sc_off=96,
@@ -105,6 +106,10 @@ ROUTES = {
                       "gather_cut_group"),
     "B8-block32-kernel1": (8, dict(GEOM, block=32), "cut_symbols"),
 }
+# the host counter of each route's rows (`utils.profiling`)
+COUNTERS = {"gather_cut": "cut.window_rows",
+            "gather_cut_group": "cut.group_rows",
+            "cut_symbols": "cut.fused_rows"}
 
 
 @pytest.mark.parametrize("case", list(ROUTES))
@@ -114,7 +119,8 @@ def test_cut_symbols_route_by_batch(case, monkeypatch):
     geometry gf3x's fused cut refuses (an offset off the 128 grid with a
     128-sample block; `GEOM`'s sc_off = 96), and kernel 1 otherwise —
     the tiny-block case included (gf3x/ops/sync.py:329-348, 388-402) —
-    and every route gives gf3x's cut exactly."""
+    and every route gives gf3x's cut exactly and counts its B rows under
+    its own host counter."""
     B, geom, route = ROUTES[case]
     rx, rng = ragged(B, 30 + B)
     starts = rng.integers(0, 4000, B).astype(np.int32)
@@ -124,9 +130,15 @@ def test_cut_symbols_route_by_batch(case, monkeypatch):
         monkeypatch.setattr(
             tcut, name,
             lambda *a, _n=name, _f=real, **k: called.append(_n) or _f(*a, **k))
-    syms, scw, roll = tsync.cut_symbols(torch.as_tensor(rx),
-                                        torch.as_tensor(starts), **geom)
+    profiling.reset()
+    with profiling.recording():
+        syms, scw, roll = tsync.cut_symbols(torch.as_tensor(rx),
+                                            torch.as_tensor(starts), **geom)
+    counted = profiling.counters()
+    profiling.reset()
     assert called == [route]
+    assert {k: counted[k] for k in COUNTERS.values()} == {
+        k: B if k == COUNTERS[route] else 0 for k in COUNTERS.values()}
     r_syms, r_scw, r_roll = jsync.cut_symbols(jnp.asarray(rx),
                                               jnp.asarray(starts), **geom)
     assert np.array_equal(syms.numpy(), np.asarray(r_syms))

@@ -135,7 +135,10 @@ def test_spans_off_record_nothing(cpu_case, clean, monkeypatch):
                                     "ofdm.czt_fused_rows": 0,
                                     "eq_track.rows": 0,
                                     "demap_bins.llrs": 0,
-                                    "llr_hist.samples": 0}
+                                    "llr_hist.samples": 0,
+                                    "cut.fused_rows": 0,
+                                    "cut.group_rows": 0,
+                                    "cut.window_rows": 0}
 
 
 def test_span_totals_are_idempotent(cpu_case, clean):
@@ -183,7 +186,10 @@ def test_plain_ldpc_counts_are_the_passes(clean):
                                     "ofdm.czt_fused_rows": 0,
                                     "eq_track.rows": 0,
                                     "demap_bins.llrs": 0,
-                                    "llr_hist.samples": 0}
+                                    "llr_hist.samples": 0,
+                                    "cut.fused_rows": 0,
+                                    "cut.group_rows": 0,
+                                    "cut.window_rows": 0}
 
 
 @pytest.fixture(scope="module")
@@ -288,6 +294,7 @@ WARPED_READERS = ("warped_dft.device_ms", "clock_offset.device_ms",
                   "warped_dft_roofline")
 SPLIT_READERS = ("eq_track_roofline", "demap_bins_roofline")
 HIST_READERS = ("llr_hist_roofline",)
+CUT_READERS = ("cut.fused_pct",)
 
 
 def reader_ctx(device: bool, steps: int = 16) -> dict:
@@ -304,7 +311,7 @@ def reader_ctx(device: bool, steps: int = 16) -> dict:
 
 
 @pytest.mark.parametrize("name", WARPED_READERS + SPLIT_READERS
-                         + HIST_READERS)
+                         + HIST_READERS + CUT_READERS)
 def test_warped_readers_say_nothing_without_a_card(name, clean):
     """Without device work in the trace each of these readers returns
     None."""
@@ -410,6 +417,29 @@ def test_llr_hist_roofline_reads_the_records(cell, monkeypatch):
     assert read(dict(ctx, params=params)) is None
 
 
+@pytest.mark.parametrize("rows,want", [
+    ((16 * 16384, 0, 0), 100.0), ((0, 16 * 1024, 0), 0.0),
+    ((24, 0, 8), 75.0), ((0, 0, 0), None), (None, None)])
+def test_cut_fused_pct_reads_the_route_counters(rows, want, monkeypatch):
+    """The fused cut's share of the rows cut, from the program's counters
+    of the three routes (kernels 1, 6, 7) over the profiled steps; None
+    where no row was cut or the program has no such counters (a checkout
+    older than them)."""
+    from benchmark import harness, spans
+
+    routes = ("cut.fused_rows", "cut.group_rows", "cut.window_rows")
+    counts = {"ldpc.codewords": 4}
+    if rows is not None:
+        counts.update(zip(routes, rows))
+    monkeypatch.setattr(spans, "_profiling", lambda ctx: types.SimpleNamespace(
+        span_totals=lambda: {}, counters=lambda: counts))
+    read, params = harness._reader(harness.ROOT, "cut.fused_pct")
+    assert params == {"layer": "cut", "source": "program_counter",
+                      "unit": "%"}
+    got = read(dict(reader_ctx(True), params=params))
+    assert got == (None if want is None else pytest.approx(want))
+
+
 @pytest.mark.card
 def test_device_counters_on_the_card(clean, monkeypatch):
     """Kernel 3's decode pass counts on the card: the counters equal the
@@ -434,7 +464,8 @@ def test_device_counters_on_the_card(clean, monkeypatch):
         "ldpc.sweeps": int(passes.sum()), "ofdm.warped_dfts": 0,
         "ofdm.warped_rows": 0, "ofdm.czt_rows": 0,
         "ofdm.czt_fused_rows": 0, "eq_track.rows": 0, "demap_bins.llrs": 0,
-        "llr_hist.samples": 0}
+        "llr_hist.samples": 0, "cut.fused_rows": 0, "cut.group_rows": 0,
+        "cut.window_rows": 0}
 
     modem = Modem(CFG, max_delay=MARGIN + CFG.cp)
     rx = recordings(modem, 64, 4.0)
@@ -458,3 +489,4 @@ def test_device_counters_on_the_card(clean, monkeypatch):
     assert untraced == traced > 0
     assert profiling.span_totals()["gf3x.demodulate"]["count"] == 1
     assert profiling.counters()["ldpc.codewords"] == 64 * CFG.n_codewords
+    assert profiling.counters()["cut.fused_rows"] == 64
